@@ -1,0 +1,427 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (``st_ito_torch``) on one NVIDIA card.
+
+    python3 chip_smoke.py [--record PATH]
+
+Phases, in order; any failure raises and the script exits non-zero:
+
+1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
+2. build every CUDA kernel of the main path from ``st_ito_torch/csrc``
+   (one nvcc per source, all started together);
+3. K1 (fused EQ -> compressor -> distortion scan) against its plain
+   PyTorch version on the card, mixed bypass throughout: B=37, stereo,
+   T=20011 (ragged lane blocks and tiles), shared and per-candidate input;
+   then the main path's shape, B=512, stereo, T=262144, shared input, in
+   full; then K1's time there;
+4. K9 (fused delay + reverb response and packed apply) against its plain
+   version, fractional delays and mixed bypass: n=2^19 at B=100 (a ragged
+   candidate chunk) and at the main path's B=512; then its time there;
+5. the main path: ``run_es`` with the basic chain, a random-weight Cnn14 at
+   the deployed config, stereo T=262144 at 48 kHz, popsize 512,
+   fft_mode="mx": one warm-up block and one timed block of 2 generations,
+   with every kernel's launch count read around the timed run;
+6. bfloat16 against float32 fitness on a population of 64;
+7. the ``kernels`` JSON line, then the card line and the result line.
+
+``--record PATH`` also writes the full record, compiler reports included,
+as JSON. There is no CPU path: without a card the script exits non-zero and
+prints no result.
+"""
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+SR = 48000
+T_HEAD = 262144
+POP = 512
+GENS = 2
+
+# Published peaks of one H100 SXM (NVIDIA data sheet): HBM rate and float32
+# outside the tensor cores; both kernels are float32 CUDA-core code.
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# float32 operations per sample and lane of K1 (a transcendental counts as
+# one): 6 biquads x 9, EQ blend 4, gain computer 12, ballistics 9, gain
+# apply 4, comp blend 4, tanh distortion 3, dist blend 4.
+K1_OPS_PER_SAMPLE = 94
+# float32 operations per (candidate, bin) of K9 with delay + reverb: the
+# delay's response 30, the reverb's 16 comb reciprocals (9 each) plus 40,
+# two bypass blends 8, one monomix composition 24, packed coefficients 16,
+# the packed apply 28, the DC/Nyquist blend amortised to 0.
+K9_OPS_PER_BIN = 30 + 16 * 9 + 40 + 8 + 24 + 16 + 28
+
+
+def log(*a):
+    print(*a, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()
+    return out[0]
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean device ms of fn over reps calls after one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def once_ms(fn):
+    """(result, device ms) of one call."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+# ------------------------------------------------------------------ K1
+
+
+def k1_inputs(B, C, T, seed, shared, dev):
+    """The kernel's (x_in, vec, S, with_dist, shared_channels) for a basic
+    chain head with random parameters and mixed bypass masks."""
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.chain.executor import stage_params
+    from st_ito_torch.chain.responses import _eq_section_stack
+    from st_ito_torch.ops.dynamics import _time_constant_alpha
+    from st_ito_torch.ops.kernels import eqcomp
+
+    rng = np.random.default_rng(seed)
+    chain = basic_chain()
+    W = torch.from_numpy(rng.random((B, chain.num_params)).astype(np.float32))
+    (eq, es, _), (cp, cs, _), (ds, dstart, _) = chain.stage_slices()[:3]
+    p_eq, p_c, p_d = (stage_params(s, W, st, 1)
+                      for s, st in ((eq, es), (cp, cs), (ds, dstart)))
+    b, a = _eq_section_stack(p_eq, SR)
+    x = torch.from_numpy(rng.standard_normal(
+        (C, T) if shared else (B, C, T)).astype(np.float32) * 0.5)
+
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float32)[:, None].to(dev)
+
+    def act(s):
+        return col((W[:, s] <= 0.5).float())
+
+    return eqcomp.eqcomp_inputs(
+        x.to(dev), b[:, None].to(dev), a[:, None].to(dev),
+        threshold_db=col(p_c["threshold_db"]), ratio=col(p_c["ratio"]),
+        knee_db=0.5,
+        alpha_attack=col(_time_constant_alpha(p_c["attack_ms"], SR)),
+        alpha_release=col(_time_constant_alpha(p_c["release_ms"], SR)),
+        makeup_gain_db=0.0, eq_active=act(es), comp_active=act(cs),
+        drive_db=col(p_d["drive_db"]), dist_gain_db=col(p_d["output_gain_db"]),
+        dist_active=act(dstart), shared_lead_shape=(B, C) if shared else None
+    )[:5]
+
+
+def k1_check(args, label):
+    """Max |kernel - plain| on one input set (atol 1e-4), and the plain
+    version's ms."""
+    from st_ito_torch.ops.kernels import eqcomp
+
+    got = eqcomp.eqcomp_cuda(*args)
+    want, plain_ms = once_ms(lambda: eqcomp.eqcomp_plain(*args))
+    e = float((got - want).abs().max())
+    log(f"K1 {label}: max |kernel - plain| = {e!r} (plain {plain_ms!r} ms)")
+    if not math.isfinite(e) or e > 1e-4:
+        raise AssertionError(f"K1 disagrees with its plain version: {e}")
+    return e, plain_ms
+
+
+def phase_k1(dev, rec):
+    from st_ito_torch.ops.kernels import eqcomp
+
+    # B 37: 74 lanes, three 32-lane blocks with the last one ragged; T 20011
+    # is not a multiple of the 32-sample tile
+    err = max(k1_check(k1_inputs(37, 2, 20011, 1, shared, dev),
+                       f"B 37, T 20011, shared={shared}")[0]
+              for shared in (True, False))
+    # the main path's own shape: every block, over the whole of T
+    head = k1_inputs(POP, 2, T_HEAD, 2, True, dev)
+    e, rec["plain_ms"] = k1_check(head, f"headline B {POP}, T {T_HEAD}, "
+                                        "shared=True")
+    rec["max_abs_err"] = max(err, e)
+    rec["ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
+    lanes = POP * 2
+    rec["bytes"] = 4 * (lanes * T_HEAD + head[0].numel() + head[1].numel())
+    rec["operations"] = K1_OPS_PER_SAMPLE * lanes * T_HEAD
+    log(f"K1 headline (lanes {lanes}, T {T_HEAD}): {rec['ms']!r} ms")
+
+
+# ------------------------------------------------------------------ K9
+
+
+def k9_case(B, n, seed, dev):
+    from st_ito_torch.ops.kernels import packed_response as k9
+
+    rng = np.random.default_rng(seed)
+    F = n // 2 + 1
+    Z = [torch.from_numpy(rng.standard_normal((B, F)).astype(np.float32))
+         .to(dev) for _ in range(4)]
+    delay = {"delay_seconds": rng.uniform(0.01, 1.0, B) + 0.37 / SR,
+             "feedback": rng.uniform(0.05, 1.0, B),
+             "mix": rng.uniform(0.0, 1.0, B)}
+    reverb = {k: rng.uniform(0.0, 1.0, B)
+              for k in ("room_size", "damping", "wet_dry", "width")}
+    stages = []
+    for effect, p in (("delay", delay), ("reverb", reverb)):
+        m = rng.random(B) > 0.4
+        m[0] = True
+        stages.append((effect,
+                       {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
+                        for k, v in p.items()},
+                       torch.as_tensor(m, device=dev)))
+    tables = k9.rp_tables(["delay", "reverb"], SR, n, dev)
+    return Z, stages, tables
+
+
+def k9_check(case, label):
+    """(max |kernel - plain|, that relative to max |Y|, plain ms) on one
+    case; the relative error must stay within 1e-4."""
+    from st_ito_torch.ops.kernels import packed_response as k9
+
+    got = k9.packed_response_cuda(*case[0], *case[1:])
+    want, plain_ms = once_ms(
+        lambda: k9.packed_response_plain(*case[0], *case[1:]))
+    scale = max(float(w.abs().max()) for w in want)
+    err = max(float((g - w).abs().max()) for g, w in zip(got, want))
+    rel = err / scale
+    log(f"K9 {label}: max |kernel - plain| = {err!r}, max |Y| = {scale!r}, "
+        f"relative {rel!r} (plain {plain_ms!r} ms)")
+    if not math.isfinite(rel) or rel > 1e-4:
+        raise AssertionError(f"K9 disagrees with its plain version: {rel}")
+    return err, rel, plain_ms
+
+
+def phase_k9(dev, rec):
+    from st_ito_torch.ops.kernels import packed_response as k9
+
+    n = 2 ** 19
+    # B 100: two 64-candidate chunks per frequency tile, the second ragged
+    err, rel, _ = k9_check(k9_case(100, n, 3, dev), "n 2^19, B 100")
+    # the main path's own shape: all 8 candidate chunks of every tile
+    case = k9_case(POP, n, 4, dev)
+    e, r, rec["plain_ms"] = k9_check(case, f"headline n 2^19, B {POP}")
+    rec["max_abs_err"] = max(err, e)
+    rec["max_rel_err"] = max(rel, r)
+    rec["ms"] = cuda_ms(lambda: k9.packed_response_cuda(*case[0], *case[1:]),
+                        5)
+    tables = case[2]
+    F = n // 2 + 1
+    rec["bytes"] = 4 * (8 * POP * F + tables["reverb"]["_packed"].numel()
+                        + 9 * POP)
+    rec["operations"] = K9_OPS_PER_BIN * POP * F
+    log(f"K9 headline (B {POP}, F {F}): {rec['ms']!r} ms")
+
+
+# ------------------------------------------------------------ main path
+
+
+def program_audio(seed, T):
+    """(1, 2, T) program material: a noise floor under enveloped partials
+    (white noise alone makes every candidate embed alike)."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(T, dtype=np.float32) / SR
+    sig = 0.05 * rng.standard_normal((2, T)).astype(np.float32)
+    for f0, amp in ((110.0, 0.3), (220.0, 0.22), (331.0, 0.15),
+                    (551.0, 0.1), (1103.0, 0.07)):
+        env = (0.5 + 0.5 * np.sin(2 * np.pi * (0.31 * amp + 0.13) * t))
+        sig += (amp * env * np.sin(2 * np.pi * f0 * t + rng.uniform(0, 6.28))
+                ).astype(np.float32)
+    return torch.from_numpy(sig[None] * 0.5)
+
+
+def styled_target(x, chain, dev, seed):
+    """x rendered through the basic chain at one random setting."""
+    from st_ito_torch.chain import build_batched_render_fn
+
+    w = torch.from_numpy(np.random.default_rng(seed).uniform(
+        0.25, 0.75, (1, chain.num_params)).astype(np.float32))
+    return build_batched_render_fn(chain, SR, 2, device=dev)(
+        w, x[0].to(dev))
+
+
+def phase_main(dev, model, rec):
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.ito import run_es
+    from st_ito_torch.ops.kernels import eqcomp
+    from st_ito_torch.ops.kernels import packed_response as k9
+    from st_ito_torch.utils import phase_timer
+
+    chain = basic_chain()
+    x = program_audio(0, T_HEAD)
+    y = styled_target(x, chain, dev, 1)
+    common = dict(popsize=POP, find_w0=False, sigma0=0.33, crop_len=T_HEAD,
+                  seed=0, verbose=False, early_stop_patience=10**9,
+                  gens_per_dispatch=GENS, fft_mode="mx", device=dev)
+    t0 = time.perf_counter()
+    run_es(x, y, SR, chain, model, max_iters=GENS, **common)  # warm-up
+    torch.cuda.synchronize()
+    log(f"main path warm-up block: {time.perf_counter() - t0!r} s")
+
+    torch.cuda.reset_peak_memory_stats()
+    phase_timer.reset(True)
+    eqcomp.launches = 0
+    k9.launches = 0
+    res = run_es(x, y, SR, chain, model, max_iters=GENS, **common)
+    launches = {"k1": eqcomp.launches, "k9": k9.launches}
+    spans = phase_timer.read_ms()
+    phase_timer.reset(False)
+
+    # the timed block's generations, then run_es's output render (B = 1)
+    for name, count in launches.items():
+        if count != GENS + 1:
+            raise AssertionError(
+                f"{name} launched {count} times in {GENS} generations and "
+                f"the output render; expected {GENS + 1}")
+    hist = np.asarray(res["fval_history"])
+    if hist.shape != (GENS,) or not np.isfinite(hist).all():
+        raise AssertionError(f"fitness history {hist}")
+    out = res["output_audio"]
+    if out.shape != (1, 2, T_HEAD) or not torch.isfinite(out).all():
+        raise AssertionError("output audio is not finite (1, 2, T)")
+    phases = {}
+    for name, ms in spans.items():
+        per_gen = ms[:GENS] if name in ("k1", "fft_fwd", "k9", "fft_inv") \
+            else ms
+        phases[name] = sum(per_gen) / GENS
+    rec.update(
+        evals_per_sec=res["evals_per_sec"],
+        ms_per_generation=1e3 * res["time_elapsed"] / GENS,
+        phase_ms_per_generation=phases, launches=launches,
+        fval_history=hist.tolist(),
+        max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(f"main path: {res['evals_per_sec']!r} evals/s, "
+        f"{rec['ms_per_generation']!r} ms/generation, launches {launches}")
+    log("per-phase device ms per generation: " + json.dumps(phases))
+    log(f"max_memory_allocated: {rec['max_memory_allocated_bytes']} bytes")
+    log(f"fitness history: {hist.tolist()}")
+    return launches
+
+
+def phase_dtype(dev, model, rec):
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.ito import make_fitness_fn
+    from st_ito_torch.models import get_param_embeds
+
+    chain = basic_chain()
+    x = program_audio(5, T_HEAD)
+    x = (x / x.abs().max()).to(dev)
+    y = styled_target(x.cpu(), chain, dev, 6)
+    target = get_param_embeds(y, model, SR)
+    W = np.random.default_rng(7).random((64, chain.num_params))
+    v32 = make_fitness_fn(chain, model, SR, 2, compute_dtype="float32",
+                          device=dev)(W, x[0], target).cpu().numpy()
+    v16 = make_fitness_fn(chain, model, SR, 2, compute_dtype="bfloat16",
+                          device=dev)(W, x[0], target).cpu().numpy()
+    delta = float(np.abs(v32 - v16).max())
+    r32 = np.argsort(np.argsort(v32))
+    r16 = np.argsort(np.argsort(v16))
+    rho = float(np.corrcoef(r32, r16)[0, 1])
+    log(f"bf16 vs f32 fitness (pop 64): max |delta| {delta!r}, Spearman "
+        f"{rho!r}, f32 range [{v32.min()!r}, {v32.max()!r}]")
+    rec.update(max_abs_delta=delta, spearman=rho,
+               f32_min=float(v32.min()), f32_max=float(v32.max()))
+    if not (np.isfinite(v32).all() and np.isfinite(v16).all()):
+        raise AssertionError("non-finite fitness")
+    if delta >= 0.02 or rho <= 0.95:
+        raise AssertionError(f"bf16 fitness disagrees: {delta}, {rho}")
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--record", help="write the full record here (JSON)")
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("chip_smoke.py needs a CUDA device; none is available",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from st_ito_torch.models import load_param_model
+    from st_ito_torch.ops.kernels import _build
+
+    dev = torch.device("cuda")
+    record = {}
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
+        f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
+    record["card"] = card
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    log(f"kernels built in {time.perf_counter() - t0!r} s: {secs}")
+    for name, text in _build.BUILD_LOGS.items():
+        for line in text.splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  {name}: {line.strip()}")
+    record["build_s"] = secs
+    record["build_logs"] = dict(_build.BUILD_LOGS)
+
+    k1, k9 = {}, {}
+    phase_k1(dev, k1)
+    phase_k9(dev, k9)
+
+    model = load_param_model(allow_random=True, seed=0, device=dev)
+    main_rec = {}
+    launches = phase_main(dev, model, main_rec)
+    dtype_rec = {}
+    phase_dtype(dev, model, dtype_rec)
+
+    kernels = []
+    for name, rec, source, replaces in (
+            ("k1_eq_compressor_fused", k1, "st_ito_torch/csrc/eqcomp.cu",
+             "st_ito_tpu/ops/pallas/scan.py:279"),
+            ("k9_packed_response_apply", k9,
+             "st_ito_torch/csrc/packed_response.cu",
+             "st_ito_tpu/ops/pallas/packed_response.py:133")):
+        t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = rec["operations"] / FP32_OPS_PER_S * 1e3
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches[name[:2]],
+            "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+            "plain_ms": rec["plain_ms"], "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "library_ms": None})
+    record.update(k1=k1, k9=k9, main=main_rec, dtype=dtype_rec,
+                  kernels=kernels)
+    if args.record:
+        os.makedirs(os.path.dirname(os.path.abspath(args.record)),
+                    exist_ok=True)
+        with open(args.record, "w") as f:
+            json.dump(record, f, indent=1, default=str)
+
+    log(json.dumps({"kernels": kernels}))
+    log(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,19 @@
+"""st_ito_torch — the PyTorch/CUDA port of ``st_ito_tpu`` for one NVIDIA H100.
+
+The package mirrors ``st_ito_tpu``'s layout and public names:
+
+- ``chain``   effect-chain specs, the basic effects and the population
+              renderer ``build_batched_render_fn``.
+- ``ops``     DSP helpers, the fused-LTI FFT glue (``ops/lti.py``) and the
+              hand-written CUDA kernels' wrappers (``ops/kernels/``); the
+              CUDA sources live in ``st_ito_torch/csrc/``.
+- ``models``  the AFx-Rep Cnn14 as an ``nn.Module``, its weight converter and
+              ``load_param_model`` / ``get_param_embeds``.
+- ``ito``     the device-resident CMA-ES and ``run_es``.
+
+It imports torch, numpy and the standard library only. Entry points run on
+the card (``device="cuda"``) unless the caller passes ``device="cpu"``; on a
+CPU tensor every kernel wrapper runs its plain PyTorch version instead.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,224 @@
+"""The population renderer — port of ``st_ito_tpu/chain/executor.py:85
+build_batched_render_fn`` for the plan that ``fft_mode="mx"`` runs on the
+TPU (``executor.py:150-195``, ``:291-327``):
+
+- an EQ -> compressor (-> distortion) head fused into ONE pass of the K1
+  kernel (``ops/kernels/eqcomp.py``); a population-shared (C, T) input is
+  streamed into it and never broadcast to (B, C, T);
+- consecutive LTI stages (delay, reverb, gain, widener) fused into one group
+  applied as FFT -> K9 (``ops/kernels/packed_response.py``) -> inverse FFT
+  (``ops/lti.py``), with a guard of the full T for feedback tails, so the
+  FFT size is next_pow2(T + T);
+- peak normalisation of the output.
+
+Semantics kept from the JAX package: the bypass rule (a stage is active when
+``W[:, start] <= 0.5``), the mono -> stereo promotion before the first stereo
+stage, and the "tail-continuous" fused LTI group (the delay's tail past the
+buffer end feeds the reverb).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from st_ito_torch.chain.params import ChainSpec, StageSpec
+from st_ito_torch.chain.responses import eq_comp_fast_batched
+from st_ito_torch.chain.rp_responses import RP_BUNDLES
+from st_ito_torch.ops.iir import next_pow2
+from st_ito_torch.ops.kernels.packed_response import rp_tables
+from st_ito_torch.ops.lti import packed_lti_apply_rp
+from st_ito_torch.utils import phase_timer, resolve_device
+
+
+def stage_params(stage: StageSpec, W: torch.Tensor, start: int,
+                 bypass_off: int) -> dict:
+    """name -> (B,) denormalized values of one stage, fixed ones pinned."""
+    out = {}
+    for j, p in enumerate(stage.params):
+        raw = W[:, start + bypass_off + j]
+        if p.name in stage.fixed_parameters:
+            raw = torch.full_like(raw, stage.fixed_parameters[p.name])
+        out[p.name] = p.denormalize(raw)
+    return out
+
+
+def _plan(chain: ChainSpec) -> list[tuple[str, list[int]]]:
+    """Group the chain's stages: a fused "eqcomp" head and "lti" groups;
+    any other stage has no kernel in this port yet."""
+    slices = chain.stage_slices()
+    plan: list[tuple[str, list[int]]] = []
+    for i, (stage, _, _) in enumerate(slices):
+        if stage.effect == "parametric_eq":
+            plan.append(("fast", [i]))
+        elif stage.effect in RP_BUNDLES:
+            if plan and plan[-1][0] == "lti":
+                plan[-1][1].append(i)
+            else:
+                plan.append(("lti", [i]))
+        else:
+            plan.append(("nl", [i]))
+
+    merged: list[tuple[str, list[int]]] = []
+    for kind, idxs in plan:
+        effect = slices[idxs[0]][0].effect
+        if (merged and merged[-1][0] == "fast" and kind == "nl"
+                and effect == "compressor"):
+            merged[-1] = ("eqcomp", merged[-1][1] + idxs)
+        elif (merged and merged[-1][0] == "eqcomp"
+                and len(merged[-1][1]) == 2 and kind == "nl"
+                and effect == "distortion"):
+            merged[-1] = ("eqcomp", merged[-1][1] + idxs)
+        else:
+            merged.append((kind, idxs))
+
+    for kind, idxs in merged:
+        if kind not in ("eqcomp", "lti"):
+            names = [slices[i][0].effect for i in idxs]
+            raise NotImplementedError(
+                f"stage {names} outside an EQ -> compressor (-> distortion) "
+                f"head has no kernel in st_ito_torch yet: the lone EQ (K6), "
+                f"compressor (K7) and the other effects are ROADMAP §1 item "
+                f"7 and §2")
+    return merged
+
+
+def build_batched_render_fn(
+    chain: ChainSpec,
+    sample_rate: int,
+    num_channels: int,
+    fast: bool = True,
+    peak_normalize_output: bool = True,
+    fuse_lti: bool = True,
+    fft_mode: str = "mx",
+    fft_precision: str = "high",
+    max_lti_pad: int | None = None,
+    out_rows_hop: int | None = None,
+    device="cuda",
+):
+    """The population renderer: render(W (B, P), x) -> (B, C_out, T), with
+    x either (C, T) shared across candidates or (B, C, T) per-candidate.
+
+    Runs on ``device`` (default the card). ``fft_mode="mx"`` is the only
+    mode ported: "auto" picks the mega2 kernels on the TPU, which are the
+    next slice (ROADMAP §2 K3/K4). torch.fft runs in float32, at least as
+    precise as ``fft_precision="high"``; the reduced-precision modes are not
+    ported."""
+    if fft_mode != "mx":
+        raise NotImplementedError(
+            f"fft_mode={fft_mode!r}: only 'mx' is ported; the mega2/mega/"
+            f"fused FFT kernels are ROADMAP §2 (K3, K4, K5, K2, K10)")
+    if fft_precision not in ("high", "highest"):
+        raise NotImplementedError(
+            f"fft_precision={fft_precision!r}: reduced-precision FFTs are "
+            f"not ported (ROADMAP §2); torch.fft is float32")
+    if not fast:
+        raise NotImplementedError(
+            "fast=False (the differentiable renderer) is ROADMAP §1 item 8")
+    if not fuse_lti:
+        raise NotImplementedError(
+            "fuse_lti=False (per-stage LTI parity path) is ROADMAP §1 item 7")
+    if out_rows_hop is not None:
+        raise NotImplementedError(
+            "out_rows_hop: the hop-blocked rows form is a TPU layout device "
+            "that the port does not carry (ROADMAP north star)")
+    del num_channels  # channel promotion is resolved from x, as in JAX
+    dev = resolve_device(device)
+    slices = chain.stage_slices()
+    bypass_off = 1 if chain.with_bypass else 0
+    plan = _plan(chain)
+
+    def active_mask(W, start):
+        return (W[:, start] <= 0.5).to(torch.float32)
+
+    def render(W, x) -> torch.Tensor:
+        W = torch.as_tensor(W, dtype=torch.float32, device=dev)
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        B = W.shape[0]
+        shared = x.ndim == 2
+        if shared and plan[0][0] != "eqcomp":
+            x = x[None].expand((B,) + tuple(x.shape))
+            shared = False
+        T = x.shape[-1]
+
+        for kind, idxs in plan:
+            stages = [slices[i] for i in idxs]
+            ch_axis = 0 if shared else 1
+            if (any(s.num_channels == 2 for s, _, _ in stages)
+                    and x.shape[ch_axis] == 1):
+                x = torch.cat([x, x], dim=ch_axis)
+
+            if kind == "eqcomp":
+                (eq_stage, eq_start, _), (c_stage, c_start, _) = stages[:2]
+                p_eq = stage_params(eq_stage, W, eq_start, bypass_off)
+                p_c = stage_params(c_stage, W, c_start, bypass_off)
+                p_d = a_eq = a_c = a_d = None
+                if len(stages) == 3:  # trailing distortion absorbed
+                    d_stage, d_start, _ = stages[2]
+                    p_d = stage_params(d_stage, W, d_start, bypass_off)
+                if chain.with_bypass:
+                    a_eq = active_mask(W, eq_start)
+                    a_c = active_mask(W, c_start)
+                    if p_d is not None:
+                        a_d = active_mask(W, d_start)
+                with phase_timer.span("k1", dev):
+                    x = eq_comp_fast_batched(
+                        x, p_eq, p_c, sample_rate, active_eq=a_eq,
+                        active_comp=a_c, p_dist=p_d, active_dist=a_d,
+                        shared_B=B if shared else None)
+                shared = False
+                continue
+
+            # ---- fused LTI group (all stages rp-capable) ----
+            if x.shape[1] != 2:
+                raise NotImplementedError(
+                    "a mono fused-LTI group (the pair-packed layout) is "
+                    "ROADMAP §1 item 7; the rp path is stereo-only")
+            pad = 0
+            for stage, _, _ in stages:
+                pad = max(pad, T if stage.pad < 0 else stage.pad)
+            if max_lti_pad is not None:
+                pad = min(pad, max_lti_pad)
+            n = next_pow2(T + pad)
+            rp_stages = [
+                (stage.effect, stage_params(stage, W, start, bypass_off),
+                 active_mask(W, start) if chain.with_bypass else None)
+                for stage, start, _ in stages]
+            x = packed_lti_apply_rp(
+                x, rp_stages, n,
+                rp_tables([s.effect for s, _, _ in stages], sample_rate, n,
+                          dev))
+
+        if peak_normalize_output:
+            peak = torch.amax(x.abs(), dim=(-2, -1), keepdim=True)
+            x = x / torch.clamp_min(peak, 1e-8)
+        return x
+
+    return render
+
+
+def output_channels(chain: ChainSpec, in_channels: int) -> int:
+    if in_channels == 2:
+        return 2
+    return 2 if any(s.num_channels == 2 for s in chain.stages) else 1
+
+
+def parameters_to_dict(w, chain: ChainSpec) -> dict:
+    """Flat raw vector -> nested {stage: {param: physical value}} dict,
+    bypass reported raw."""
+    w = (w.detach().cpu().numpy() if isinstance(w, torch.Tensor)
+         else np.asarray(w))
+    out = {}
+    for stage, start, _ in chain.stage_slices():
+        d = {}
+        offset = start
+        if chain.with_bypass:
+            d["our_bypass"] = float(w[start])
+            offset += 1
+        for i, p in enumerate(stage.params):
+            raw = w[offset + i]
+            if p.name in stage.fixed_parameters:
+                raw = stage.fixed_parameters[p.name]
+            d[p.name] = float(p.denormalize(raw))
+        out[stage.name] = d
+    return out

@@ -1,0 +1,18 @@
+"""The AFx-Rep Cnn14 encoder, its weight converter and the embedding API."""
+
+from st_ito_torch.models.cnn14 import Cnn14, Cnn14Config
+from st_ito_torch.models.convert import cnn14_state_dict_from_jax
+from st_ito_torch.models.registry import (
+    ParamModel,
+    get_param_embeds,
+    load_param_model,
+)
+
+__all__ = [
+    "Cnn14",
+    "Cnn14Config",
+    "ParamModel",
+    "cnn14_state_dict_from_jax",
+    "get_param_embeds",
+    "load_param_model",
+]

@@ -1,0 +1,107 @@
+"""AFx-Rep model loading and the embedding API — port of
+``st_ito_tpu/models/registry.py``'s ``ParamModel``, ``load_param_model`` and
+``get_param_embeds``. The other metrics (MFCC, MIR, CLAP, ...) are ROADMAP
+§1 items 9 and 11."""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+
+import numpy as np
+import torch
+
+from st_ito_torch.models.cnn14 import Cnn14, Cnn14Config, init_cnn14_
+from st_ito_torch.models.convert import cnn14_state_dict_from_jax
+from st_ito_torch.utils import resolve_device
+
+
+@dataclasses.dataclass
+class ParamModel:
+    """AFx-Rep model handle: the Cnn14 module and its config. ``config``
+    may differ from ``net.config`` in ``compute_dtype`` only (the fitness
+    function picks its own precision); ``__call__`` uses ``config``."""
+
+    net: Cnn14
+    config: Cnn14Config
+    embed_dim: int = 512
+
+    def __call__(self, x: torch.Tensor):
+        return self.net(x, compute_dtype=self.config.compute_dtype)
+
+
+def _model_from_npz(path: str, device) -> ParamModel:
+    """Read the ``export_encoder_npz`` layout: dotted keys plus an optional
+    JSON ``__config__``."""
+    with np.load(path) as data:
+        config = Cnn14Config()
+        if "__config__" in data.files:
+            config = Cnn14Config(**json.loads(bytes(data["__config__"])))
+        params = {k: data[k] for k in data.files if k != "__config__"}
+    net = Cnn14(config)
+    net.load_state_dict(cnn14_state_dict_from_jax(params))
+    return ParamModel(net=net.to(device), config=config,
+                      embed_dim=config.embed_dim)
+
+
+def load_param_model(ckpt_path: str | None = None, allow_random: bool = False,
+                     seed: int = 0, device="cuda") -> ParamModel:
+    """Load the AFx-Rep encoder onto ``device`` (default the card).
+
+    Search order: explicit ckpt_path -> ./tmp/afx-rep.npz ->
+    $STITO_CKPT_DIR/afx-rep.npz. A torch ``.ckpt`` is converted by the JAX
+    package's converter, which is not ported (ROADMAP §1 item 11): export
+    it to npz first. With allow_random=True and no checkpoint, the weights
+    are drawn from a ``torch.Generator`` seeded with ``seed``."""
+    dev = resolve_device(device)
+    candidates = [] if ckpt_path is None else [ckpt_path]
+    for root in (os.path.join(os.getcwd(), "tmp"),
+                 os.environ.get("STITO_CKPT_DIR", "")):
+        if root:
+            candidates.append(os.path.join(root, "afx-rep.npz"))
+    for path in candidates:
+        if not os.path.isfile(path):
+            continue
+        if not path.endswith(".npz"):
+            raise NotImplementedError(
+                f"{path}: only the npz layout loads in st_ito_torch; the "
+                f".ckpt converter is ROADMAP §1 item 11")
+        return _model_from_npz(path, dev)
+    if allow_random:
+        config = Cnn14Config()
+        net = init_cnn14_(Cnn14(config), torch.Generator().manual_seed(seed))
+        return ParamModel(net=net.to(dev), config=config,
+                          embed_dim=config.embed_dim)
+    raise FileNotFoundError(
+        "afx-rep checkpoint not found (looked in: " + ", ".join(candidates)
+        + "); pass allow_random=True for a random-weight encoder")
+
+
+def _l2_normalize(e: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    return e / torch.clamp_min(torch.linalg.norm(e, dim=-1, keepdim=True), eps)
+
+
+def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
+                     peak_normalize: bool = True, dropout: float = 0.0
+                     ) -> dict[str, torch.Tensor]:
+    """AFx-Rep embeddings of x (bs, chs, T) -> {"mid": (bs, D), "side":
+    (bs, D)}, L2-normalised. x must be on the model's device."""
+    if int(sample_rate) != int(model.config.sample_rate):
+        raise NotImplementedError(
+            "resampling to the encoder's rate (ops/resample.py) is ROADMAP "
+            "§1 item 7")
+    if dropout > 0.0:
+        raise NotImplementedError("embedding dropout is ROADMAP §1 item 6")
+    x = x.to(torch.float32)
+    if peak_normalize:
+        peak = torch.amax(x.abs(), dim=tuple(range(1, x.ndim)), keepdim=True)
+        x = x / torch.clamp_min(peak, 1e-8)
+    mid, side = model(x)
+    return {"mid": _l2_normalize(torch.nan_to_num(mid)),
+            "side": _l2_normalize(torch.nan_to_num(side))}
+
+
+# get_param_embeds peak-normalises its own input, so a fitness function may
+# skip the renderer's output normalisation: embed(y / max|y|) == embed(y).
+get_param_embeds.peak_normalizes_input = True

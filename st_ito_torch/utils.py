@@ -1,0 +1,64 @@
+"""Device selection and opt-in per-phase CUDA-event timing."""
+
+from __future__ import annotations
+
+import contextlib
+from collections import defaultdict
+
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on. The port defaults to the card and
+    never moves to the CPU on its own: without a card it raises, and the
+    caller must ask for ``device="cpu"`` explicitly."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "st_ito_torch entry points run on a CUDA device by default and "
+            "none is available; pass device='cpu' to run on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+class PhaseTimer:
+    """Named spans timed with CUDA events.
+
+    Off by default: ``span`` then returns at once and records nothing. When
+    enabled (``chip_smoke.py`` does so around the timed ES block), each span
+    on a CUDA device records an event pair on the current stream without
+    synchronising; ``read_ms`` synchronises once and returns each name's
+    span times in the order they ran. Spans on the CPU are not recorded:
+    there is no device time to read."""
+
+    def __init__(self):
+        self.enabled = False
+        self._events: dict[str, list] = defaultdict(list)
+
+    def reset(self, enabled: bool) -> None:
+        self.enabled = enabled
+        self._events.clear()
+
+    @contextlib.contextmanager
+    def span(self, name: str, device: torch.device):
+        if not self.enabled or device.type != "cuda":
+            yield
+            return
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        try:
+            yield
+        finally:
+            end.record()
+            self._events[name].append((start, end))
+
+    def read_ms(self) -> dict[str, list[float]]:
+        torch.cuda.synchronize()
+        return {name: [s.elapsed_time(e) for s, e in pairs]
+                for name, pairs in self._events.items()}
+
+
+# the main path's spans: k1, fft_fwd, k9, fft_inv, embed, ask, tell
+phase_timer = PhaseTimer()

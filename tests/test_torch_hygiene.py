@@ -1,0 +1,81 @@
+"""st_ito_torch stands alone and never leaves the card on its own: no JAX
+import anywhere in the port or chip_smoke.py, entry points that default to
+the card, and kernel wrappers that raise rather than fall back."""
+
+import ast
+from pathlib import Path
+
+import pytest
+import torch
+
+import st_ito_torch
+from st_ito_torch.chain import basic_chain, build_batched_render_fn
+from st_ito_torch.ito import make_fitness_fn, run_es
+from st_ito_torch.models import Cnn14, Cnn14Config, ParamModel, load_param_model
+from st_ito_torch.ops.kernels import _build, eqcomp
+from st_ito_torch.ops.kernels import packed_response as k9
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted(Path(st_ito_torch.__file__).parent.rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+
+
+def _imported_modules(path):
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+@pytest.mark.parametrize("path", PORT_FILES, ids=lambda p: p.name)
+def test_no_jax_or_reference_package_import(path):
+    bad = [m for m in _imported_modules(path)
+           if m.split(".")[0] in ("jax", "jaxlib", "st_ito_tpu", "flax",
+                                  "optax")]
+    assert not bad, f"{path} imports {bad}"
+
+
+@pytest.fixture
+def no_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+
+
+def test_entry_points_default_to_the_card(no_card):
+    chain = basic_chain()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_batched_render_fn(chain, 48000, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_param_model(allow_random=True)
+    net = Cnn14(Cnn14Config(embed_dim=8, base_channels=2))
+    model = ParamModel(net=net, config=net.config, embed_dim=8)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fitness_fn(chain, model, 48000, 2)
+    x = torch.zeros(1, 2, 48000)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_es(x, x, 48000, chain, model, max_iters=1, popsize=4,
+               find_w0=False, verbose=False)
+
+
+def test_wrappers_raise_when_the_kernel_cannot_load(monkeypatch):
+    """A tensor that is not on the CPU goes to the kernel; when the kernel
+    library cannot be built or loaded the wrapper raises, and never runs
+    its plain version instead. (A "meta" tensor stands in for a CUDA one
+    here: the CPU build of torch has no CUDA tensors.)"""
+    def refuse(name):
+        raise RuntimeError(f"cannot load kernel {name}")
+
+    monkeypatch.setattr(_build, "load", refuse)
+    dev = torch.device("meta")
+    B, T = 2, 64
+    b = torch.zeros(B, 1, 6, 3, device=dev)
+    with pytest.raises(RuntimeError, match="cannot load kernel eqcomp"):
+        eqcomp.eq_compressor_fused(
+            torch.zeros(2, T, device=dev), b, b, threshold_db=-10.0,
+            ratio=4.0, knee_db=0.5, alpha_attack=0.9, alpha_release=0.99,
+            shared_lead_shape=(B, 2))
+    Z = [torch.zeros(B, 33, device=dev) for _ in range(4)]
+    stages = [("gain", {"gain_db": torch.zeros(B, device=dev)}, None)]
+    with pytest.raises(RuntimeError, match="cannot load kernel packed"):
+        k9.packed_response_apply(*Z, stages, {"gain": {}})
+
