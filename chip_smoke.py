@@ -1,31 +1,46 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``st_ito_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--record PATH]
+    python3 chip_smoke.py [--record PATH] [--phases k1,k9,fft,main,dtype]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of the main path from ``st_ito_torch/csrc``
    (one nvcc per source, all started together);
-3. K1 (fused EQ -> compressor -> distortion scan) against its plain
+3. ``k1``: K1 (fused EQ -> compressor -> distortion scan) against its plain
    PyTorch version on the card, mixed bypass throughout: B=37, stereo,
    T=20011 (ragged lane blocks and tiles), shared and per-candidate input;
    then the main path's shape, B=512, stereo, T=262144, shared input, in
    full; then K1's time there;
-4. K9 (fused delay + reverb response and packed apply) against its plain
-   version, fractional delays and mixed bypass: n=2^19 at B=100 (a ragged
-   candidate chunk) and at the main path's B=512; then its time there;
-5. the main path: ``run_es`` with the basic chain, a random-weight Cnn14 at
-   the deployed config, stereo T=262144 at 48 kHz, popsize 512,
-   fft_mode="mx": one warm-up block and one timed block of 2 generations,
-   with every kernel's launch count read around the timed run;
-6. bfloat16 against float32 fitness on a population of 64;
-7. the ``kernels`` JSON line, then the card line and the result line.
+4. ``k9``: K9 (fused delay + reverb response and packed apply) against its
+   plain version, fractional delays and mixed bypass: n=2^19 at B=100 (a
+   ragged candidate chunk) and at the main path's B=512; then its time;
+5. ``fft``: K5, K4, K2 and K3 (the packed FFT pair, the pitched response
+   kernel and the forward FFT with the response as its epilogue) each
+   against its plain version (torch.fft plus glue), B=37 at n=2^14 (n1=n2=128) and n=2^15 (n1=256, n2=128)
+   with T=n/2 and T<n/2, K4 with NaN written into every bin it must not
+   read; then at the headline n=2^19, B=512 in full; the groups K3 -> K4
+   and K5 -> K2 -> K4 against the mx path there; each kernel's time, and
+   cuFFT's for the same transforms;
+6. ``main``: ``run_es`` with the basic chain, a random-weight Cnn14 at the
+   deployed config, stereo T=262144 at 48 kHz, popsize 512, in each
+   fft_mode ("mega2", which "auto" picks, then "mega", then "mx"): one
+   warm-up block and one timed block of 2 generations, every kernel's
+   launch count set to 0 before the timed run, read after it and held
+   against what the mode must launch;
+7. ``dtype``: bfloat16 against float32 fitness on a population of 64;
+8. the ``kernels`` JSON line, then the card line and the result line.
+
+Tolerances: K1 atol 1e-4; every other kernel 1e-4 x max|want| per output
+array on the valid bins (K9 and K2 match bitwise; an FFT cannot match
+cuFFT bitwise); the groups atol 5e-5, rtol 1e-4 against the mx path on a
+peak-normalised input.
 
 ``--record PATH`` also writes the full record, compiler reports included,
-as JSON. There is no CPU path: without a card the script exits non-zero and
-prints no result.
+as JSON. ``--phases`` runs a subset (a development aid: a partial run
+prints no kernels line and no result line). There is no CPU path: without
+a card the script exits non-zero and prints no result.
 """
 
 import argparse
@@ -57,6 +72,7 @@ K1_OPS_PER_SAMPLE = 94
 # two bypass blends 8, one monomix composition 24, packed coefficients 16,
 # the packed apply 28, the DC/Nyquist blend amortised to 0.
 K9_OPS_PER_BIN = 30 + 16 * 9 + 40 + 8 + 24 + 16 + 28
+PHASES = ("k1", "k9", "fft", "main", "dtype")
 
 
 def log(*a):
@@ -174,13 +190,8 @@ def phase_k1(dev, rec):
 # ------------------------------------------------------------------ K9
 
 
-def k9_case(B, n, seed, dev):
-    from st_ito_torch.ops.kernels import packed_response as k9
-
-    rng = np.random.default_rng(seed)
-    F = n // 2 + 1
-    Z = [torch.from_numpy(rng.standard_normal((B, F)).astype(np.float32))
-         .to(dev) for _ in range(4)]
+def rp_stage_case(B, rng, dev):
+    """Delay + reverb stages with fractional delays and mixed bypass."""
     delay = {"delay_seconds": rng.uniform(0.01, 1.0, B) + 0.37 / SR,
              "feedback": rng.uniform(0.05, 1.0, B),
              "mix": rng.uniform(0.0, 1.0, B)}
@@ -194,6 +205,17 @@ def k9_case(B, n, seed, dev):
                        {k: torch.as_tensor(v, dtype=torch.float32, device=dev)
                         for k, v in p.items()},
                        torch.as_tensor(m, device=dev)))
+    return stages
+
+
+def k9_case(B, n, seed, dev):
+    from st_ito_torch.ops.kernels import packed_response as k9
+
+    rng = np.random.default_rng(seed)
+    F = n // 2 + 1
+    Z = [torch.from_numpy(rng.standard_normal((B, F)).astype(np.float32))
+         .to(dev) for _ in range(4)]
+    stages = rp_stage_case(B, rng, dev)
     tables = k9.rp_tables(["delay", "reverb"], SR, n, dev)
     return Z, stages, tables
 
@@ -237,6 +259,177 @@ def phase_k9(dev, rec):
     log(f"K9 headline (B {POP}, F {F}): {rec['ms']!r} ms")
 
 
+# ------------------------------------------------- K5, K4, K2, K3 (FFT)
+
+
+def rel_err(got, want, F=None):
+    """(max |got - want|, that over max |want|) over paired arrays; half
+    grids are compared on their F valid bins."""
+    err = scale = 0.0
+    for g, w in zip(got, want):
+        if F is not None:
+            g = g.reshape(g.shape[0], -1)[:, :F]
+            w = w.reshape(w.shape[0], -1)[:, :F]
+        err = max(err, float((g - w).abs().max()))
+        scale = max(scale, float(w.abs().max()))
+    return err, err / scale
+
+
+def hold(name, label, err, rel, limit=1e-4):
+    log(f"{name} {label}: max |kernel - plain| = {err!r}, relative {rel!r}")
+    if not math.isfinite(rel) or rel > limit:
+        raise AssertionError(
+            f"{name} disagrees with its plain version at {label}: {rel}")
+
+
+def poison(Y, n):
+    """Copies of (YloR, YloI, YhigR, YhigI) with NaN in every bin K4 must
+    not read: Ylo past n/2, Yhig at 0 and from n/2 on."""
+    out = []
+    for i, y in enumerate(Y):
+        flat = y.reshape(y.shape[0], -1).clone()
+        if i < 2:
+            flat[:, n // 2 + 1:] = float("nan")
+        else:
+            flat[:, 0] = float("nan")
+            flat[:, n // 2:] = float("nan")
+        out.append(flat.reshape(y.shape))
+    return out
+
+
+def lib_fwd(x, n):
+    """cuFFT's forward transform with the glue that builds the half grids
+    (what ops/lti.py does on the mx path): the library yardstick of K5."""
+    F = n // 2 + 1
+    Z = torch.fft.fft(torch.complex(x[:, 0], x[:, 1]), n=n, dim=-1)
+    Zrev = torch.cat([Z[:, :1], torch.flip(Z[:, n // 2:], (-1,))], -1)
+    return (Z[:, :F].real.contiguous(), Z[:, :F].imag.contiguous(),
+            Zrev.real.contiguous(), Zrev.imag.contiguous())
+
+
+def lib_inv(Y, n, T):
+    """cuFFT's inverse with the reassembly glue: the yardstick of K4."""
+    B, F = Y[0].shape[0], n // 2 + 1
+    lo_r, lo_i, hi_r, hi_i = (y.reshape(B, -1) for y in Y)
+    full = torch.complex(
+        torch.cat([lo_r[:, :F], torch.flip(hi_r[:, 1:n // 2], (-1,))], -1),
+        torch.cat([lo_i[:, :F], torch.flip(hi_i[:, 1:n // 2], (-1,))], -1))
+    y = torch.fft.ifft(full, n=n, dim=-1)[:, :T]
+    return torch.stack([y.real, y.imag], dim=1)
+
+
+def fft_check(B, n, T, seed, dev, label, recs, timed=False):
+    """K5, K2, K3 and K4 against their plain versions on one input set, and
+    the two groups against the mx path; with ``timed`` also every time."""
+    from st_ito_torch.ops import lti
+    from st_ito_torch.ops.kernels import mega_fft as mf
+    from st_ito_torch.ops.kernels import packed_response as k9
+
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, 2, T)).astype(np.float32)
+    x = torch.from_numpy(x / np.abs(x).max()).to(dev)
+    stages = rp_stage_case(B, rng, dev)
+    tables = k9.rp_tables(["delay", "reverb"], SR, n, dev)
+    F = n // 2 + 1
+
+    def note(name, err):
+        recs[name]["max_abs_err"] = max(recs[name].get("max_abs_err", 0.0),
+                                        err)
+
+    Z_want = mf.fwd_pack_fft_plain(x, n)
+    Z_got = mf.fwd_pack_fft_cuda(x, n)
+    err, rel = rel_err(Z_got, Z_want, F)
+    hold("K5", label, err, rel)
+    note("k5", err)
+
+    Y_want = k9.packed_response_padded_plain(*Z_want, stages, tables, n)
+    err, rel = rel_err(
+        k9.packed_response_padded_cuda(*Z_want, stages, tables, n), Y_want, F)
+    hold("K2", label, err, rel)
+    note("k2", err)
+
+    Y_got = mf.fwd_pack_fft_response_cuda(x, stages, n, tables)
+    err, rel = rel_err(Y_got, Y_want, F)
+    hold("K3", label, err, rel)
+    note("k3", err)
+    split = k9.packed_response_padded_cuda(*Z_got, stages, tables, n)
+    log(f"K3 {label}: max |K3 - K2(K5)| = {rel_err(Y_got, split, F)[0]!r}")
+    del split, Z_got
+
+    y_want = mf.inv_unpack_fft_plain(*Y_want, n, T)
+    y_got = mf.inv_unpack_fft_cuda(*poison(Y_want, n), n, T)
+    err, rel = rel_err([y_got], [y_want])
+    hold("K4", label + ", NaN in the masked bins", err, rel)
+    note("k4", err)
+    del y_got, Y_got
+
+    mx = lti.packed_lti_apply_rp(x, stages, n, tables)
+    for name, fn in (("K3 -> K4", mf.packed_lti_apply_mega2),
+                     ("K5 -> K2 -> K4", mf.packed_lti_apply_mega)):
+        y = fn(x, stages, n, SR)
+        diff = (y - mx).abs()
+        worst = float((diff - 1e-4 * mx.abs()).max())
+        log(f"group {name} {label}: max |group - mx| = {float(diff.max())!r}"
+            f", max |mx| = {float(mx.abs().max())!r}")
+        if not math.isfinite(worst) or worst > 5e-5:
+            raise AssertionError(
+                f"group {name} misses atol 5e-5, rtol 1e-4 of the mx path "
+                f"at {label}: excess {worst}")
+        recs["groups"][name] = max(recs["groups"].get(name, 0.0),
+                                   float(diff.max()))
+        del y, diff
+    del mx
+    if not timed:
+        return
+
+    table_bytes = 4 * tables["reverb"]["_packed"].numel()
+    fft_ops = 5 * n * int(math.log2(n)) * B
+    io = 4 * (2 * B * T + 4 * B * F)
+    for name, run, plain, lib, nbytes, ops in (
+            ("k5", lambda: mf.fwd_pack_fft_cuda(x, n),
+             lambda: mf.fwd_pack_fft_plain(x, n), lambda: lib_fwd(x, n),
+             io, fft_ops),
+            ("k2", lambda: k9.packed_response_padded_cuda(
+                *Z_want, stages, tables, n),
+             lambda: k9.packed_response_padded_plain(
+                 *Z_want, stages, tables, n), None,
+             4 * 8 * B * F + table_bytes + 4 * 9 * B, K9_OPS_PER_BIN * B * F),
+            ("k3", lambda: mf.fwd_pack_fft_response_cuda(x, stages, n, tables),
+             lambda: mf.fwd_pack_fft_response_plain(x, stages, n, tables),
+             None, io + table_bytes + 4 * 9 * B,
+             fft_ops + K9_OPS_PER_BIN * B * F),
+            ("k4", lambda: mf.inv_unpack_fft_cuda(*Y_want, n, T),
+             lambda: mf.inv_unpack_fft_plain(*Y_want, n, T),
+             lambda: lib_inv(Y_want, n, T), io, fft_ops)):
+        rec = recs[name]
+        rec["ms"] = cuda_ms(run, 5)
+        rec["plain_ms"] = cuda_ms(plain, 2)
+        rec["library_ms"] = None if lib is None else cuda_ms(lib, 3)
+        rec["bytes"], rec["operations"] = nbytes, ops
+        log(f"{name.upper()} headline (B {B}, n {n}, T {T}): {rec['ms']!r} "
+            f"ms, plain {rec['plain_ms']!r} ms, library "
+            f"{rec['library_ms']!r} ms")
+        torch.cuda.empty_cache()
+
+
+def phase_fft(dev, recs):
+    from st_ito_torch.ops.kernels import mega_fft as mf
+
+    # n 2^14 splits 128 x 128, n 2^15 splits 256 x 128; T = n/2 and a
+    # T < n/2 that is a multiple of n2 = 128; B 37 with the scratch chunk
+    # cut to 8 candidates for these checks, so that the walk over chunks
+    # runs and ends on a ragged one (the headline's 512 are 8 full chunks)
+    chunk, mf.CHUNK = mf.CHUNK, 8
+    for i, (n, T) in enumerate(((2 ** 14, 2 ** 13), (2 ** 14, 33 * 128),
+                                (2 ** 15, 2 ** 14), (2 ** 15, 37 * 128))):
+        fft_check(37, n, T, 20 + i, dev, f"n {n}, T {T}, B 37", recs)
+    mf.CHUNK = chunk
+    torch.cuda.reset_peak_memory_stats()
+    fft_check(POP, 2 ** 19, T_HEAD, 30, dev,
+              f"headline n 2^19, T {T_HEAD}, B {POP}", recs, timed=True)
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main path
 
 
@@ -264,11 +457,30 @@ def styled_target(x, chain, dev, seed):
         w, x[0].to(dev))
 
 
-def phase_main(dev, model, rec):
+def launch_counts(reset=False):
+    """Every kernel's launch count; with ``reset`` set them all to 0."""
+    from st_ito_torch.ops.kernels import eqcomp
+    from st_ito_torch.ops.kernels import mega_fft as mf
+    from st_ito_torch.ops.kernels import packed_response as k9
+
+    if reset:
+        eqcomp.launches = k9.launches = k9.launches_padded = 0
+        for name in mf.launches:
+            mf.launches[name] = 0
+    return {"k1": eqcomp.launches, "k9": k9.launches,
+            "k2": k9.launches_padded, "k5": mf.launches["fwd_pack_fft"],
+            "k3": mf.launches["fwd_pack_fft_response"],
+            "k4": mf.launches["inv_unpack_fft"]}
+
+
+# the kernels each fft_mode launches once per generation; the others stay 0
+MODE_KERNELS = {"mega2": ("k1", "k3", "k4"), "mega": ("k1", "k5", "k2", "k4"),
+                "mx": ("k1", "k9")}
+
+
+def phase_main(dev, model, rec, fft_mode):
     from st_ito_torch.chain import basic_chain
     from st_ito_torch.ito import run_es
-    from st_ito_torch.ops.kernels import eqcomp
-    from st_ito_torch.ops.kernels import packed_response as k9
     from st_ito_torch.utils import phase_timer
 
     chain = basic_chain()
@@ -276,49 +488,50 @@ def phase_main(dev, model, rec):
     y = styled_target(x, chain, dev, 1)
     common = dict(popsize=POP, find_w0=False, sigma0=0.33, crop_len=T_HEAD,
                   seed=0, verbose=False, early_stop_patience=10**9,
-                  gens_per_dispatch=GENS, fft_mode="mx", device=dev)
+                  gens_per_dispatch=GENS, fft_mode=fft_mode, device=dev)
     t0 = time.perf_counter()
     run_es(x, y, SR, chain, model, max_iters=GENS, **common)  # warm-up
     torch.cuda.synchronize()
-    log(f"main path warm-up block: {time.perf_counter() - t0!r} s")
+    log(f"main path {fft_mode} warm-up block: "
+        f"{time.perf_counter() - t0!r} s")
 
+    torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     phase_timer.reset(True)
-    eqcomp.launches = 0
-    k9.launches = 0
+    launch_counts(reset=True)
     res = run_es(x, y, SR, chain, model, max_iters=GENS, **common)
-    launches = {"k1": eqcomp.launches, "k9": k9.launches}
+    launches = launch_counts()
     spans = phase_timer.read_ms()
     phase_timer.reset(False)
 
-    # the timed block's generations, then run_es's output render (B = 1)
-    for name, count in launches.items():
-        if count != GENS + 1:
-            raise AssertionError(
-                f"{name} launched {count} times in {GENS} generations and "
-                f"the output render; expected {GENS + 1}")
+    # one launch per generation of the mode's kernels and none of the
+    # others (the output render is plain PyTorch and launches none)
+    want = {name: GENS if name in MODE_KERNELS[fft_mode] else 0
+            for name in launches}
+    if launches != want:
+        raise AssertionError(
+            f"fft_mode={fft_mode}: launches {launches} in {GENS} "
+            f"generations; expected {want}")
     hist = np.asarray(res["fval_history"])
     if hist.shape != (GENS,) or not np.isfinite(hist).all():
         raise AssertionError(f"fitness history {hist}")
     out = res["output_audio"]
     if out.shape != (1, 2, T_HEAD) or not torch.isfinite(out).all():
         raise AssertionError("output audio is not finite (1, 2, T)")
-    phases = {}
-    for name, ms in spans.items():
-        per_gen = ms[:GENS] if name in ("k1", "fft_fwd", "k9", "fft_inv") \
-            else ms
-        phases[name] = sum(per_gen) / GENS
+    phases = {name: sum(ms) / GENS for name, ms in spans.items()}
     rec.update(
         evals_per_sec=res["evals_per_sec"],
         ms_per_generation=1e3 * res["time_elapsed"] / GENS,
         phase_ms_per_generation=phases, launches=launches,
         fval_history=hist.tolist(),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-    log(f"main path: {res['evals_per_sec']!r} evals/s, "
+    log(f"main path {fft_mode}: {res['evals_per_sec']!r} evals/s, "
         f"{rec['ms_per_generation']!r} ms/generation, launches {launches}")
-    log("per-phase device ms per generation: " + json.dumps(phases))
-    log(f"max_memory_allocated: {rec['max_memory_allocated_bytes']} bytes")
-    log(f"fitness history: {hist.tolist()}")
+    log(f"per-phase device ms per generation ({fft_mode}): "
+        + json.dumps(phases))
+    log(f"max_memory_allocated ({fft_mode}): "
+        f"{rec['max_memory_allocated_bytes']} bytes")
+    log(f"fitness history ({fft_mode}): {hist.tolist()}")
     return launches
 
 
@@ -351,10 +564,22 @@ def phase_dtype(dev, model, rec):
         raise AssertionError(f"bf16 fitness disagrees: {delta}, {rho}")
 
 
+def write_record(path, record):
+    if path:
+        os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+        with open(path, "w") as f:
+            json.dump(record, f, indent=1, default=str)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--record", help="write the full record here (JSON)")
+    parser.add_argument("--phases", default=",".join(PHASES),
+                        help="comma-separated subset of " + ",".join(PHASES))
     args = parser.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    if not set(phases) <= set(PHASES):
+        parser.error(f"--phases takes a subset of {PHASES}")
     if not torch.cuda.is_available():
         print("chip_smoke.py needs a CUDA device; none is available",
               file=sys.stderr)
@@ -381,39 +606,71 @@ def main() -> int:
     record["build_s"] = secs
     record["build_logs"] = dict(_build.BUILD_LOGS)
 
-    k1, k9 = {}, {}
-    phase_k1(dev, k1)
-    phase_k9(dev, k9)
+    recs = {name: {} for name in ("k1", "k9", "k5", "k2", "k3", "k4",
+                                  "groups")}
+    if "k1" in phases:
+        phase_k1(dev, recs["k1"])
+    if "k9" in phases:
+        phase_k9(dev, recs["k9"])
+    if "fft" in phases:
+        phase_fft(dev, recs)
 
-    model = load_param_model(allow_random=True, seed=0, device=dev)
-    main_rec = {}
-    launches = phase_main(dev, model, main_rec)
+    model = main_rec = None
+    launches = {}
+    if "main" in phases or "dtype" in phases:
+        model = load_param_model(allow_random=True, seed=0, device=dev)
+    if "main" in phases:
+        main_rec = {mode: {} for mode in MODE_KERNELS}
+        for mode in MODE_KERNELS:
+            counts = phase_main(dev, model, main_rec[mode], mode)
+            # a kernel's count comes from the run of a mode that launches
+            # it, the default mode's first
+            for name in MODE_KERNELS[mode]:
+                launches.setdefault(name, counts[name])
+        base = main_rec["mx"]["ms_per_generation"]
+        for mode, r in main_rec.items():
+            log(f"{mode}: {r['ms_per_generation']!r} ms/generation, "
+                f"{r['ms_per_generation'] / base!r} of mx")
     dtype_rec = {}
-    phase_dtype(dev, model, dtype_rec)
+    if "dtype" in phases:
+        phase_dtype(dev, model, dtype_rec)
+
+    if set(phases) != set(PHASES):
+        log(f"partial run (phases {sorted(phases)}): no result line")
+        record.update(recs=recs, main=main_rec, dtype=dtype_rec)
+        write_record(args.record, record)
+        return 0
 
     kernels = []
-    for name, rec, source, replaces in (
-            ("k1_eq_compressor_fused", k1, "st_ito_torch/csrc/eqcomp.cu",
+    for name, key, source, replaces in (
+            ("k1_eq_compressor_fused", "k1", "st_ito_torch/csrc/eqcomp.cu",
              "st_ito_tpu/ops/pallas/scan.py:279"),
-            ("k9_packed_response_apply", k9,
+            ("k9_packed_response_apply", "k9",
              "st_ito_torch/csrc/packed_response.cu",
-             "st_ito_tpu/ops/pallas/packed_response.py:133")):
+             "st_ito_tpu/ops/pallas/packed_response.py:133"),
+            ("k5_fwd_pack_fft", "k5", "st_ito_torch/csrc/mega_fft.cu",
+             "st_ito_tpu/ops/pallas/mega_fft.py:395"),
+            ("k2_packed_response_apply_padded", "k2",
+             "st_ito_torch/csrc/packed_response.cu",
+             "st_ito_tpu/ops/pallas/packed_response.py:267"),
+            ("k3_fwd_pack_fft_response", "k3",
+             "st_ito_torch/csrc/mega_fft.cu",
+             "st_ito_tpu/ops/pallas/mega_fft.py:431"),
+            ("k4_inv_unpack_fft", "k4", "st_ito_torch/csrc/mega_fft.cu",
+             "st_ito_tpu/ops/pallas/mega_fft.py:489")):
+        rec = recs[key]
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rec["operations"] / FP32_OPS_PER_S * 1e3
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name[:2]],
+            "replaces": replaces, "launches": launches[key],
             "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
             "plain_ms": rec["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": None})
-    record.update(k1=k1, k9=k9, main=main_rec, dtype=dtype_rec,
+            "library_ms": rec.get("library_ms")})
+    record.update(recs=recs, main=main_rec, dtype=dtype_rec,
                   kernels=kernels)
-    if args.record:
-        os.makedirs(os.path.dirname(os.path.abspath(args.record)),
-                    exist_ok=True)
-        with open(args.record, "w") as f:
-            json.dump(record, f, indent=1, default=str)
+    write_record(args.record, record)
 
     log(json.dumps({"kernels": kernels}))
     log(card)

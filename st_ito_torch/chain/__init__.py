@@ -1,4 +1,4 @@
-"""Effect-chain specs, the basic effects and the population renderer."""
+"""Effect-chain specs, the basic effects and the two renderers."""
 
 from st_ito_torch.chain.params import ParamSpec, StageSpec, ChainSpec
 from st_ito_torch.chain.effects import (
@@ -11,6 +11,7 @@ from st_ito_torch.chain.effects import (
 )
 from st_ito_torch.chain.executor import (
     build_batched_render_fn,
+    build_render_fn,
     output_channels,
     parameters_to_dict,
 )
@@ -26,6 +27,7 @@ __all__ = [
     "basic_parametric_eq",
     "basic_reverb",
     "build_batched_render_fn",
+    "build_render_fn",
     "output_channels",
     "parameters_to_dict",
 ]

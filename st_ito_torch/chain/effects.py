@@ -1,15 +1,24 @@
 """The basic effects of the ``--effect-type basic`` chain — port of
 ``st_ito_tpu/chain/effects.py``: the same stage names, parameter names,
 ranges, defaults and LTI pads, so flat parameter vectors are interchangeable
-with the JAX package. The renderer plans each stage from its ``effect``
-(chain/executor.py); the per-candidate ``process_fn`` hooks are ROADMAP §1
-item 7."""
+with the JAX package. The population renderer plans each stage from its
+``effect`` (chain/executor.py ``build_batched_render_fn``); the
+per-candidate renderer (``build_render_fn``) calls each stage's
+``process_fn(x (C, T), params, sample_rate)``, plain PyTorch ops on x's
+device."""
 
 from __future__ import annotations
 
 from typing import Mapping
 
+import torch
+
 from st_ito_torch.chain.params import ChainSpec, ParamSpec, StageSpec
+from st_ito_torch.ops import delay as _delay
+from st_ito_torch.ops import dynamics as _dyn
+from st_ito_torch.ops import eq as _eq
+from st_ito_torch.ops import reverb as _rev
+from st_ito_torch.ops import waveshape as _ws
 
 
 def basic_parametric_eq(fixed: Mapping[str, float] | None = None) -> StageSpec:
@@ -35,7 +44,26 @@ def basic_parametric_eq(fixed: Mapping[str, float] | None = None) -> StageSpec:
         P("high_shelf_cutoff_freq", 200.0, 18000.0, 1000.0),
         P("high_shelf_q_factor", 0.1, 4.0, 0.707),
     )
-    return StageSpec("ParametricEQ", "parametric_eq", params,
+
+    def process(x, p, sr):
+        def bands(key):
+            return torch.stack([torch.as_tensor(p[f"band{i}_{key}"])
+                                for i in range(4)], dim=-1)
+
+        return _eq.parametric_eq(
+            x, sr,
+            low_shelf_gain_db=p["low_shelf_gain_db"],
+            low_shelf_cutoff_freq=p["low_shelf_cutoff_freq"],
+            low_shelf_q_factor=p["low_shelf_q_factor"],
+            band_gains_db=bands("gain_db"),
+            band_cutoff_freqs=bands("cutoff_freq"),
+            band_q_factors=bands("q_factor"),
+            high_shelf_gain_db=p["high_shelf_gain_db"],
+            high_shelf_cutoff_freq=p["high_shelf_cutoff_freq"],
+            high_shelf_q_factor=p["high_shelf_q_factor"],
+        )
+
+    return StageSpec("ParametricEQ", "parametric_eq", params, process,
                      num_channels=1, fixed_parameters=fixed or {}, pad=8192)
 
 
@@ -48,7 +76,14 @@ def basic_compressor(fixed: Mapping[str, float] | None = None) -> StageSpec:
         P("attack_ms", 0.1, 100.0, 1.0),
         P("release_ms", 10.0, 1000.0, 100.0),
     )
-    return StageSpec("Compressor", "compressor", params,
+
+    def process(x, p, sr):
+        return _dyn.compressor(
+            x, sr, threshold_db=p["threshold_db"], ratio=p["ratio"],
+            attack_ms=p["attack_ms"], release_ms=p["release_ms"],
+            knee_db=0.5, makeup_gain_db=0.0, link_channels=False)
+
+    return StageSpec("Compressor", "compressor", params, process,
                      num_channels=1, fixed_parameters=fixed or {})
 
 
@@ -59,7 +94,11 @@ def basic_distortion(fixed: Mapping[str, float] | None = None) -> StageSpec:
         P("drive_db", -48.0, 48.0, 0.0),
         P("output_gain_db", -24.0, 24.0, 0.0),
     )
-    return StageSpec("Distortion", "distortion", params,
+
+    def process(x, p, sr):
+        return _ws.gain(_ws.distortion(x, p["drive_db"]), p["output_gain_db"])
+
+    return StageSpec("Distortion", "distortion", params, process,
                      num_channels=1, fixed_parameters=fixed or {})
 
 
@@ -71,7 +110,12 @@ def basic_delay(fixed: Mapping[str, float] | None = None) -> StageSpec:
         P("feedback", 0.05, 1.0, 0.5),
         P("mix", 0.0, 1.0, 0.5),
     )
-    return StageSpec("Delay", "delay", params,
+
+    def process(x, p, sr):
+        return _delay.feedback_delay(x, sr, p["delay_seconds"], p["feedback"],
+                                     p["mix"])
+
+    return StageSpec("Delay", "delay", params, process,
                      num_channels=2, fixed_parameters=fixed or {}, pad=-1)
 
 
@@ -84,7 +128,14 @@ def basic_reverb(fixed: Mapping[str, float] | None = None) -> StageSpec:
         P("wet_dry", 0.0, 1.0, 0.5),
         P("width", 0.0, 1.0, 0.5),
     )
-    return StageSpec("Reverb", "reverb", params,
+
+    def process(x, p, sr):
+        return _rev.freeverb(
+            x, sr, room_size=p["room_size"], damping=p["damping"],
+            wet_level=p["wet_dry"], dry_level=1.0 - p["wet_dry"],
+            width=p["width"])
+
+    return StageSpec("Reverb", "reverb", params, process,
                      num_channels=2, fixed_parameters=fixed or {}, pad=-1)
 
 

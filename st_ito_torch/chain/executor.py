@@ -1,14 +1,20 @@
-"""The population renderer — port of ``st_ito_tpu/chain/executor.py:85
-build_batched_render_fn`` for the plan that ``fft_mode="mx"`` runs on the
-TPU (``executor.py:150-195``, ``:291-327``):
+"""The two renderers — port of ``st_ito_tpu/chain/executor.py``.
+
+``build_render_fn`` (``:43``) renders one candidate stage by stage through
+each stage's ``process_fn`` in plain PyTorch, truncating to the buffer at
+every stage boundary.
+
+``build_batched_render_fn`` (``:85``) renders a population with the plan the
+JAX package runs on its accelerator (``executor.py:150-195``, ``:291-327``):
 
 - an EQ -> compressor (-> distortion) head fused into ONE pass of the K1
   kernel (``ops/kernels/eqcomp.py``); a population-shared (C, T) input is
   streamed into it and never broadcast to (B, C, T);
 - consecutive LTI stages (delay, reverb, gain, widener) fused into one group
-  applied as FFT -> K9 (``ops/kernels/packed_response.py``) -> inverse FFT
-  (``ops/lti.py``), with a guard of the full T for feedback tails, so the
-  FFT size is next_pow2(T + T);
+  with a guard of the full T for feedback tails, so the FFT size is
+  next_pow2(T + T), applied by ``fft_mode``: "mega2" as K3 -> K4, "mega" as
+  K5 -> K2 -> K4 (``ops/kernels/mega_fft.py``), "mx" as torch.fft -> K9 ->
+  torch.fft (``ops/lti.py``);
 - peak normalisation of the output.
 
 Semantics kept from the JAX package: the bypass rule (a stage is active when
@@ -26,6 +32,7 @@ from st_ito_torch.chain.params import ChainSpec, StageSpec
 from st_ito_torch.chain.responses import eq_comp_fast_batched
 from st_ito_torch.chain.rp_responses import RP_BUNDLES
 from st_ito_torch.ops.iir import next_pow2
+from st_ito_torch.ops.kernels import mega_fft
 from st_ito_torch.ops.kernels.packed_response import rp_tables
 from st_ito_torch.ops.lti import packed_lti_apply_rp
 from st_ito_torch.utils import phase_timer, resolve_device
@@ -41,6 +48,41 @@ def stage_params(stage: StageSpec, W: torch.Tensor, start: int,
             raw = torch.full_like(raw, stage.fixed_parameters[p.name])
         out[p.name] = p.denormalize(raw)
     return out
+
+
+def build_render_fn(chain: ChainSpec, sample_rate: int, num_channels: int,
+                    normalize_stages: bool = False,
+                    peak_normalize_output: bool = True, device="cuda"):
+    """Returns render(w (P,), x (num_channels, T)) -> y (C_out, T) on
+    ``device`` (default the card): the per-candidate renderer, every stage
+    through its ``process_fn`` with the buffer truncated to T after each.
+
+    A bypassed stage (``w[start] > 0.5``) passes its input through;
+    ``normalize_stages`` peak-normalises after every stage. The output has
+    2 channels iff the input is stereo or any stage is."""
+    del num_channels  # channel promotion is resolved from x, as in JAX
+    dev = resolve_device(device)
+    slices = chain.stage_slices()
+    bypass_off = 1 if chain.with_bypass else 0
+
+    def peak_norm(y):
+        return y / torch.clamp_min(y.abs().max(), 1e-8)
+
+    def render(w, x) -> torch.Tensor:
+        w = torch.as_tensor(w, dtype=torch.float32, device=dev)
+        x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        for stage, start, _ in slices:
+            params = {k: v[0] for k, v in
+                      stage_params(stage, w[None], start, bypass_off).items()}
+            if stage.num_channels == 2 and x.shape[0] == 1:
+                x = torch.cat([x, x], dim=0)
+            y = stage.process_fn(x, params, sample_rate)
+            if chain.with_bypass:
+                y = torch.where(w[start] <= 0.5, y, x)
+            x = peak_norm(y) if normalize_stages else y
+        return peak_norm(x) if peak_normalize_output else x
+
+    return render
 
 
 def _plan(chain: ChainSpec) -> list[tuple[str, list[int]]]:
@@ -90,7 +132,7 @@ def build_batched_render_fn(
     fast: bool = True,
     peak_normalize_output: bool = True,
     fuse_lti: bool = True,
-    fft_mode: str = "mx",
+    fft_mode: str = "auto",
     fft_precision: str = "high",
     max_lti_pad: int | None = None,
     out_rows_hop: int | None = None,
@@ -99,19 +141,29 @@ def build_batched_render_fn(
     """The population renderer: render(W (B, P), x) -> (B, C_out, T), with
     x either (C, T) shared across candidates or (B, C, T) per-candidate.
 
-    Runs on ``device`` (default the card). ``fft_mode="mx"`` is the only
-    mode ported: "auto" picks the mega2 kernels on the TPU, which are the
-    next slice (ROADMAP §2 K3/K4). torch.fft runs in float32, at least as
-    precise as ``fft_precision="high"``; the reduced-precision modes are not
-    ported."""
-    if fft_mode != "mx":
+    Runs on ``device`` (default the card). ``fft_mode`` picks how the fused
+    LTI group is applied: "mega2" (K3 -> K4), "mega" (K5 -> K2 -> K4) or
+    "mx" (torch.fft -> K9 -> torch.fft). "auto", the default, is "mega2" on
+    any device (the JAX package's "xla" response path for other backends is
+    not ported; on the CPU the kernels' plain versions run). A shape that
+    ``mega_fft.supported(n, T)`` rejects (T not a multiple of n2, or n below
+    2^14) takes the "mx" path in either mega mode, as in the JAX package: a
+    shape dispatch, visible in the kernels' launch counters. The JAX gate
+    ``B % 8 == 0`` is a TPU tile rule and is not kept: any B takes the mega
+    path. Every transform is float32, at least as precise as
+    ``fft_precision="high"``; the reduced-precision modes are TPU devices
+    (bf16 dot passes) and are not ported."""
+    if fft_mode == "auto":
+        fft_mode = "mega2"
+    if fft_mode not in ("mega2", "mega", "mx"):
         raise NotImplementedError(
-            f"fft_mode={fft_mode!r}: only 'mx' is ported; the mega2/mega/"
-            f"fused FFT kernels are ROADMAP §2 (K3, K4, K5, K2, K10)")
+            f"fft_mode={fft_mode!r}: 'auto', 'mega2', 'mega' and 'mx' are "
+            f"ported; the fused FFT kernel (K10, 'fused') is ROADMAP §2 and "
+            f"the 'xla' response path ROADMAP §1 item 7")
     if fft_precision not in ("high", "highest"):
         raise NotImplementedError(
             f"fft_precision={fft_precision!r}: reduced-precision FFTs are "
-            f"not ported (ROADMAP §2); torch.fft is float32")
+            f"not ported (ROADMAP §2); every transform is float32")
     if not fast:
         raise NotImplementedError(
             "fast=False (the differentiable renderer) is ROADMAP §1 item 8")
@@ -184,10 +236,17 @@ def build_batched_render_fn(
                 (stage.effect, stage_params(stage, W, start, bypass_off),
                  active_mask(W, start) if chain.with_bypass else None)
                 for stage, start, _ in stages]
-            x = packed_lti_apply_rp(
-                x, rp_stages, n,
-                rp_tables([s.effect for s, _, _ in stages], sample_rate, n,
-                          dev))
+            if fft_mode == "mega2" and mega_fft.supported(n, T):
+                x = mega_fft.packed_lti_apply_mega2(x.contiguous(), rp_stages,
+                                                    n, sample_rate)
+            elif fft_mode == "mega" and mega_fft.supported(n, T):
+                x = mega_fft.packed_lti_apply_mega(x.contiguous(), rp_stages,
+                                                   n, sample_rate)
+            else:
+                x = packed_lti_apply_rp(
+                    x, rp_stages, n,
+                    rp_tables([s.effect for s, _, _ in stages], sample_rate,
+                              n, dev))
 
         if peak_normalize_output:
             peak = torch.amax(x.abs(), dim=(-2, -1), keepdim=True)

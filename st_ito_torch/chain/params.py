@@ -42,9 +42,9 @@ class StageSpec:
     ``effect`` names the effect; the population renderer plans its kernels
     from it (chain/executor.py). ``pad``: guard samples for the stage's
     impulse-response tail when fused into an LTI group (-1 = one full signal
-    length, for feedback tails). ``process_fn`` is the per-candidate render
-    hook, which this port does not have yet (ROADMAP §1 item 7), so it stays
-    optional."""
+    length, for feedback tails). ``process_fn(x (C, T), params, sample_rate)
+    -> y`` is the per-candidate render hook (``build_render_fn``), params a
+    dict name -> denormalized 0-d tensor."""
 
     name: str
     effect: str

@@ -3,8 +3,9 @@
 device-resident block loop, ``_run_es_device_loop``).
 
 Per generation: ``cma_ask`` draws the population on the device; the
-population renderer (K1, then FFT -> K9 -> inverse FFT) renders every
-candidate on the shared input; the Cnn14 embeds the renders; the fitness is
+population renderer (K1, then the fused LTI group by ``fft_mode``: K3 -> K4
+for "mega2", which "auto" picks) renders every candidate on the shared
+input; the Cnn14 embeds the renders; the fitness is
 the negative cosine against the target embeddings; ``cma_tell`` updates the
 search state. Statistics stay on the device and reach the host once per
 ``gens_per_dispatch`` block.
@@ -20,7 +21,7 @@ import numpy as np
 import torch
 
 from st_ito_torch.chain.executor import (build_batched_render_fn,
-                                         parameters_to_dict)
+                                         build_render_fn, parameters_to_dict)
 from st_ito_torch.chain.params import ChainSpec
 from st_ito_torch.ito import device_es
 from st_ito_torch.models.registry import get_param_embeds
@@ -56,7 +57,7 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
                     dropout: float = 0.0, normalize_stages: bool = False,
                     mesh=None, return_audio: bool = False,
                     compute_dtype: str | None = None,
-                    fft_precision: str = "high", fft_mode: str = "mx",
+                    fft_precision: str = "high", fft_mode: str = "auto",
                     pop_microbatch: int | None = None,
                     renderer_fast: bool = True,
                     max_lti_pad: int | None = None, device="cuda"):
@@ -67,8 +68,10 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     ``compute_dtype``: the Cnn14 conv stack's precision; defaults to
     bfloat16 on the card and float32 on the CPU. ``pop_microbatch``: score
     the population in sub-batches of this size when it divides the
-    population (not with return_audio). The renderer's output
-    normalisation is skipped when the embed peak-normalises its input."""
+    population (not with return_audio). ``fft_mode``: how the renderer
+    applies the fused LTI group (``build_batched_render_fn``; "auto" is
+    "mega2"). The renderer's output normalisation is skipped when the embed
+    peak-normalises its input."""
     dev = resolve_device(device)
     if content_model is not None:
         _not_ported("a content model", "6")
@@ -127,7 +130,7 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
            es_state_path: str | None = None,
            fitness_dtype: str | None = None, gens_per_dispatch: int = 1,
            opt_slice=None, w_template=None, chunked: bool = False,
-           fft_mode: str = "mx", pop_microbatch: int | None = None,
+           fft_mode: str = "auto", pop_microbatch: int | None = None,
            device="cuda"):
     """CMA-ES inference-time optimisation on ``device`` (default the card).
 
@@ -142,10 +145,10 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
     (``ito/cmaes.py``, ROADMAP §1 item 6). ``find_w0`` draws the same
     ``W_init`` as the JAX package: numpy's ``default_rng(seed)``.
 
-    ``output_audio`` is rendered by the population renderer at B = 1; the
-    JAX package renders it per candidate (``build_render_fn``, ROADMAP §1
-    item 7), which truncates the delay's tail at the buffer end before the
-    reverb (ROADMAP §3). Its time is outside ``time_elapsed``, as in JAX."""
+    ``output_audio`` is rendered per candidate (``build_render_fn``), as in
+    the JAX package: stage by stage, the delay's tail truncated at the
+    buffer end before the reverb, where the population renderer's fused
+    group lets it through. Its time is outside ``time_elapsed``."""
     dev = resolve_device(device)
     if savepop:
         _not_ported("savepop", "6")
@@ -206,10 +209,10 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
         crop_generator, total_evals, fval_history, wopt_history, dev)
     elapsed = time.time() - t_start
 
-    render = build_batched_render_fn(chain, sample_rate, x_full.shape[0],
-                                     fft_mode=fft_mode, device=dev)
-    output_audio = render(torch.as_tensor(wopt[None], dtype=torch.float32),
-                          x_full)
+    render = build_render_fn(chain, sample_rate, x_full.shape[0],
+                             normalize_stages, device=dev)
+    output_audio = render(torch.as_tensor(wopt, dtype=torch.float32),
+                          x_full)[None]
     return {
         "output_audio": output_audio,
         "params": parameters_to_dict(wopt, chain),

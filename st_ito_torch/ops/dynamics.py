@@ -1,10 +1,19 @@
-"""Compressor helpers — port of ``st_ito_tpu/ops/dynamics.py``'s
-``_time_constant_alpha`` and ``gain_computer`` (the fused K1 kernel in
-``ops/kernels/eqcomp.py`` inlines the same gain computer per sample)."""
+"""The compressor — port of ``st_ito_tpu/ops/dynamics.py``'s
+``_time_constant_alpha``, ``gain_computer`` (the fused K1 kernel in
+``ops/kernels/eqcomp.py`` inlines the same gain computer per sample),
+``ballistics_parallel``, ``ballistics_scan`` and the op-by-op ``compressor``.
+
+The attack/release ballistics are the decoupled peak detector (Giannoulis,
+Massberg & Reiss 2012). Its release stage is a min-affine recurrence, closed
+under composition, so it evaluates exactly as a parallel prefix scan; the
+attack stage is an LTI one-pole. The lone-compressor kernels of the JAX
+package (K7, K8) are not ported yet, so there is no ``fast`` argument."""
 
 from __future__ import annotations
 
 import torch
+
+from st_ito_torch.ops.iir import doubling_scan, linear_recurrence
 
 
 def _time_constant_alpha(time_ms, sample_rate: float) -> torch.Tensor:
@@ -31,3 +40,105 @@ def gain_computer(env_db, threshold_db, ratio, knee_db) -> torch.Tensor:
         torch.zeros_like(over),
         torch.where(2.0 * over > knee_db, above, knee_region),
     )
+
+
+def _lead_coeff(alpha, like: torch.Tensor) -> torch.Tensor:
+    """A per-lead coefficient broadcast over the time axis of ``like``."""
+    alpha = torch.as_tensor(alpha, dtype=like.dtype, device=like.device)
+    if alpha.ndim == like.ndim - 1:
+        alpha = alpha[..., None]
+    return alpha.expand(like.shape)
+
+
+def ballistics_parallel(c: torch.Tensor, alpha_attack, alpha_release,
+                        axis: int = -1) -> torch.Tensor:
+    """Decoupled attack/release detector, exact parallel form.
+
+    Stage 1 (release, instant downward tracking):
+        y1[n] = min(c[n], ar*y1[n-1] + (1-ar)*c[n])
+    Each step is the min-affine map f_n(y) = min(c_n, ar*y + b_n); (k, b, m)
+    with f(y) = min(m, k*y + b) composes as
+    (k2*k1, k2*b1 + b2, min(m2, k2*m1 + b2)), so the recurrence is one
+    doubling scan. Stage 2 (attack): one-pole smoothing with the attack
+    coefficient. c is the gain computer's output in dB (<= 0), time on the
+    last axis."""
+    if axis not in (-1, c.ndim - 1):
+        raise ValueError("ballistics_parallel scans the last axis")
+    k = _lead_coeff(alpha_release, c)
+    b = (1.0 - k) * c
+
+    def combine(e1, e2):
+        k1, b1, m1 = e1
+        k2, b2, m2 = e2
+        return k1 * k2, k2 * b1 + b2, torch.minimum(m2, k2 * m1 + b2)
+
+    _, B, M = doubling_scan(combine, (k, b, c), dim=-1)
+    y1 = torch.minimum(M, B)  # initial state y1[-1] = 0
+
+    aa = _lead_coeff(alpha_attack, c)
+    return linear_recurrence(aa, (1.0 - aa) * y1, axis=-1)
+
+
+def ballistics_scan(c: torch.Tensor, alpha_attack, alpha_release):
+    """Serial per-sample reference of the same detector (a Python loop over
+    T: tests and ``exact_ballistics`` only)."""
+    aa = torch.as_tensor(alpha_attack, dtype=c.dtype, device=c.device)
+    ar = torch.as_tensor(alpha_release, dtype=c.dtype, device=c.device)
+    y1 = torch.zeros(c.shape[:-1], dtype=c.dtype, device=c.device)
+    g = torch.zeros_like(y1)
+    out = []
+    for ct in c.unbind(-1):
+        y1 = torch.minimum(ct, ar * y1 + (1.0 - ar) * ct)
+        g = aa * g + (1.0 - aa) * y1
+        out.append(g)
+    return torch.stack(out, dim=-1)
+
+
+def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
+               ratio=4.0, attack_ms=10.0, release_ms=100.0, knee_db=6.0,
+               makeup_gain_db=0.0, lookahead_samples: int = 0,
+               link_channels: bool = True, exact_ballistics: bool = False,
+               active=None) -> torch.Tensor:
+    """Feed-forward compressor on x of shape (..., C, T), op by op.
+
+    Detection: peak of |x|, linked over channels or per channel.
+    ``active``: optional per-item float bypass mask broadcastable to the
+    leading dims (1.0 = effect on), blended arithmetically."""
+    dev = x.device
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    x_in = x  # the dry signal before the lookahead, for the bypass blend
+    alpha_a = _time_constant_alpha(f32(attack_ms), sample_rate)
+    alpha_r = _time_constant_alpha(f32(release_ms), sample_rate)
+    if link_channels:
+        env = x.abs().amax(dim=-2, keepdim=True)  # (..., 1, T)
+    else:
+        env = x.abs()
+    env_db = 20.0 * torch.log10(torch.clamp_min(env, 1e-8))
+
+    gr_db = gain_computer(env_db, f32(threshold_db), f32(ratio), f32(knee_db))
+
+    aa = alpha_a.expand(gr_db.shape)[..., 0]
+    ar = alpha_r.expand(gr_db.shape)[..., 0]
+    if exact_ballistics:
+        gr_smooth = ballistics_scan(gr_db, aa, ar)
+    else:
+        gr_smooth = ballistics_parallel(gr_db, aa, ar)
+
+    gain = 10.0 ** (gr_smooth / 20.0)
+
+    if lookahead_samples > 0:
+        # delay the audio so the gain anticipates transients
+        x = torch.nn.functional.pad(x, (lookahead_samples, 0))[
+            ..., :x.shape[-1]]
+
+    y = x * gain
+    y = y * 10.0 ** (f32(makeup_gain_db) / 20.0)
+    if active is not None:
+        act = f32(active)
+        while act.ndim < y.ndim:
+            act = act[..., None]
+        y = act * y + (1.0 - act) * x_in
+    return y

@@ -1,6 +1,8 @@
-"""Biquad design (RBJ Audio-EQ cookbook) — port of the parts of
-``st_ito_tpu/ops/iir.py`` the basic EQ needs: ``biquad_coeffs`` for the
-low-shelf, peaking and high-shelf sections, and ``next_pow2``."""
+"""Biquad design and application — port of the parts of
+``st_ito_tpu/ops/iir.py`` the basic chain needs: ``biquad_coeffs`` (RBJ
+Audio-EQ cookbook) for the low-shelf, peaking and high-shelf sections,
+``freqz`` / ``fft_filt`` / ``apply_iir_fsm`` (a cascade applied by frequency
+sampling), ``linear_recurrence`` and ``next_pow2``."""
 
 from __future__ import annotations
 
@@ -60,3 +62,109 @@ def biquad_coeffs(gain_db, cutoff_freq, q_factor, sample_rate: float,
 
 def next_pow2(n: int) -> int:
     return 1 << (n - 1).bit_length()
+
+
+# --------------------------------------------------------------------------
+# Frequency-sampling application
+# --------------------------------------------------------------------------
+
+
+def _eval_biquad_poly(c: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                      floor_sum: bool) -> torch.Tensor:
+    """c0 + c1 z^-1 + c2 z^-2 on the unit circle, written as
+    S - c1*(1 - z^-1) - c2*(1 - z^-2) with S = c0 + c1 + c2: near w = 0 the
+    direct sum cancels catastrophically in float32 for low-frequency high-Q
+    biquads. All cancellation stays inside S, which (for denominators) is
+    floored away from exact zero."""
+    S = c[..., 0] + c[..., 1] + c[..., 2]
+    if floor_sum:
+        eps = 1e-7 * (c[..., 0].abs() + c[..., 1].abs() + c[..., 2].abs())
+        S = torch.where(S.abs() < eps, eps, S)
+    return (S[..., None].to(torch.complex64)
+            - c[..., 1:2].to(torch.complex64) * u
+            - c[..., 2:3].to(torch.complex64) * v)
+
+
+def _unit_circle_uv(w: torch.Tensor):
+    """u = 1 - e^{-jw}, v = 1 - e^{-j2w} in their half-angle forms (no
+    1 - cos cancellation)."""
+    sh, ch = torch.sin(w / 2.0), torch.cos(w / 2.0)
+    u = torch.complex(2.0 * sh * sh, 2.0 * sh * ch)
+    sw, cw = torch.sin(w), torch.cos(w)
+    v = torch.complex(2.0 * sw * sw, 2.0 * sw * cw)
+    return u, v
+
+
+def freqz(b: torch.Tensor, a: torch.Tensor, n_freqs: int) -> torch.Tensor:
+    """Complex frequency response of IIR sections on the rFFT grid of size
+    ``2*(n_freqs-1)``. b, a: (..., K) coefficients; second-order sections
+    (K = 3) use the cancellation-stable evaluation, higher orders the direct
+    polynomial sum. Returns (..., n_freqs) complex64."""
+    w = torch.linspace(0.0, math.pi, n_freqs, dtype=torch.float32,
+                       device=b.device)
+    if b.shape[-1] == 3 and a.shape[-1] == 3:
+        u, v = _unit_circle_uv(w)
+        return (_eval_biquad_poly(b, u, v, floor_sum=False)
+                / _eval_biquad_poly(a, u, v, floor_sum=True))
+    k = torch.arange(b.shape[-1], dtype=torch.float32, device=b.device)
+    ang = w[:, None] * k[None, :]
+    zk = torch.complex(torch.cos(ang), -torch.sin(ang))  # (n_freqs, K)
+    num = torch.einsum("...k,fk->...f", b.to(torch.complex64), zk)
+    den = torch.einsum("...k,fk->...f", a.to(torch.complex64), zk)
+    return num / den
+
+
+def fft_filt(x: torch.Tensor, H: torch.Tensor, fft_size: int) -> torch.Tensor:
+    """Apply a response H (on the size-``fft_size`` rFFT grid) to x along
+    the last axis: x is zero-padded to fft_size, the output cropped to
+    x.shape[-1]."""
+    T = x.shape[-1]
+    X = torch.fft.rfft(x, n=fft_size, dim=-1)
+    return torch.fft.irfft(X * H, n=fft_size, dim=-1)[..., :T].to(x.dtype)
+
+
+def apply_iir_fsm(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
+                  pad: int = 8192) -> torch.Tensor:
+    """Apply a cascade of IIR sections by frequency sampling. x: (..., T);
+    b, a: (..., S, 3), the S sections multiplied into one response; their
+    leading dims broadcast against x's. ``pad`` is the headroom for the
+    impulse-response tail (the circular-wrap guard)."""
+    n = next_pow2(x.shape[-1] + pad)
+    H = torch.prod(freqz(b, a, n // 2 + 1), dim=-2)
+    return fft_filt(x, H, n)
+
+
+# --------------------------------------------------------------------------
+# First-order linear recurrences (parallel prefix)
+# --------------------------------------------------------------------------
+
+
+def doubling_scan(combine, elems: tuple, dim: int = -1) -> tuple:
+    """Inclusive prefix scan of an associative ``combine(earlier, later)``
+    over tuples of equally shaped tensors, by log-step doubling along
+    ``dim``: ceil(log2 T) steps of whole-tensor ops (18 at T = 262144),
+    never a loop over T. Stands in for ``jax.lax.associative_scan``."""
+    T = elems[0].shape[dim]
+    d = 1
+    while d < T:
+        earlier = tuple(e.narrow(dim, 0, T - d) for e in elems)
+        later = tuple(e.narrow(dim, d, T - d) for e in elems)
+        merged = combine(earlier, later)
+        elems = tuple(torch.cat([e.narrow(dim, 0, d), m], dim=dim)
+                      for e, m in zip(elems, merged))
+        d *= 2
+    return elems
+
+
+def linear_recurrence(coeff: torch.Tensor, drive: torch.Tensor,
+                      axis: int = -1) -> torch.Tensor:
+    """Solve y[n] = coeff[n] * y[n-1] + drive[n] (y[-1] = 0) in parallel:
+    elements (a, b) compose as (a2*a1, a2*b1 + b2)."""
+
+    def combine(e1, e2):
+        a1, b1 = e1
+        a2, b2 = e2
+        return a1 * a2, a2 * b1 + b2
+
+    coeff, drive = torch.broadcast_tensors(coeff, drive)
+    return doubling_scan(combine, (coeff, drive), dim=axis)[1]

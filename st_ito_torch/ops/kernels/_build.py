@@ -3,7 +3,8 @@
 Each source in ``st_ito_torch/csrc/`` compiles on first use into a shared
 library with a plain C interface under ``build/st_ito_torch_kernels/`` at
 the repository root (listed in ``.gitignore``). The library's file name
-carries a hash of its source and flags, so an edited source rebuilds.
+carries a hash of its source, of the headers beside it (``csrc/*.cuh``) and
+of its flags, so an edited source or header rebuilds.
 Nothing is compiled or loaded when a module is imported, so a machine
 without ``nvcc`` or a card imports every module; the wrappers only come
 here for a tensor that is not on the CPU.
@@ -27,13 +28,17 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# name -> (source, extra nvcc flags). Both build with -fmad=false, so that
-# their arithmetic is the plain PyTorch version's op for op (which never
-# contracts a*b + c into one rounding); with nvcc's default contraction K1
-# drifted past its 1e-4 tolerance (PERF.md).
+# name -> (source, extra nvcc flags). All build with -fmad=false. For K1 and
+# K9/K2 the arithmetic is then the plain PyTorch version's op for op (which
+# never contracts a*b + c into one rounding); with nvcc's default contraction
+# K1 drifted past its 1e-4 tolerance (PERF.md). The FFT kernels cannot match
+# cuFFT bitwise either way; they take the flag so that K3's epilogue is K2's
+# arithmetic exactly (both include rp_response.cuh), and their cost is
+# shared-memory traffic, not flops.
 KERNELS = {
     "eqcomp": ("eqcomp.cu", ["-fmad=false"]),
     "packed_response": ("packed_response.cu", ["-fmad=false"]),
+    "mega_fft": ("mega_fft.cu", ["-fmad=false"]),
 }
 
 _LIBS: dict[str, ctypes.CDLL] = {}
@@ -52,8 +57,10 @@ def _nvcc() -> str:
 
 def _target(name: str) -> Path:
     src, extra = KERNELS[name]
-    digest = hashlib.sha1((CSRC / src).read_bytes()
-                          + " ".join(_ARCH + _COMMON + extra).encode())
+    digest = hashlib.sha1((CSRC / src).read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.read_bytes())
+    digest.update(" ".join(_ARCH + _COMMON + extra).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
 
 

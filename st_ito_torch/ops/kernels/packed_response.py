@@ -1,13 +1,16 @@
-"""K9: fused LTI response construction + packed hermitian apply.
+"""K9 and K2: fused LTI response construction + packed hermitian apply.
 
 Port of ``st_ito_tpu/ops/pallas/packed_response.py:133
-packed_response_apply_rp`` (and the stage-input assembly of its ``:188
-_build_stage_inputs``). The CUDA kernel is
-``st_ito_torch/csrc/packed_response.cu``; beside it here is its plain
-PyTorch version, the rp math of ``chain/rp_responses.py`` vectorised over
-the full (B, F) grid. The wrapper ``packed_response_apply`` runs the plain
-version for CPU tensors and the kernel for any other: on a CUDA tensor it
-launches the kernel or raises.
+packed_response_apply_rp`` (K9, flat (B, F) rows), ``:267
+packed_response_apply_rp_padded`` (K2, the pitched (B, Rp, n1) half grid of
+the FFT kernels) and the stage-input assembly of ``:188
+_build_stage_inputs``. Both are one CUDA kernel,
+``st_ito_torch/csrc/packed_response.cu``, with two launch entries; beside
+them here are their plain PyTorch versions, the rp math of
+``chain/rp_responses.py`` vectorised over the full (B, F) grid. The
+wrappers ``packed_response_apply`` and ``packed_response_apply_rp_padded``
+run the plain version for CPU tensors and the kernel for any other: on a
+CUDA tensor they launch the kernel or raise.
 
 A stage is ``(effect, params, active)``: ``effect`` one of ``RP_BUNDLES``,
 ``params`` a dict name -> (B,) tensor of denormalized values, ``active`` a
@@ -25,8 +28,10 @@ import torch
 
 from st_ito_torch.ops.kernels import _build
 
-# Kernel launches since the last reset (chip_smoke.py reads it).
+# Kernel launches since the last reset (chip_smoke.py reads them): K9's flat
+# form and K2's pitched form.
 launches = 0
+launches_padded = 0
 
 # the kernel's stage codes and per-stage parameter order
 STAGE_CODES = {"delay": 0, "gain": 1, "stereo_widener": 2, "reverb": 3}
@@ -105,20 +110,11 @@ def packed_response_plain(ZrL, ZiL, ZrR, ZiR, stages, tables):
     return ylo_r, ylo_i, yhi_r, yhi_i
 
 
-def packed_response_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables):
-    """Launch the kernel on the current stream."""
-    global launches
-    lib = _build.load("packed_response")
-    B, F = ZrL.shape
-    n = 2 * (F - 1)
-    dev = ZrL.device
-    for z in (ZrL, ZiL, ZrR, ZiR):
-        if (z.device != dev or z.dtype != torch.float32
-                or not z.is_contiguous() or tuple(z.shape) != (B, F)):
-            raise ValueError("packed_response kernel takes four contiguous "
-                             f"float32 ({B}, {F}) tensors on one CUDA device")
-    if dev.type != "cuda":
-        raise ValueError(f"packed_response kernel needs CUDA tensors, got {dev}")
+def stage_args(stages, B: int, F: int, tables, dev):
+    """What the kernels take for a stage list: (codes, n_stages, params
+    (n_stages, 4, B), active (n_stages, B) or None, Freeverb table (38, F)
+    or None, sample rate). Raises on a stage list they do not take. K9, K2
+    and K3 (``ops/kernels/mega_fft.py``) all pass these on."""
     if not 1 <= len(stages) <= _MAX_STAGES:
         raise ValueError(f"{len(stages)} stages; the kernel takes 1 to "
                          f"{_MAX_STAGES}")
@@ -141,28 +137,58 @@ def packed_response_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables):
                               or not table.is_contiguous()):
         raise ValueError("the reverb table must be a contiguous (38, F) "
                          "tensor on the spectra's device")
-    outs = [torch.empty((B, F), dtype=torch.float32, device=dev)
+    sr = tables["delay"]["_sr"] if "delay" in tables else 0.0
+    return codes, len(stages), prm, act, table, sr
+
+
+def data_ptr(t):
+    """A tensor's device address for ctypes, None (a null pointer) for None."""
+    return None if t is None else t.data_ptr()
+
+
+def _launch(entry: str, Z, shape, stages, tables, F: int, pitch):
+    """Check the four spectra, allocate the outputs and launch ``entry``;
+    ``pitch`` is None for K9's flat rows, Fp for K2's."""
+    lib = _build.load("packed_response")
+    B = shape[0]
+    n = 2 * (F - 1)
+    dev = Z[0].device
+    if dev.type != "cuda":
+        raise ValueError(f"packed_response kernel needs CUDA tensors, got {dev}")
+    for z in Z:
+        if (z.device != dev or z.dtype != torch.float32
+                or not z.is_contiguous() or tuple(z.shape) != tuple(shape)):
+            raise ValueError("packed_response kernel takes four contiguous "
+                             f"float32 {tuple(shape)} tensors on one CUDA "
+                             "device")
+    codes, n_stages, prm, act, table, sr = stage_args(stages, B, F, tables,
+                                                      dev)
+    outs = [torch.empty(shape, dtype=torch.float32, device=dev)
             for _ in range(4)]
-    fn = lib.packed_response_launch
+    fn = getattr(lib, entry)
     fn.argtypes = ([ctypes.c_void_p] * 8
                    + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
-                      ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                      ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                      ctypes.c_float, ctypes.c_void_p])
+                      ctypes.c_void_p, ctypes.c_void_p]
+                   + [ctypes.c_int] * (3 if pitch is None else 4)
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
     fn.restype = ctypes.c_int
-    sr = tables["delay"]["_sr"] if "delay" in tables else 0.0
-    err = fn(*(z.data_ptr() for z in (ZrL, ZiL, ZrR, ZiR)),
-             *(o.data_ptr() for o in outs),
-             codes, len(stages), prm.data_ptr(),
-             None if act is None else act.data_ptr(),
-             None if table is None else table.data_ptr(),
-             B, F, n, 2.0 * math.pi / n, sr,
-             torch.cuda.current_stream(dev).cuda_stream)
+    dims = (B, F, n) if pitch is None else (B, F, pitch, n)
+    err = fn(*(z.data_ptr() for z in Z), *(o.data_ptr() for o in outs),
+             codes, n_stages, prm.data_ptr(), data_ptr(act), data_ptr(table), *dims,
+             2.0 * math.pi / n, sr, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
-        raise RuntimeError(f"packed_response kernel launch failed: CUDA "
-                           f"error {err}")
-    launches += 1
+        raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return tuple(outs)
+
+
+def packed_response_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables):
+    """Launch K9 on the current stream."""
+    global launches
+    B, F = ZrL.shape
+    outs = _launch("packed_response_launch", (ZrL, ZiL, ZrR, ZiR), (B, F),
+                   stages, tables, F, None)
+    launches += 1
+    return outs
 
 
 def packed_response_apply(ZrL, ZiL, ZrR, ZiR, stages, tables):
@@ -175,3 +201,54 @@ def packed_response_apply(ZrL, ZiL, ZrR, ZiR, stages, tables):
     if ZrL.device.type == "cpu":
         return packed_response_plain(ZrL, ZiL, ZrR, ZiR, stages, tables)
     return packed_response_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables)
+
+
+# ------------------------------------------------------------------- K2
+
+
+def packed_response_padded_plain(ZrL, ZiL, ZrR, ZiR, stages, tables, n: int):
+    """Plain PyTorch version of K2: ``packed_response_plain`` on the F valid
+    bins of each pitched row; the bins past F come back as zeros."""
+    shape = ZrL.shape
+    B, F = shape[0], n // 2 + 1
+    valid = packed_response_plain(
+        *(z.reshape(B, -1)[:, :F] for z in (ZrL, ZiL, ZrR, ZiR)), stages,
+        tables)
+    outs = []
+    for v in valid:
+        o = torch.zeros((B, shape[1] * shape[2]), dtype=v.dtype,
+                        device=v.device)
+        o[:, :F] = v
+        outs.append(o.reshape(shape))
+    return tuple(outs)
+
+
+def packed_response_padded_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables, n: int):
+    """Launch K2 on the current stream. The bins past F of the outputs are
+    left as allocated."""
+    global launches_padded
+    B, Rp, n1 = ZrL.shape
+    outs = _launch("packed_response_padded_launch", (ZrL, ZiL, ZrR, ZiR),
+                   (B, Rp, n1), stages, tables, n // 2 + 1, Rp * n1)
+    launches_padded += 1
+    return outs
+
+
+def packed_response_apply_rp_padded(ZrL, ZiL, ZrR, ZiR, stages, tables,
+                                    n: int):
+    """K2: ``packed_response_apply`` on the pitched half grid of the FFT
+    kernels (``ops/kernels/mega_fft.py``). The four spectra are
+    (B, Rp, n1) float32, a row of pitch Fp = Rp*n1 per candidate with bin k
+    at flat index k; the F = n/2 + 1 bins k <= n/2 are read and written
+    (the Nyquist bin at flat index F - 1), the rest is junk in and out.
+    Port of ``st_ito_tpu/ops/pallas/packed_response.py:267``; the JAX
+    kernel's candidate and row block rules (B % 8, Rp % 8) are TPU tile
+    rules and are not kept."""
+    if ZrL.ndim != 3 or ZrL.shape[1] * ZrL.shape[2] < n // 2 + 1:
+        raise ValueError(f"K2 takes (B, Rp, n1) spectra with Rp*n1 >= n/2 + 1 "
+                         f"for n = {n}, got {tuple(ZrL.shape)}")
+    if ZrL.device.type == "cpu":
+        return packed_response_padded_plain(ZrL, ZiL, ZrR, ZiR, stages,
+                                            tables, n)
+    return packed_response_padded_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables, n)
+

@@ -60,5 +60,6 @@ class PhaseTimer:
                 for name, pairs in self._events.items()}
 
 
-# the main path's spans: k1, fft_fwd, k9, fft_inv, embed, ask, tell
+# the main path's spans: ask, k1, the LTI group's (k3, k4 in mega2; k5, k2, k4
+# in mega; fft_fwd, k9, fft_inv in mx), embed, tell
 phase_timer = PhaseTimer()

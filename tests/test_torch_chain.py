@@ -22,6 +22,10 @@ from st_ito_torch.chain.responses import _eq_section_stack
 from st_ito_torch.ops import dynamics as tdyn
 from st_ito_torch.ops.iir import biquad_coeffs, next_pow2
 
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
+
 SR = 48000
 N_FFT = 4096
 F = N_FFT // 2 + 1

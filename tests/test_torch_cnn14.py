@@ -20,6 +20,10 @@ from st_ito_torch.models import (Cnn14, Cnn14Config, ParamModel,
                                  cnn14_state_dict_from_jax, get_param_embeds,
                                  load_param_model)
 
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
+
 SMALL = dict(embed_dim=32, window_size=512, hop_size=256, mel_bins=32,
              base_channels=4)
 T = 8192

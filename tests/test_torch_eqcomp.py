@@ -16,6 +16,10 @@ from st_ito_torch.chain.responses import _eq_section_stack
 from st_ito_torch.ops.dynamics import _time_constant_alpha
 from st_ito_torch.ops.kernels import eqcomp
 
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
+
 SR = 48000
 
 

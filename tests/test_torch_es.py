@@ -1,7 +1,8 @@
 """The port's CMA-ES, fitness function and run_es against st_ito_tpu's:
 cma_tell on identical populations, cma_ask on injected normals, the
 fitness values against the forced-TPU JAX fitness (fft_mode="mx",
-float32), and a CPU run_es."""
+float32), a CPU run_es, and run_es's output_audio against the per-candidate
+renderers of both packages."""
 
 import numpy as np
 import pytest
@@ -10,13 +11,15 @@ import jax
 import jax.numpy as jnp
 
 from st_ito_tpu.chain import basic_chain as jax_basic_chain
+from st_ito_tpu.chain.executor import build_render_fn as jax_build_render_fn
 from st_ito_tpu.ito import device_es as jes
 from st_ito_tpu.ito.engine import make_fitness_fn as jax_make_fitness_fn
 from st_ito_tpu.models.cnn14 import Cnn14Config as JaxCnn14Config
 from st_ito_tpu.models.registry import ParamModel as JaxParamModel
 from st_ito_tpu.models.registry import get_param_embeds as jax_embeds
 
-from st_ito_torch.chain import basic_chain, build_batched_render_fn
+from st_ito_torch.chain import (basic_chain, build_batched_render_fn,
+                                build_render_fn)
 from st_ito_torch.ito import device_es as tes
 from st_ito_torch.ito import make_fitness_fn, run_es
 from st_ito_torch.models import Cnn14, Cnn14Config, ParamModel, get_param_embeds
@@ -24,6 +27,10 @@ from st_ito_torch.models.cnn14 import init_cnn14_
 
 from tests.test_torch_cnn14 import SMALL, jax_params, port_model
 from tests.test_torch_render import force_jax_tpu_plan
+
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
 
 SR = 48000
 T = 8192
@@ -188,10 +195,47 @@ def test_run_es_cpu_smoke():
     assert res["evals_per_sec"] > 0
 
 
+def test_output_audio_is_the_per_candidate_render():
+    """run_es renders output_audio with build_render_fn, as the JAX package
+    does (st_ito_tpu/ito/engine.py:628-630): equal to the port's
+    build_render_fn(wopt) bit for bit and to the JAX package's within 5e-5
+    after peak normalisation (the distortion is bypassed, so no drive
+    factor). The population renderer at B = 1, which rendered it before, is
+    tail-continuous and differs by far more than that."""
+    chain = basic_chain()
+    x = _audio(2, T=4096)
+    w0 = np.random.default_rng(11).uniform(0.3, 0.7, N)
+    starts = [s for _, s, _ in chain.stage_slices()]
+    w0[starts] = 0.2
+    w0[starts[2]] = 0.8            # distortion off
+    w0[starts[3] + 1] = 0.03       # delay 0.0397 s: echoes inside the buffer
+    w0[starts[3] + 2] = 0.8        # feedback 0.81: a tail past its end
+    cfg = Cnn14Config(embed_dim=32, window_size=256, hop_size=128,
+                      mel_bins=32, base_channels=4)
+    model = ParamModel(net=init_cnn14_(Cnn14(cfg),
+                                       torch.Generator().manual_seed(4)),
+                       config=cfg, embed_dim=32)
+    res = run_es(x, _audio(3, T=4096), SR, chain, model, max_iters=0,
+                 popsize=4, find_w0=False, w0=w0, verbose=False,
+                 device="cpu")
+    np.testing.assert_array_equal(res["wopt"], w0)
+    out = res["output_audio"]
+    assert out.shape == (1, 2, 4096)
+    w32 = w0.astype(np.float32)
+    own = build_render_fn(chain, SR, 2, device="cpu")(w32, x[0])
+    assert torch.equal(out[0], own)
+    want = np.asarray(jax_build_render_fn(jax_basic_chain(), SR, 2)(
+        jnp.asarray(w32), jnp.asarray(x[0])))
+    assert np.abs(out[0].numpy() - want).max() <= 5e-5
+    batched = build_batched_render_fn(chain, SR, 2, device="cpu")(
+        torch.from_numpy(w32[None]), torch.from_numpy(x[0]))[0].numpy()
+    assert np.abs(batched - want).max() > 1e-3
+
+
 @pytest.mark.parametrize("kwargs", [
     {"savepop": True}, {"chunked": True}, {"es_state_path": "s.npz"},
     {"opt_slice": (0, 19)}, {"dropout": 0.1}, {"content_model": object()},
-    {"fft_mode": "mega2"},
+    {"fft_mode": "fused"},
 ])
 def test_unported_run_es_options_raise(kwargs):
     model = port_model(jax_params(5))

@@ -9,10 +9,11 @@ import pytest
 import torch
 
 import st_ito_torch
-from st_ito_torch.chain import basic_chain, build_batched_render_fn
+from st_ito_torch.chain import (basic_chain, build_batched_render_fn,
+                                build_render_fn)
 from st_ito_torch.ito import make_fitness_fn, run_es
 from st_ito_torch.models import Cnn14, Cnn14Config, ParamModel, load_param_model
-from st_ito_torch.ops.kernels import _build, eqcomp
+from st_ito_torch.ops.kernels import _build, eqcomp, mega_fft
 from st_ito_torch.ops.kernels import packed_response as k9
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -46,6 +47,8 @@ def test_entry_points_default_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_batched_render_fn(chain, 48000, 2)
     with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_render_fn(chain, 48000, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
         load_param_model(allow_random=True)
     net = Cnn14(Cnn14Config(embed_dim=8, base_channels=2))
     model = ParamModel(net=net, config=net.config, embed_dim=8)
@@ -78,4 +81,53 @@ def test_wrappers_raise_when_the_kernel_cannot_load(monkeypatch):
     stages = [("gain", {"gain_db": torch.zeros(B, device=dev)}, None)]
     with pytest.raises(RuntimeError, match="cannot load kernel packed"):
         k9.packed_response_apply(*Z, stages, {"gain": {}})
+    # the four kernels of the mega paths, at the smallest shape they admit
+    n, T = 2 ** 14, 2 ** 13
+    grid = [torch.zeros((B,) + mega_fft.half_grid(n), device=dev)
+            for _ in range(4)]
+    with pytest.raises(RuntimeError, match="cannot load kernel packed"):
+        k9.packed_response_apply_rp_padded(*grid, stages, {"gain": {}}, n)
+    x = torch.zeros(B, 2, T, device=dev)
+    with pytest.raises(RuntimeError, match="cannot load kernel mega_fft"):
+        mega_fft.fwd_pack_fft(x, n)
+    with pytest.raises(RuntimeError, match="cannot load kernel mega_fft"):
+        mega_fft.fwd_pack_fft_response(x, stages, n, 48000)
+    with pytest.raises(RuntimeError, match="cannot load kernel mega_fft"):
+        mega_fft.inv_unpack_fft(*grid, n, T)
+    for group in (mega_fft.packed_lti_apply_mega,
+                  mega_fft.packed_lti_apply_mega2):
+        with pytest.raises(RuntimeError, match="cannot load kernel mega_fft"):
+            group(x, stages, n, 48000)
+
+
+def test_the_mega_entry_points_take_the_kernel_for_any_other_device(
+        monkeypatch):
+    """The plain versions run for CPU tensors only: with the kernel
+    functions replaced by markers, a CPU tensor never reaches them and a
+    tensor elsewhere always does."""
+    hits = []
+    for name in ("fwd_pack_fft_cuda", "fwd_pack_fft_response_cuda",
+                 "inv_unpack_fft_cuda"):
+        monkeypatch.setattr(mega_fft, name,
+                            lambda *a, _n=name: hits.append(_n))
+    monkeypatch.setattr(k9, "packed_response_padded_cuda",
+                        lambda *a: hits.append("k2"))
+    n, T = 2 ** 14, 2 ** 13
+    stages = [("gain", {"gain_db": torch.zeros(1)}, None)]
+    x = torch.zeros(1, 2, T)
+    Y = mega_fft.fwd_pack_fft_response(x, stages, n, 48000)
+    mega_fft.inv_unpack_fft(*Y, n, T)
+    k9.packed_response_apply_rp_padded(*mega_fft.fwd_pack_fft(x, n), stages,
+                                       {"gain": {}}, n)
+    assert hits == []
+    meta = torch.device("meta")
+    xm = x.to(meta)
+    stages_m = [("gain", {"gain_db": torch.zeros(1, device=meta)}, None)]
+    mega_fft.fwd_pack_fft(xm, n)
+    mega_fft.fwd_pack_fft_response(xm, stages_m, n, 48000)
+    grid = [y.to(meta) for y in Y]
+    mega_fft.inv_unpack_fft(*grid, n, T)
+    k9.packed_response_apply_rp_padded(*grid, stages_m, {"gain": {}}, n)
+    assert hits == ["fwd_pack_fft_cuda", "fwd_pack_fft_response_cuda",
+                    "inv_unpack_fft_cuda", "k2"]
 

@@ -16,6 +16,10 @@ from st_ito_tpu.ops.pallas.packed_response import (
 
 from st_ito_torch.ops.kernels import packed_response as k9
 
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
+
 SR = 48000
 
 
