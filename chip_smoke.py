@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port (``st_ito_torch``) on one NVIDIA card.
 
-    python3 chip_smoke.py [--record PATH] [--phases k1,k9,fft,main,dtype]
+    python3 chip_smoke.py [--record PATH]
+                          [--phases k1,k9,fft,scan,main,style,cli,dtype]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -23,19 +24,33 @@ Phases, in order; any failure raises and the script exits non-zero:
    read; then at the headline n=2^19, B=512 in full; the groups K3 -> K4
    and K5 -> K2 -> K4 against the mx path there; each kernel's time, and
    cuFFT's for the same transforms;
-6. ``main``: ``run_es`` with the basic chain, a random-weight Cnn14 at the
+6. ``scan``: K6 (the lone biquad-cascade EQ) and K8 (the lone compressor
+   ballistics) against their plain versions: B=37, stereo, T=20011, K6 with
+   mixed bypass on a shared and a per-candidate input, K8 on the 37 linked
+   lanes; then each at the main path's shape in full, K8 at the style
+   chain's 512 lanes x 262144, K6 at the CLI's 1024 lanes x 262144 on the
+   shared input; then each kernel's time there;
+7. ``main``: ``run_es`` with the basic chain, a random-weight Cnn14 at the
    deployed config, stereo T=262144 at 48 kHz, popsize 512, in each
    fft_mode ("mega2", which "auto" picks, then "mega", then "mx"): one
    warm-up block and one timed block of 2 generations, every kernel's
    launch count set to 0 before the timed run, read after it and held
    against what the mode must launch;
-7. ``dtype``: bfloat16 against float32 fitness on a population of 64;
-8. the ``kernels`` JSON line, then the card line and the result line.
+8. ``style``: the same run with the reference style chain
+   ``chains/eq+multiband-comp+limiter.json`` (K6, then K8 in each of the
+   multiband compressor's 3 bands and in the limiter), spans and peak
+   memory;
+9. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
+   material with the synthetic target and the default vst chain (K6, then
+   K3 -> K4) at popsize 512, 3 iterations, T 262144; launch counts per
+   fitness call, and the written WAV and parameter JSON;
+10. ``dtype``: bfloat16 against float32 fitness on a population of 64;
+11. the ``kernels`` JSON line, then the card line and the result line.
 
-Tolerances: K1 atol 1e-4; every other kernel 1e-4 x max|want| per output
-array on the valid bins (K9 and K2 match bitwise; an FFT cannot match
-cuFFT bitwise); the groups atol 5e-5, rtol 1e-4 against the mx path on a
-peak-normalised input.
+Tolerances: K1, K6 and K8 atol 1e-4 (all three match bitwise); every other
+kernel 1e-4 x max|want| per output array on the valid bins (K9 and K2 match
+bitwise; an FFT cannot match cuFFT bitwise); the groups atol 5e-5, rtol
+1e-4 against the mx path on a peak-normalised input.
 
 ``--record PATH`` also writes the full record, compiler reports included,
 as JSON. ``--phases`` runs a subset (a development aid: a partial run
@@ -72,7 +87,13 @@ K1_OPS_PER_SAMPLE = 94
 # two bypass blends 8, one monomix composition 24, packed coefficients 16,
 # the packed apply 28, the DC/Nyquist blend amortised to 0.
 K9_OPS_PER_BIN = 30 + 16 * 9 + 40 + 8 + 24 + 16 + 28
-PHASES = ("k1", "k9", "fft", "main", "dtype")
+# float32 operations per sample and lane: K6 6 biquads x 9 and the bypass
+# blend 4; K8 the release stage 5 (min counted) and the attack stage 4.
+K6_OPS_PER_SAMPLE = 58
+K8_OPS_PER_SAMPLE = 9
+STYLE_CHAIN = "chains/eq+multiband-comp+limiter.json"
+CLI_ITERS = 3
+PHASES = ("k1", "k9", "fft", "scan", "main", "style", "cli", "dtype")
 
 
 def log(*a):
@@ -430,6 +451,103 @@ def phase_fft(dev, recs):
     torch.cuda.empty_cache()
 
 
+# ------------------------------------------------------------- K6, K8
+
+
+def k6_inputs(B, C, T, seed, shared, dev):
+    """K6's (x_in, vec, S, with_active, shared_channels) for the basic EQ
+    with random parameters and a mixed bypass mask."""
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.chain.executor import stage_params
+    from st_ito_torch.chain.responses import _eq_section_stack
+    from st_ito_torch.ops.kernels import scan
+
+    rng = np.random.default_rng(seed)
+    chain = basic_chain()
+    W = torch.from_numpy(rng.random((B, chain.num_params)).astype(np.float32))
+    eq, es, _ = chain.stage_slices()[0]
+    b, a = _eq_section_stack(stage_params(eq, W, es, 1), SR)
+    x = torch.from_numpy(rng.standard_normal(
+        (C, T) if shared else (B, C, T)).astype(np.float32) * 0.5)
+    act = (W[:, es] <= 0.5).float()[:, None].to(dev)
+    return scan.biquad_cascade_inputs(
+        x.to(dev), b[:, None].to(dev), a[:, None].to(dev), active=act,
+        shared_lead_shape=(B, C) if shared else None)[:5]
+
+
+def k8_inputs(lanes, T, seed, dev):
+    """K8's (c_in, vec): gain-computer-like dB values (<= 0, a third of
+    them exactly 0) and the style chain's attack/release ranges."""
+    from st_ito_torch.ops.dynamics import _time_constant_alpha
+    from st_ito_torch.ops.kernels import scan
+
+    rng = np.random.default_rng(seed)
+    c = -np.abs(rng.standard_normal((lanes, T)) * 12.0)
+    c[rng.random((lanes, T)) < 0.33] = 0.0
+    aa = _time_constant_alpha(rng.uniform(0.05, 100.0, lanes), SR)
+    ar = _time_constant_alpha(rng.uniform(10.0, 1000.0, lanes), SR)
+    return scan.ballistics_inputs(
+        torch.from_numpy(c.astype(np.float32)).to(dev), aa.to(dev),
+        ar.to(dev))[:2]
+
+
+def scan_check(name, kernel, plain, args, label):
+    """(max |kernel - plain|, plain ms) on one input set (atol 1e-4)."""
+    got = kernel(*args)
+    want, plain_ms = once_ms(lambda: plain(*args))
+    e = float((got - want).abs().max())
+    log(f"{name} {label}: max |kernel - plain| = {e!r} (plain {plain_ms!r} "
+        f"ms)")
+    if not math.isfinite(e) or e > 1e-4:
+        raise AssertionError(f"{name} disagrees with its plain version: {e}")
+    return e, plain_ms
+
+
+def phase_scan(dev, recs):
+    from st_ito_torch.ops.kernels import scan
+
+    k6, k8 = recs["k6"], recs["k8"]
+    # 74 lanes: three 32-lane blocks, the last ragged; T 20011 is not a
+    # multiple of the 32-sample tile
+    ragged = "B 37, stereo, T 20011"
+    errs = []
+    for shared in (True, False):
+        args = k6_inputs(37, 2, 20011, 40 + shared, shared, dev)
+        e, _ = scan_check("K6", scan.biquad_cascade_cuda,
+                          scan.biquad_cascade_plain, args,
+                          f"{ragged}, shared={shared}")
+        errs.append(e)
+    # the CLI's shape on the shared input, in full
+    lanes = 2 * POP
+    head = k6_inputs(POP, 2, T_HEAD, 42, True, dev)
+    k6["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}, shared input"
+    e, k6["plain_ms"] = scan_check("K6", scan.biquad_cascade_cuda,
+                                   scan.biquad_cascade_plain, head,
+                                   k6["plain_shape"])
+    k6["max_abs_err"] = max(errs + [e])
+    k6["ms"] = cuda_ms(lambda: scan.biquad_cascade_cuda(*head), 3)
+    k6["bytes"] = 4 * (lanes * T_HEAD + head[0].numel() + head[1].numel())
+    k6["operations"] = K6_OPS_PER_SAMPLE * lanes * T_HEAD
+    log(f"K6 headline (lanes {lanes}, T {T_HEAD}, shared): {k6['ms']!r} ms")
+    del head
+    torch.cuda.empty_cache()
+
+    e_small, _ = scan_check("K8", scan.ballistics_cuda, scan.ballistics_plain,
+                            k8_inputs(37, 20011, 43, dev), "lanes 37, T 20011")
+    head = k8_inputs(POP, T_HEAD, 44, dev)
+    e, k8["plain_ms"] = scan_check("K8", scan.ballistics_cuda,
+                                   scan.ballistics_plain, head,
+                                   f"headline lanes {POP}, T {T_HEAD}")
+    k8["plain_shape"] = f"headline lanes {POP}, T {T_HEAD}"
+    k8["max_abs_err"] = max(e_small, e)
+    k8["ms"] = cuda_ms(lambda: scan.ballistics_cuda(*head), 3)
+    k8["bytes"] = 4 * (2 * POP * T_HEAD + head[1].numel())
+    k8["operations"] = K8_OPS_PER_SAMPLE * POP * T_HEAD
+    log(f"K8 headline (lanes {POP}, T {T_HEAD}): {k8['ms']!r} ms")
+    del head
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------ main path
 
 
@@ -462,15 +580,19 @@ def launch_counts(reset=False):
     from st_ito_torch.ops.kernels import eqcomp
     from st_ito_torch.ops.kernels import mega_fft as mf
     from st_ito_torch.ops.kernels import packed_response as k9
+    from st_ito_torch.ops.kernels import scan
 
     if reset:
         eqcomp.launches = k9.launches = k9.launches_padded = 0
-        for name in mf.launches:
-            mf.launches[name] = 0
+        for counts in (mf.launches, scan.launches):
+            for name in counts:
+                counts[name] = 0
     return {"k1": eqcomp.launches, "k9": k9.launches,
             "k2": k9.launches_padded, "k5": mf.launches["fwd_pack_fft"],
             "k3": mf.launches["fwd_pack_fft_response"],
-            "k4": mf.launches["inv_unpack_fft"]}
+            "k4": mf.launches["inv_unpack_fft"],
+            "k6": scan.launches["biquad_cascade"],
+            "k8": scan.launches["ballistics"]}
 
 
 # the kernels each fft_mode launches once per generation; the others stay 0
@@ -478,12 +600,19 @@ MODE_KERNELS = {"mega2": ("k1", "k3", "k4"), "mega": ("k1", "k5", "k2", "k4"),
                 "mx": ("k1", "k9")}
 
 
-def phase_main(dev, model, rec, fft_mode):
+def phase_main(dev, model, rec, fft_mode, chain=None, label=None,
+               want_per_gen=None):
+    """One warm-up and one timed block of ``run_es``; the timed block's
+    launch counts must equal ``want_per_gen`` x GENS (default: the
+    fft_mode's kernels once each) and every other kernel's 0."""
     from st_ito_torch.chain import basic_chain
     from st_ito_torch.ito import run_es
     from st_ito_torch.utils import phase_timer
 
-    chain = basic_chain()
+    chain = basic_chain() if chain is None else chain
+    label = fft_mode if label is None else label
+    if want_per_gen is None:
+        want_per_gen = {name: 1 for name in MODE_KERNELS[fft_mode]}
     x = program_audio(0, T_HEAD)
     y = styled_target(x, chain, dev, 1)
     common = dict(popsize=POP, find_w0=False, sigma0=0.33, crop_len=T_HEAD,
@@ -492,7 +621,7 @@ def phase_main(dev, model, rec, fft_mode):
     t0 = time.perf_counter()
     run_es(x, y, SR, chain, model, max_iters=GENS, **common)  # warm-up
     torch.cuda.synchronize()
-    log(f"main path {fft_mode} warm-up block: "
+    log(f"main path {label} warm-up block: "
         f"{time.perf_counter() - t0!r} s")
 
     torch.cuda.empty_cache()
@@ -504,14 +633,13 @@ def phase_main(dev, model, rec, fft_mode):
     spans = phase_timer.read_ms()
     phase_timer.reset(False)
 
-    # one launch per generation of the mode's kernels and none of the
+    # the path's kernels, want_per_gen each per generation, and none of the
     # others (the output render is plain PyTorch and launches none)
-    want = {name: GENS if name in MODE_KERNELS[fft_mode] else 0
-            for name in launches}
+    want = {name: GENS * want_per_gen.get(name, 0) for name in launches}
     if launches != want:
         raise AssertionError(
-            f"fft_mode={fft_mode}: launches {launches} in {GENS} "
-            f"generations; expected {want}")
+            f"{label}: launches {launches} in {GENS} generations; expected "
+            f"{want}")
     hist = np.asarray(res["fval_history"])
     if hist.shape != (GENS,) or not np.isfinite(hist).all():
         raise AssertionError(f"fitness history {hist}")
@@ -525,13 +653,81 @@ def phase_main(dev, model, rec, fft_mode):
         phase_ms_per_generation=phases, launches=launches,
         fval_history=hist.tolist(),
         max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
-    log(f"main path {fft_mode}: {res['evals_per_sec']!r} evals/s, "
+    log(f"main path {label}: {res['evals_per_sec']!r} evals/s, "
         f"{rec['ms_per_generation']!r} ms/generation, launches {launches}")
-    log(f"per-phase device ms per generation ({fft_mode}): "
+    log(f"per-phase device ms per generation ({label}): "
         + json.dumps(phases))
-    log(f"max_memory_allocated ({fft_mode}): "
+    log(f"max_memory_allocated ({label}): "
         f"{rec['max_memory_allocated_bytes']} bytes")
-    log(f"fitness history ({fft_mode}): {hist.tolist()}")
+    log(f"fitness history ({label}): {hist.tolist()}")
+    return launches
+
+
+def phase_style(dev, model, rec):
+    """``run_es`` on the reference style chain: K6, then K8 once in each of
+    the multiband compressor's 3 bands and once in the limiter."""
+    from st_ito_torch.chain import chain_from_json
+
+    chain = chain_from_json(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), STYLE_CHAIN))
+    return phase_main(dev, model, rec, "auto", chain=chain, label="style",
+                      want_per_gen={"k6": 1, "k8": 4})
+
+
+def phase_cli(dev, rec):
+    """The CLI on a WAV file with the synthetic target and the default vst
+    chain; K6, K3 and K4 once per fitness call (find_w0's and each
+    iteration's) and no other kernel."""
+    import tempfile
+
+    from st_ito_torch.cli import run_optim
+    from st_ito_torch.utils import save_audio
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "program.wav")
+        save_audio(wav, program_audio(3, T_HEAD)[0], SR)
+        out_dir = os.path.join(tmp, "out")
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        res = run_optim.main([
+            wav, "None", "--effect-type", "vst", "--popsize", str(POP),
+            "--max-iters", str(CLI_ITERS), "--max-length", str(T_HEAD),
+            "--allow-random-model", "--output-dir", out_dir,
+            "--device", dev.type])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = launch_counts()
+        calls = res["total_evals"] // POP
+        want = {name: calls if name in ("k6", "k3", "k4") else 0
+                for name in launches}
+        if calls != CLI_ITERS + 1 or launches != want:
+            raise AssertionError(
+                f"cli: launches {launches} in {calls} fitness calls; "
+                f"expected {want}")
+        run_dir = os.path.join(out_dir, "program_to_synthetic_target_es")
+        from st_ito_torch.utils import load_audio
+
+        audio, sr = load_audio(os.path.join(run_dir,
+                                            "output_audio_sigma=0.33.wav"))
+        with open(os.path.join(run_dir, "parameters_sigma=0.33.json")) as f:
+            params = json.load(f)
+        values = [v for stage in params.values() for v in stage.values()]
+        if (sr != SR or audio.shape != (2, T_HEAD)
+                or not np.isfinite(audio).all() or np.abs(audio).max() == 0
+                or not np.isfinite(values).all()):
+            raise AssertionError("cli: the output WAV or parameter JSON is "
+                                 "not finite at the expected shape")
+    hist = np.asarray(res["fval_history"])
+    if not np.isfinite(hist).all():
+        raise AssertionError(f"cli: fitness history {hist}")
+    rec.update(evals_per_sec=res["evals_per_sec"],
+               time_elapsed=res["time_elapsed"], wall_s=wall,
+               total_evals=res["total_evals"], launches=launches,
+               fval_history=hist.tolist())
+    log(f"cli (vst chain, popsize {POP}, {CLI_ITERS} iterations): "
+        f"{res['evals_per_sec']!r} evals/s, {wall!r} s wall, launches "
+        f"{launches}, fitness {hist.tolist()}")
     return launches
 
 
@@ -596,7 +792,7 @@ def main() -> int:
         f"{torch.cuda.get_device_name(0)}, python {sys.version.split()[0]}")
     record["card"] = card
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     secs = _build.build()
     log(f"kernels built in {time.perf_counter() - t0!r} s: {secs}")
     for name, text in _build.BUILD_LOGS.items():
@@ -606,18 +802,20 @@ def main() -> int:
     record["build_s"] = secs
     record["build_logs"] = dict(_build.BUILD_LOGS)
 
-    recs = {name: {} for name in ("k1", "k9", "k5", "k2", "k3", "k4",
-                                  "groups")}
+    recs = {name: {} for name in ("k1", "k9", "k5", "k2", "k3", "k4", "k6",
+                                  "k8", "groups")}
     if "k1" in phases:
         phase_k1(dev, recs["k1"])
     if "k9" in phases:
         phase_k9(dev, recs["k9"])
     if "fft" in phases:
         phase_fft(dev, recs)
+    if "scan" in phases:
+        phase_scan(dev, recs)
 
     model = main_rec = None
     launches = {}
-    if "main" in phases or "dtype" in phases:
+    if {"main", "style", "dtype"} & set(phases):
         model = load_param_model(allow_random=True, seed=0, device=dev)
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
@@ -631,13 +829,19 @@ def main() -> int:
         for mode, r in main_rec.items():
             log(f"{mode}: {r['ms_per_generation']!r} ms/generation, "
                 f"{r['ms_per_generation'] / base!r} of mx")
+    style_rec, cli_rec = {}, {}
+    if "style" in phases:
+        launches["k8"] = phase_style(dev, model, style_rec)["k8"]
+    if "cli" in phases:
+        launches["k6"] = phase_cli(dev, cli_rec)["k6"]
     dtype_rec = {}
     if "dtype" in phases:
         phase_dtype(dev, model, dtype_rec)
 
+    record.update(recs=recs, main=main_rec, style=style_rec, cli=cli_rec,
+                  dtype=dtype_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
-        record.update(recs=recs, main=main_rec, dtype=dtype_rec)
         write_record(args.record, record)
         return 0
 
@@ -657,7 +861,11 @@ def main() -> int:
              "st_ito_torch/csrc/mega_fft.cu",
              "st_ito_tpu/ops/pallas/mega_fft.py:431"),
             ("k4_inv_unpack_fft", "k4", "st_ito_torch/csrc/mega_fft.cu",
-             "st_ito_tpu/ops/pallas/mega_fft.py:489")):
+             "st_ito_tpu/ops/pallas/mega_fft.py:489"),
+            ("k6_biquad_cascade", "k6", "st_ito_torch/csrc/scan.cu",
+             "st_ito_tpu/ops/pallas/scan.py:133"),
+            ("k8_ballistics", "k8", "st_ito_torch/csrc/scan.cu",
+             "st_ito_tpu/ops/pallas/scan.py:810")):
         rec = recs[key]
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rec["operations"] / FP32_OPS_PER_S * 1e3
@@ -668,9 +876,12 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rec.get("library_ms")})
-    record.update(recs=recs, main=main_rec, dtype=dtype_rec,
-                  kernels=kernels)
+        if "plain_shape" in rec:
+            kernels[-1]["plain_shape"] = rec["plain_shape"]
+    record["kernels"] = kernels
+    record["script_s"] = time.perf_counter() - t_start
     write_record(args.record, record)
+    log(f"checks and runs took {record['script_s']!r} s after start-up")
 
     log(json.dumps({"kernels": kernels}))
     log(card)

@@ -2,16 +2,18 @@
 
 The package mirrors ``st_ito_tpu``'s layout and public names:
 
-- ``chain``   effect-chain specs, the basic effects, the population
-              renderer ``build_batched_render_fn`` and the per-candidate
-              renderer ``build_render_fn``.
-- ``ops``     the basic effects' DSP in plain PyTorch, the fused-LTI group
-              around ``torch.fft`` (``ops/lti.py``) and the hand-written
-              CUDA kernels' wrappers (``ops/kernels/``); the CUDA sources
-              live in ``st_ito_torch/csrc/``.
+- ``chain``   effect-chain specs, the effect registry (``chain_from_json``,
+              ``chain_preset``), the population renderer
+              ``build_batched_render_fn`` and the per-candidate renderer
+              ``build_render_fn``.
+- ``ops``     the effects' DSP in plain PyTorch, the fused-LTI group around
+              ``torch.fft`` (``ops/lti.py``), the FFT resampler and the
+              hand-written CUDA kernels' wrappers (``ops/kernels/``); the
+              CUDA sources live in ``st_ito_torch/csrc/``.
 - ``models``  the AFx-Rep Cnn14 as an ``nn.Module``, its weight converter and
               ``load_param_model`` / ``get_param_embeds``.
 - ``ito``     the device-resident CMA-ES and ``run_es``.
+- ``cli``     the style-transfer CLI, ``python -m st_ito_torch.cli.run_optim``.
 
 It imports torch, numpy and the standard library only. Entry points run on
 the card (``device="cuda"``) unless the caller passes ``device="cpu"``; on a

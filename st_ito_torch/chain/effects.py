@@ -1,14 +1,17 @@
-"""The basic effects of the ``--effect-type basic`` chain — port of
-``st_ito_tpu/chain/effects.py``: the same stage names, parameter names,
-ranges, defaults and LTI pads, so flat parameter vectors are interchangeable
-with the JAX package. The population renderer plans each stage from its
-``effect`` (chain/executor.py ``build_batched_render_fn``); the
-per-candidate renderer (``build_render_fn``) calls each stage's
-``process_fn(x (C, T), params, sample_rate)``, plain PyTorch ops on x's
-device."""
+"""The effect registry — port of ``st_ito_tpu/chain/effects.py``: the same
+stage names, parameter names, ranges, defaults and LTI pads, so flat
+parameter vectors are interchangeable with the JAX package, and the same
+``EFFECT_REGISTRY``, ``chain_from_json`` and ``chain_preset``. The
+population renderer plans each stage from its ``effect``
+(chain/executor.py ``build_batched_render_fn``); the per-candidate renderer
+(``build_render_fn``) calls each stage's ``process_fn(x (C, T), params,
+sample_rate)``, plain PyTorch ops on x's device. Chorus, noise gate and
+phaser are not ported: their registry entries raise."""
 
 from __future__ import annotations
 
+import dataclasses
+import json
 from typing import Mapping
 
 import torch
@@ -18,7 +21,9 @@ from st_ito_torch.ops import delay as _delay
 from st_ito_torch.ops import dynamics as _dyn
 from st_ito_torch.ops import eq as _eq
 from st_ito_torch.ops import reverb as _rev
+from st_ito_torch.ops import stereo as _st
 from st_ito_torch.ops import waveshape as _ws
+from st_ito_torch.ops.multiband import multiband_compressor
 
 
 def basic_parametric_eq(fixed: Mapping[str, float] | None = None) -> StageSpec:
@@ -139,6 +144,166 @@ def basic_reverb(fixed: Mapping[str, float] | None = None) -> StageSpec:
                      num_channels=2, fixed_parameters=fixed or {}, pad=-1)
 
 
+def basic_limiter(fixed: Mapping[str, float] | None = None) -> StageSpec:
+    P = ParamSpec
+    params = (
+        P("threshold_db", -40.0, 0.0, -6.0),
+        P("release_ms", 10.0, 1000.0, 100.0),
+    )
+
+    def process(x, p, sr):
+        return _dyn.limiter(x, sr, threshold_db=p["threshold_db"],
+                            release_ms=p["release_ms"])
+
+    return StageSpec("Limiter", "limiter", params, process,
+                     num_channels=2, fixed_parameters=fixed or {})
+
+
+def basic_gain(fixed: Mapping[str, float] | None = None) -> StageSpec:
+    params = (ParamSpec("gain_db", -24.0, 24.0, 0.0),)
+
+    def process(x, p, sr):
+        return _ws.gain(x, p["gain_db"])
+
+    return StageSpec("Gain", "gain", params, process,
+                     num_channels=1, fixed_parameters=fixed or {}, pad=0)
+
+
+def basic_stereo_widener(fixed: Mapping[str, float] | None = None
+                         ) -> StageSpec:
+    params = (ParamSpec("width", 0.0, 1.0, 0.5),)
+
+    def process(x, p, sr):
+        return _st.stereo_widener(x, p["width"])
+
+    return StageSpec("StereoWidener", "stereo_widener", params, process,
+                     num_channels=2, fixed_parameters=fixed or {}, pad=0)
+
+
+def basic_multiband_compressor(fixed: Mapping[str, float] | None = None
+                               ) -> StageSpec:
+    """3-band compressor with LR4 crossovers (the reference style chain's
+    ZaMultiCompX2 role)."""
+    P = ParamSpec
+    params = (
+        P("xover_low_hz", 40.0, 1000.0, 250.0),
+        P("xover_high_hz", 1000.0, 12000.0, 4000.0),
+        P("low_threshold_db", -60.0, 0.0, -24.0),
+        P("low_ratio", 1.0, 20.0, 4.0),
+        P("low_makeup_db", -12.0, 12.0, 0.0),
+        P("mid_threshold_db", -60.0, 0.0, -24.0),
+        P("mid_ratio", 1.0, 20.0, 4.0),
+        P("mid_makeup_db", -12.0, 12.0, 0.0),
+        P("high_threshold_db", -60.0, 0.0, -24.0),
+        P("high_ratio", 1.0, 20.0, 4.0),
+        P("high_makeup_db", -12.0, 12.0, 0.0),
+        P("attack_ms", 0.1, 100.0, 10.0),
+        P("release_ms", 10.0, 1000.0, 150.0),
+    )
+
+    def process(x, p, sr):
+        return multiband_compressor(
+            x, sr, xover_low=p["xover_low_hz"], xover_high=p["xover_high_hz"],
+            thresholds_db=(p["low_threshold_db"], p["mid_threshold_db"],
+                           p["high_threshold_db"]),
+            ratios=(p["low_ratio"], p["mid_ratio"], p["high_ratio"]),
+            makeup_db=(p["low_makeup_db"], p["mid_makeup_db"],
+                       p["high_makeup_db"]),
+            attack_ms=p["attack_ms"], release_ms=p["release_ms"])
+
+    return StageSpec("MultibandCompressor", "multiband_compressor", params,
+                     process, num_channels=2, fixed_parameters=fixed or {})
+
+
+def _not_ported(effect: str):
+    def build(fixed: Mapping[str, float] | None = None) -> StageSpec:
+        raise NotImplementedError(
+            f"the {effect} effect is not ported to st_ito_torch yet (ROADMAP "
+            f"§1 item 7)")
+
+    return build
+
+
+EFFECT_REGISTRY = {
+    "parametric_eq": basic_parametric_eq,
+    "compressor": basic_compressor,
+    "distortion": basic_distortion,
+    "delay": basic_delay,
+    "reverb": basic_reverb,
+    "chorus": _not_ported("chorus"),
+    "limiter": basic_limiter,
+    "noise_gate": _not_ported("noise_gate"),
+    "gain": basic_gain,
+    "stereo_widener": basic_stereo_widener,
+    "phaser": _not_ported("phaser"),
+    "multiband_compressor": basic_multiband_compressor,
+}
+
+# VST and reference class names -> the native effect each stands for
+VST_EFFECTS = {
+    "BasicParametricEQ": "parametric_eq", "BasicCompressor": "compressor",
+    "BasicDistortion": "distortion", "BasicDelay": "delay",
+    "BasicReverb": "reverb", "BasicChorus": "chorus",
+    "ZamEQ2": "parametric_eq", "ZamDelay": "delay",
+    "FlyingDelay": "delay", "TAL-Reverb-4": "reverb",
+    "DragonflyPlateReverb": "reverb", "ZaMultiCompX2": "multiband_compressor",
+    "ZamCompX2": "compressor", "ZaMaximX2": "limiter",
+    "TubeScreamer": "distortion", "STR-X": "distortion",
+    "RoughRider3": "compressor",
+}
+
+
+def chain_from_json(path: str, with_bypass: bool = True) -> ChainSpec:
+    """Declarative chain from a JSON spec in the reference's vst-chains
+    format: {stage_name: {"effect"|"class_path"|"vst_filepath": ...,
+    "num_channels": ..., "fixed_parameters": {...}}}. VST class names map
+    to their native equivalents (``VST_EFFECTS``).
+
+    Fixed-parameter units: an entry may declare ``"units": "raw"`` or
+    ``"units": "physical"``; without it, values inside [0, 1] are taken as
+    raw and values outside are converted from physical units with the
+    parameter's range (a physical value that falls in [0, 1], e.g.
+    ``ratio: 1.0``, therefore needs an explicit ``units``)."""
+    with open(path) as f:
+        spec = json.load(f)
+    stages = []
+    for name, entry in spec.items():
+        effect = entry.get("effect")
+        if effect is None:
+            cp = entry.get("class_path", entry.get("vst_filepath", ""))
+            base = cp.rsplit("/", 1)[-1].replace(".vst3", "").rsplit(".", 1)[-1]
+            effect = VST_EFFECTS.get(base)
+        if effect is None or effect not in EFFECT_REGISTRY:
+            raise ValueError(f"cannot map chain stage {name!r} ({entry}) to a "
+                             f"native effect")
+        fixed = entry.get("fixed_parameters")
+        if fixed:
+            specs = {p.name: p for p in EFFECT_REGISTRY[effect]().params}
+            units = entry.get("units")
+            converted = {}
+            for pname, value in fixed.items():
+                if pname not in specs:
+                    raise ValueError(
+                        f"stage {name!r}: unknown fixed parameter {pname!r}; "
+                        f"available: {sorted(specs)}")
+                pspec = specs[pname]
+                physical = (units == "physical" if units is not None
+                            else not (0.0 <= value <= 1.0))
+                raw = float(pspec.normalize(value)) if physical else float(value)
+                if not (0.0 <= raw <= 1.0):
+                    raise ValueError(
+                        f"stage {name!r}: fixed {pname}={value} maps to raw "
+                        f"{raw:.3f} outside [0,1] (range "
+                        f"[{pspec.min_value}, {pspec.max_value}])")
+                converted[pname] = raw
+            fixed = converted
+        stage = EFFECT_REGISTRY[effect](fixed=fixed)
+        stages.append(dataclasses.replace(
+            stage, name=name,
+            num_channels=entry.get("num_channels", stage.num_channels)))
+    return ChainSpec(stages=tuple(stages), with_bypass=with_bypass)
+
+
 def basic_chain(with_bypass: bool = True) -> ChainSpec:
     """The reference CLI's --effect-type basic chain:
     EQ -> Compressor -> Distortion -> Delay -> Reverb (36 raw params)."""
@@ -152,3 +317,31 @@ def basic_chain(with_bypass: bool = True) -> ChainSpec:
         ),
         with_bypass=with_bypass,
     )
+
+
+def chain_preset(name: str, with_bypass: bool = True) -> ChainSpec:
+    """Named chains mirroring the PST benchmark's chain types.
+
+    general:   distortion -> EQ -> compressor -> delay -> reverb
+    simple:    EQ -> compressor
+    speech:    EQ -> compressor -> distortion -> reverb
+    mastering: EQ -> compressor -> limiter
+    vocals:    EQ -> compressor -> delay -> reverb
+    guitar:    distortion -> EQ -> reverb
+    """
+    presets = {
+        "general": (basic_distortion, basic_parametric_eq, basic_compressor,
+                    basic_delay, basic_reverb),
+        "simple": (basic_parametric_eq, basic_compressor),
+        "speech": (basic_parametric_eq, basic_compressor, basic_distortion,
+                   basic_reverb),
+        "mastering": (basic_parametric_eq, basic_compressor, basic_limiter),
+        "vocals": (basic_parametric_eq, basic_compressor, basic_delay,
+                   basic_reverb),
+        "guitar": (basic_distortion, basic_parametric_eq, basic_reverb),
+    }
+    if name not in presets:
+        raise ValueError(f"unknown chain preset: {name} "
+                         f"(have {sorted(presets)})")
+    return ChainSpec(stages=tuple(build() for build in presets[name]),
+                     with_bypass=with_bypass)

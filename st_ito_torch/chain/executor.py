@@ -5,17 +5,26 @@ each stage's ``process_fn`` in plain PyTorch, truncating to the buffer at
 every stage boundary.
 
 ``build_batched_render_fn`` (``:85``) renders a population with the plan the
-JAX package runs on its accelerator (``executor.py:150-195``, ``:291-327``):
+JAX package runs on its accelerator (``executor.py:150-195``, ``:206-327``):
 
 - an EQ -> compressor (-> distortion) head fused into ONE pass of the K1
-  kernel (``ops/kernels/eqcomp.py``); a population-shared (C, T) input is
-  streamed into it and never broadcast to (B, C, T);
+  kernel (``ops/kernels/eqcomp.py``);
+- any other EQ ("fast") as one pass of the K6 kernel
+  (``ops/kernels/scan.py``), its bypass blended in-kernel;
 - consecutive LTI stages (delay, reverb, gain, widener) fused into one group
   with a guard of the full T for feedback tails, so the FFT size is
   next_pow2(T + T), applied by ``fft_mode``: "mega2" as K3 -> K4, "mega" as
   K5 -> K2 -> K4 (``ops/kernels/mega_fft.py``), "mx" as torch.fft -> K9 ->
   torch.fft (``ops/lti.py``);
+- every other stage ("nl": compressor, distortion, limiter, multiband
+  compressor) through its batched function (``chain/responses.py
+  NL_BATCHED``), the linked compressors' ballistics in K8;
 - peak normalisation of the output.
+
+A population-shared (C, T) input is streamed into a leading K1 or K6 pass
+and never broadcast to (B, C, T); before any other first stage it is
+broadcast, as in the JAX package (the JAX K6 has no shared mode, so there
+the lone EQ reads the broadcast; the output is the same).
 
 Semantics kept from the JAX package: the bypass rule (a stage is active when
 ``W[:, start] <= 0.5``), the mono -> stereo promotion before the first stereo
@@ -29,7 +38,8 @@ import numpy as np
 import torch
 
 from st_ito_torch.chain.params import ChainSpec, StageSpec
-from st_ito_torch.chain.responses import eq_comp_fast_batched
+from st_ito_torch.chain.responses import (NL_BATCHED, eq_comp_fast_batched,
+                                          eq_fast_batched)
 from st_ito_torch.chain.rp_responses import RP_BUNDLES
 from st_ito_torch.ops.iir import next_pow2
 from st_ito_torch.ops.kernels import mega_fft
@@ -86,8 +96,10 @@ def build_render_fn(chain: ChainSpec, sample_rate: int, num_channels: int,
 
 
 def _plan(chain: ChainSpec) -> list[tuple[str, list[int]]]:
-    """Group the chain's stages: a fused "eqcomp" head and "lti" groups;
-    any other stage has no kernel in this port yet."""
+    """Group the chain's stages as the JAX package's TPU plan does: the EQ
+    is "fast", rp-capable stages form "lti" groups, the rest are "nl"; an
+    EQ -> compressor (-> distortion) run merges into one "eqcomp" head.
+    Raises for an "nl" stage with no batched function."""
     slices = chain.stage_slices()
     plan: list[tuple[str, list[int]]] = []
     for i, (stage, _, _) in enumerate(slices):
@@ -115,13 +127,11 @@ def _plan(chain: ChainSpec) -> list[tuple[str, list[int]]]:
             merged.append((kind, idxs))
 
     for kind, idxs in merged:
-        if kind not in ("eqcomp", "lti"):
-            names = [slices[i][0].effect for i in idxs]
+        effect = slices[idxs[0]][0].effect
+        if kind == "nl" and effect not in NL_BATCHED:
             raise NotImplementedError(
-                f"stage {names} outside an EQ -> compressor (-> distortion) "
-                f"head has no kernel in st_ito_torch yet: the lone EQ (K6), "
-                f"compressor (K7) and the other effects are ROADMAP §1 item "
-                f"7 and §2")
+                f"stage {slices[idxs[0]][0].name!r} ({effect}) has no batched "
+                f"function in st_ito_torch yet (ROADMAP §1 item 7)")
     return merged
 
 
@@ -188,7 +198,7 @@ def build_batched_render_fn(
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
         B = W.shape[0]
         shared = x.ndim == 2
-        if shared and plan[0][0] != "eqcomp":
+        if shared and plan[0][0] not in ("eqcomp", "fast"):
             x = x[None].expand((B,) + tuple(x.shape))
             shared = False
         T = x.shape[-1]
@@ -219,6 +229,27 @@ def build_batched_render_fn(
                         active_comp=a_c, p_dist=p_d, active_dist=a_d,
                         shared_B=B if shared else None)
                 shared = False
+                continue
+
+            if kind in ("fast", "nl"):
+                stage, start, _ = stages[0]
+                params = stage_params(stage, W, start, bypass_off)
+                active = active_mask(W, start) if chain.with_bypass else None
+                if kind == "fast":
+                    with phase_timer.span("k6", dev):
+                        x = eq_fast_batched(x, params, sample_rate,
+                                            active=active,
+                                            shared_B=B if shared else None)
+                    shared = False
+                    continue
+                fn = NL_BATCHED[stage.effect]
+                if getattr(fn, "supports_active", False):
+                    x = fn(x, params, sample_rate, fast, active=active)
+                    continue
+                y = fn(x, params, sample_rate, fast)
+                if active is not None:
+                    y = torch.where(active[:, None, None] > 0.5, y, x)
+                x = y
                 continue
 
             # ---- fused LTI group (all stages rp-capable) ----

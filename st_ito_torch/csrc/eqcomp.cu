@@ -9,8 +9,10 @@
 //     g = aa*g + (1-aa)*y1;
 //   - v * exp(g*ln10/20) * makeup, the compressor blend, then (optionally)
 //     tanh(y*drive)*outg and the distortion blend.
-// The plain PyTorch version (st_ito_torch/ops/kernels/eqcomp.py) does the
-// same operations in the same order.
+// The cascade, the ballistics and the tile loop are scan_core.cuh's, which
+// K6 and K8 (scan.cu) run too. The plain PyTorch version
+// (st_ito_torch/ops/kernels/eqcomp.py) does the same operations in the same
+// order.
 //
 // Bound: the (lanes, T) float32 output write, 1.07 GB at the headline
 // 1024 lanes x 262144 samples, about 0.32 ms at the H100 SXM's 3.35 TB/s;
@@ -21,110 +23,72 @@
 // scan (the biquad is linear, the ballistics are min-affine) is queued in
 // ROADMAP.md.
 //
-// Layout: one warp per block. The warp walks T in 32-sample tiles; the
-// input tile (32 lanes x 32 samples) is loaded coalesced into shared
-// memory, each thread runs its lane's samples serially, and the output tile
-// goes back through the same buffer so that every row is stored as one
-// 128-byte segment. A population-shared (C, T) input is never broadcast:
-// lane b*C + c loads its tile row from x[c], which stays in L2. State
-// carries across the whole of T in one launch, at any length.
-//
 // C entry point: eqcomp_launch(...) returns cudaGetLastError().
 
 #include <cuda_runtime.h>
 
+#include "scan_core.cuh"
+
 namespace {
 
-constexpr int kTile = 32;
+using scancore::kTile;
+
 constexpr float kDbPerLog = (float)(20.0 / 2.302585092994046);      // 20/ln10
 constexpr float kLn10Over20 = (float)(2.302585092994046 / 20.0);
 
 // vec rows, each (lanes,): 5 per section (b0, b1, b2, a1, a2), then
 // eq_act, th, slope, knee, aa, ar, mk, comp_act, drive, outg, dist_act.
 template <int S>
+struct EqComp {
+  scancore::BiquadCascade<S> eq;  // reads eq_act, row 5*S, as its mask
+  scancore::Ballistics det;
+  float th, slope, knee, mk, comp_act, drive, outg, dist_act;
+  int with_dist;
+
+  __device__ __forceinline__ EqComp(const float* __restrict__ vec,
+                                    long long L, int li, int with_dist_)
+      : eq(vec, L, li, 1),
+        det(vec[(5 * S + 4) * L + li], vec[(5 * S + 5) * L + li]),
+        th(vec[(5 * S + 1) * L + li]),
+        slope(vec[(5 * S + 2) * L + li]),
+        knee(vec[(5 * S + 3) * L + li]),
+        mk(vec[(5 * S + 6) * L + li]),
+        comp_act(vec[(5 * S + 7) * L + li]),
+        drive(vec[(5 * S + 8) * L + li]),
+        outg(vec[(5 * S + 9) * L + li]),
+        dist_act(vec[(5 * S + 10) * L + li]),
+        with_dist(with_dist_) {}
+
+  __device__ __forceinline__ float step(float xin) {
+    const float v = eq.step(xin);
+
+    const float env_db = logf(fmaxf(fabsf(v), 1e-8f)) * kDbPerLog;
+    const float over = env_db - th;
+    const float h = over + knee / 2.0f;
+    const float knee_region = slope * (h * h) / (2.0f * knee);
+    const float c = (2.0f * over < -knee)
+                        ? 0.0f
+                        : ((2.0f * over > knee) ? slope * over : knee_region);
+    const float g = det.step(c);
+
+    float y = v * expf(g * kLn10Over20) * mk;
+    y = comp_act * y + (1.0f - comp_act) * v;
+    if (with_dist) {
+      const float yd = tanhf(y * drive) * outg;
+      y = dist_act * yd + (1.0f - dist_act) * y;
+    }
+    return y;
+  }
+};
+
+template <int S>
 __global__ void __launch_bounds__(kTile) eqcomp_kernel(
     const float* __restrict__ x, int shared_channels,
     const float* __restrict__ vec, float* __restrict__ out, int lanes,
     long long T, int with_dist) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int l = threadIdx.x;
   const int lane0 = blockIdx.x * kTile;
-  // threads past the last lane compute lane 0's values and store nothing
-  const int li = (lane0 + l < lanes) ? lane0 + l : 0;
-  const long long L = lanes;
-
-  float b0[S], b1[S], b2[S], a1[S], a2[S], s1[S], s2[S];
-#pragma unroll
-  for (int s = 0; s < S; ++s) {
-    b0[s] = vec[(5 * s + 0) * L + li];
-    b1[s] = vec[(5 * s + 1) * L + li];
-    b2[s] = vec[(5 * s + 2) * L + li];
-    a1[s] = vec[(5 * s + 3) * L + li];
-    a2[s] = vec[(5 * s + 4) * L + li];
-    s1[s] = 0.0f;
-    s2[s] = 0.0f;
-  }
-  const float* p = vec + 5 * S * L + li;
-  const float eq_act = p[0 * L], th = p[1 * L], slope = p[2 * L];
-  const float knee = p[3 * L], aa = p[4 * L], ar = p[5 * L], mk = p[6 * L];
-  const float comp_act = p[7 * L], drive = p[8 * L], outg = p[9 * L];
-  const float dist_act = p[10 * L];
-
-  float y1 = 0.0f, g = 0.0f;
-
-  for (long long t0 = 0; t0 < T; t0 += kTile) {
-    const int n = (int)((T - t0) < kTile ? (T - t0) : kTile);
-    for (int r = 0; r < kTile; ++r) {
-      const int ln = lane0 + r;
-      const long long row = shared_channels > 0 ? ln % shared_channels : ln;
-      if (ln < lanes && l < n) tile[r][l] = x[row * T + t0 + l];
-    }
-    __syncwarp();
-    for (int j = 0; j < n; ++j) {
-      const float xin = tile[l][j];
-      float v = xin;
-#pragma unroll
-      for (int s = 0; s < S; ++s) {
-        const float y = b0[s] * v + s1[s];
-        s1[s] = b1[s] * v - a1[s] * y + s2[s];
-        s2[s] = b2[s] * v - a2[s] * y;
-        v = y;
-      }
-      v = eq_act * v + (1.0f - eq_act) * xin;
-
-      const float env_db = logf(fmaxf(fabsf(v), 1e-8f)) * kDbPerLog;
-      const float over = env_db - th;
-      const float h = over + knee / 2.0f;
-      const float knee_region = slope * (h * h) / (2.0f * knee);
-      const float c = (2.0f * over < -knee)
-                          ? 0.0f
-                          : ((2.0f * over > knee) ? slope * over : knee_region);
-      y1 = fminf(c, ar * y1 + (1.0f - ar) * c);
-      g = aa * g + (1.0f - aa) * y1;
-
-      float y = v * expf(g * kLn10Over20) * mk;
-      y = comp_act * y + (1.0f - comp_act) * v;
-      if (with_dist) {
-        const float yd = tanhf(y * drive) * outg;
-        y = dist_act * yd + (1.0f - dist_act) * y;
-      }
-      tile[l][j] = y;
-    }
-    __syncwarp();
-    for (int r = 0; r < kTile; ++r) {
-      const int ln = lane0 + r;
-      if (ln < lanes && l < n) out[(long long)ln * T + t0 + l] = tile[r][l];
-    }
-    __syncwarp();
-  }
-}
-
-template <int S>
-void launch(const float* x, int shared_channels, const float* vec, float* out,
-            int lanes, long long T, int with_dist, cudaStream_t stream) {
-  const int blocks = (lanes + kTile - 1) / kTile;
-  eqcomp_kernel<S><<<blocks, kTile, 0, stream>>>(x, shared_channels, vec, out,
-                                                 lanes, T, with_dist);
+  EqComp<S> op(vec, lanes, scancore::lane_index(lanes, lane0), with_dist);
+  scancore::run_tiles(op, x, shared_channels, out, lanes, T, lane0);
 }
 
 }  // namespace
@@ -137,7 +101,8 @@ extern "C" int eqcomp_launch(const float* x, int shared_channels,
   // sections; other counts are instantiated when a chain needs them.
   if (lanes <= 0 || T <= 0 || shared_channels < 0 || num_sections != 6)
     return cudaErrorInvalidValue;
-  launch<6>(x, shared_channels, vec, out, lanes, T, with_dist,
-            static_cast<cudaStream_t>(stream));
+  eqcomp_kernel<6><<<scancore::blocks_for(lanes), kTile, 0,
+                     static_cast<cudaStream_t>(stream)>>>(
+      x, shared_channels, vec, out, lanes, T, with_dist);
   return static_cast<int>(cudaGetLastError());
 }

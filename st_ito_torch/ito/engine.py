@@ -3,9 +3,11 @@
 device-resident block loop, ``_run_es_device_loop``).
 
 Per generation: ``cma_ask`` draws the population on the device; the
-population renderer (K1, then the fused LTI group by ``fft_mode``: K3 -> K4
-for "mega2", which "auto" picks) renders every candidate on the shared
-input; the Cnn14 embeds the renders; the fitness is
+population renderer renders every candidate on the shared input with the
+chain's kernels (the basic chain: K1, then the fused LTI group by
+``fft_mode``, K3 -> K4 for "mega2", which "auto" picks; the CLI's vst chain:
+K6, then K3 -> K4; the style chain: K6, then K8 inside the multiband
+compressor and the limiter); the Cnn14 embeds the renders; the fitness is
 the negative cosine against the target embeddings; ``cma_tell`` updates the
 search state. Statistics stay on the device and reach the host once per
 ``gens_per_dispatch`` block.
@@ -71,14 +73,14 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     population (not with return_audio). ``fft_mode``: how the renderer
     applies the fused LTI group (``build_batched_render_fn``; "auto" is
     "mega2"). The renderer's output normalisation is skipped when the embed
-    peak-normalises its input."""
+    peak-normalises its input. ``normalize_stages`` renders each candidate
+    through the per-candidate ``build_render_fn`` instead (plain PyTorch, no
+    kernel)."""
     dev = resolve_device(device)
     if content_model is not None:
         _not_ported("a content model", "6")
     if dropout > 0.0:
         _not_ported("embedding dropout", "6")
-    if normalize_stages:
-        _not_ported("normalize_stages (the per-candidate renderer)", "7")
     if mesh is not None:
         _not_ported("a device mesh", "13")
     if getattr(embed_func, "host_side", False):
@@ -87,13 +89,23 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     if model.config.compute_dtype != compute_dtype:
         model = dataclasses.replace(model, config=dataclasses.replace(
             model.config, compute_dtype=compute_dtype))
-    skip_norm = (not return_audio
-                 and getattr(embed_func, "peak_normalizes_input", False))
-    render = build_batched_render_fn(
-        chain, sample_rate, num_channels, fast=renderer_fast,
-        fft_mode=fft_mode, fft_precision=fft_precision,
-        peak_normalize_output=not skip_norm, max_lti_pad=max_lti_pad,
-        device=dev)
+    if normalize_stages:
+        # per-stage normalisation does not fuse: every candidate goes
+        # through the per-candidate renderer, as the JAX package renders it
+        # under vmap (st_ito_tpu/ito/engine.py:163-169)
+        per_render = build_render_fn(chain, sample_rate, num_channels,
+                                     normalize_stages=True, device=dev)
+
+        def render(W, x):
+            return torch.stack([per_render(w, x) for w in W])
+    else:
+        skip_norm = (not return_audio
+                     and getattr(embed_func, "peak_normalizes_input", False))
+        render = build_batched_render_fn(
+            chain, sample_rate, num_channels, fast=renderer_fast,
+            fft_mode=fft_mode, fft_precision=fft_precision,
+            peak_normalize_output=not skip_norm, max_lti_pad=max_lti_pad,
+            device=dev)
 
     def score(W, x, target_embeds):
         Y = render(W, x)

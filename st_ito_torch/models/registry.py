@@ -14,6 +14,7 @@ import torch
 
 from st_ito_torch.models.cnn14 import Cnn14, Cnn14Config, init_cnn14_
 from st_ito_torch.models.convert import cnn14_state_dict_from_jax
+from st_ito_torch.ops.resample import resample
 from st_ito_torch.utils import resolve_device
 
 
@@ -86,14 +87,13 @@ def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
                      peak_normalize: bool = True, dropout: float = 0.0
                      ) -> dict[str, torch.Tensor]:
     """AFx-Rep embeddings of x (bs, chs, T) -> {"mid": (bs, D), "side":
-    (bs, D)}, L2-normalised. x must be on the model's device."""
-    if int(sample_rate) != int(model.config.sample_rate):
-        raise NotImplementedError(
-            "resampling to the encoder's rate (ops/resample.py) is ROADMAP "
-            "§1 item 7")
+    (bs, D)}, L2-normalised. x must be on the model's device; at another
+    sample rate than the encoder's it is resampled first (by FFT)."""
     if dropout > 0.0:
         raise NotImplementedError("embedding dropout is ROADMAP §1 item 6")
     x = x.to(torch.float32)
+    if int(sample_rate) != int(model.config.sample_rate):
+        x = resample(x, int(sample_rate), int(model.config.sample_rate))
     if peak_normalize:
         peak = torch.amax(x.abs(), dim=tuple(range(1, x.ndim)), keepdim=True)
         x = x / torch.clamp_min(peak, 1e-8)

@@ -1,19 +1,24 @@
-"""The compressor — port of ``st_ito_tpu/ops/dynamics.py``'s
+"""The compressor and the limiter — port of ``st_ito_tpu/ops/dynamics.py``'s
 ``_time_constant_alpha``, ``gain_computer`` (the fused K1 kernel in
 ``ops/kernels/eqcomp.py`` inlines the same gain computer per sample),
-``ballistics_parallel``, ``ballistics_scan`` and the op-by-op ``compressor``.
+``ballistics_parallel``, ``ballistics`` (K8 when ``fast``),
+``ballistics_scan``, ``compressor`` and ``limiter``.
 
 The attack/release ballistics are the decoupled peak detector (Giannoulis,
 Massberg & Reiss 2012). Its release stage is a min-affine recurrence, closed
 under composition, so it evaluates exactly as a parallel prefix scan; the
-attack stage is an LTI one-pole. The lone-compressor kernels of the JAX
-package (K7, K8) are not ported yet, so there is no ``fast`` argument."""
+attack stage is an LTI one-pole. ``fast=True`` (the population renderer)
+runs the detector through K8 (``ops/kernels/scan.py``), the rest op by op.
+The JAX package's other fast form, the whole unlinked compressor as one
+kernel (K7), is not ported."""
 
 from __future__ import annotations
 
 import torch
 
 from st_ito_torch.ops.iir import doubling_scan, linear_recurrence
+from st_ito_torch.ops.kernels import scan as _scan
+from st_ito_torch.utils import phase_timer
 
 
 def _time_constant_alpha(time_ms, sample_rate: float) -> torch.Tensor:
@@ -79,31 +84,44 @@ def ballistics_parallel(c: torch.Tensor, alpha_attack, alpha_release,
     return linear_recurrence(aa, (1.0 - aa) * y1, axis=-1)
 
 
+def ballistics(c: torch.Tensor, alpha_attack, alpha_release,
+               fast: bool = False) -> torch.Tensor:
+    """The decoupled detector over the last axis of c (..., T): K8 when
+    ``fast`` (its plain version on a CPU tensor), else the parallel form."""
+    if fast:
+        with phase_timer.span("k8", c.device):
+            return _scan.ballistics(c, alpha_attack, alpha_release)
+    return ballistics_parallel(c, alpha_attack, alpha_release)
+
+
 def ballistics_scan(c: torch.Tensor, alpha_attack, alpha_release):
-    """Serial per-sample reference of the same detector (a Python loop over
-    T: tests and ``exact_ballistics`` only)."""
-    aa = torch.as_tensor(alpha_attack, dtype=c.dtype, device=c.device)
-    ar = torch.as_tensor(alpha_release, dtype=c.dtype, device=c.device)
-    y1 = torch.zeros(c.shape[:-1], dtype=c.dtype, device=c.device)
-    g = torch.zeros_like(y1)
-    out = []
-    for ct in c.unbind(-1):
-        y1 = torch.minimum(ct, ar * y1 + (1.0 - ar) * ct)
-        g = aa * g + (1.0 - aa) * y1
-        out.append(g)
-    return torch.stack(out, dim=-1)
+    """Serial per-sample reference of the same detector, K8's plain version
+    on any device (a Python loop over T: tests and ``exact_ballistics``
+    only). Returns c's shape, float32."""
+    c_in, vec, _ = _scan.ballistics_inputs(c, alpha_attack, alpha_release)
+    return _scan.ballistics_plain(c_in, vec).reshape(c.shape)
 
 
 def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
                ratio=4.0, attack_ms=10.0, release_ms=100.0, knee_db=6.0,
                makeup_gain_db=0.0, lookahead_samples: int = 0,
                link_channels: bool = True, exact_ballistics: bool = False,
-               active=None) -> torch.Tensor:
+               fast: bool = False, active=None) -> torch.Tensor:
     """Feed-forward compressor on x of shape (..., C, T), op by op.
 
     Detection: peak of |x|, linked over channels or per channel.
+    ``fast=True`` runs the ballistics through K8. The JAX package runs a
+    fast, unlinked compressor without lookahead as one kernel (K7, not
+    ported): on a CUDA tensor that case raises, on a CPU tensor it runs
+    op by op, as the JAX package does off the TPU.
     ``active``: optional per-item float bypass mask broadcastable to the
     leading dims (1.0 = effect on), blended arithmetically."""
+    if (fast and not link_channels and lookahead_samples == 0
+            and not exact_ballistics and x.device.type != "cpu"):
+        raise NotImplementedError(
+            "a fast unlinked compressor is the JAX package's fused "
+            "compressor kernel K7 (compressor_fused_pallas), which is not "
+            "ported (ROADMAP §2); no shipped chain plans one")
     dev = x.device
 
     def f32(v):
@@ -125,7 +143,7 @@ def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
     if exact_ballistics:
         gr_smooth = ballistics_scan(gr_db, aa, ar)
     else:
-        gr_smooth = ballistics_parallel(gr_db, aa, ar)
+        gr_smooth = ballistics(gr_db, aa, ar, fast=fast)
 
     gain = 10.0 ** (gr_smooth / 20.0)
 
@@ -142,3 +160,12 @@ def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
             act = act[..., None]
         y = act * y + (1.0 - act) * x_in
     return y
+
+
+def limiter(x: torch.Tensor, sample_rate: float, threshold_db=-1.0,
+            release_ms=100.0, fast: bool = False) -> torch.Tensor:
+    """Brickwall-style limiter: a linked high-ratio fast-attack compressor
+    (pedalboard.Limiter semantics: threshold and release only)."""
+    return compressor(x, sample_rate, threshold_db=threshold_db, ratio=1000.0,
+                      attack_ms=0.05, release_ms=release_ms, knee_db=0.1,
+                      makeup_gain_db=0.0, fast=fast)

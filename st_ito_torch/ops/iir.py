@@ -1,8 +1,8 @@
 """Biquad design and application — port of the parts of
-``st_ito_tpu/ops/iir.py`` the basic chain needs: ``biquad_coeffs`` (RBJ
-Audio-EQ cookbook) for the low-shelf, peaking and high-shelf sections,
-``freqz`` / ``fft_filt`` / ``apply_iir_fsm`` (a cascade applied by frequency
-sampling), ``linear_recurrence`` and ``next_pow2``."""
+``st_ito_tpu/ops/iir.py`` the ported chains need: ``biquad_coeffs`` (RBJ
+Audio-EQ cookbook, all eight forms of the JAX list), ``freqz`` /
+``fft_filt`` / ``apply_iir_fsm`` (a cascade applied by frequency sampling),
+``linear_recurrence`` and ``next_pow2``."""
 
 from __future__ import annotations
 
@@ -10,22 +10,22 @@ import math
 
 import torch
 
-_FILTER_TYPES = ("low_shelf", "high_shelf", "peaking")
+_FILTER_TYPES = ("low_shelf", "high_shelf", "peaking", "lowpass", "highpass",
+                 "bandpass", "notch", "allpass")
 
 
 def biquad_coeffs(gain_db, cutoff_freq, q_factor, sample_rate: float,
                   filter_type: str):
     """RBJ cookbook biquad. Returns (b, a), each shape (..., 3),
-    a0-normalized, float32. Inputs broadcast against each other."""
+    a0-normalized, float32. Inputs broadcast against each other; plain
+    numbers join the device of the tensors among them."""
     if filter_type not in _FILTER_TYPES:
-        raise NotImplementedError(
-            f"filter_type {filter_type!r} is not ported yet (ROADMAP §1 "
-            f"item 7); the basic EQ uses {_FILTER_TYPES}")
+        raise ValueError(f"Invalid filter_type: {filter_type}")
+    dev = next((v.device for v in (gain_db, cutoff_freq, q_factor)
+                if isinstance(v, torch.Tensor)), None)
     gain_db, cutoff_freq, q_factor = torch.broadcast_tensors(
-        torch.as_tensor(gain_db, dtype=torch.float32),
-        torch.as_tensor(cutoff_freq, dtype=torch.float32),
-        torch.as_tensor(q_factor, dtype=torch.float32),
-    )
+        *(torch.as_tensor(v, dtype=torch.float32, device=dev)
+          for v in (gain_db, cutoff_freq, q_factor)))
 
     A = torch.pow(10.0, gain_db / 40.0)
     w0 = 2.0 * math.pi * (cutoff_freq / sample_rate)
@@ -47,13 +47,48 @@ def biquad_coeffs(gain_db, cutoff_freq, q_factor, sample_rate: float,
         a0 = (A + 1) + (A - 1) * cos_w0 + 2 * sqrt_A * alpha
         a1 = -2 * ((A - 1) + (A + 1) * cos_w0)
         a2 = (A + 1) + (A - 1) * cos_w0 - 2 * sqrt_A * alpha
-    else:  # peaking
+    elif filter_type == "peaking":
         b0 = 1 + alpha * A
         b1 = -2 * cos_w0
         b2 = 1 - alpha * A
         a0 = 1 + alpha / A
         a1 = -2 * cos_w0
         a2 = 1 - alpha / A
+    elif filter_type == "lowpass":
+        b0 = (1 - cos_w0) / 2
+        b1 = 1 - cos_w0
+        b2 = (1 - cos_w0) / 2
+        a0 = 1 + alpha
+        a1 = -2 * cos_w0
+        a2 = 1 - alpha
+    elif filter_type == "highpass":
+        b0 = (1 + cos_w0) / 2
+        b1 = -(1 + cos_w0)
+        b2 = (1 + cos_w0) / 2
+        a0 = 1 + alpha
+        a1 = -2 * cos_w0
+        a2 = 1 - alpha
+    elif filter_type == "bandpass":
+        b0 = alpha
+        b1 = torch.zeros_like(alpha)
+        b2 = -alpha
+        a0 = 1 + alpha
+        a1 = -2 * cos_w0
+        a2 = 1 - alpha
+    elif filter_type == "notch":
+        b0 = torch.ones_like(alpha)
+        b1 = -2 * cos_w0
+        b2 = torch.ones_like(alpha)
+        a0 = 1 + alpha
+        a1 = -2 * cos_w0
+        a2 = 1 - alpha
+    else:  # allpass
+        b0 = 1 - alpha
+        b1 = -2 * cos_w0
+        b2 = 1 + alpha
+        a0 = 1 + alpha
+        a1 = -2 * cos_w0
+        a2 = 1 - alpha
 
     b = torch.stack([b0, b1, b2], dim=-1) / a0[..., None]
     a = torch.stack([a0, a1, a2], dim=-1) / a0[..., None]

@@ -1,0 +1,34 @@
+"""Stereo width — port of ``st_ito_tpu/ops/stereo.py``'s ``to_mid_side``,
+``from_mid_side`` and ``stereo_widener``."""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def to_mid_side(x: torch.Tensor) -> torch.Tensor:
+    """(..., 2, T) -> (..., 2, T) with [mid, side] = [(L+R)/2, (L-R)/2]."""
+    mid = (x[..., 0, :] + x[..., 1, :]) / 2.0
+    side = (x[..., 0, :] - x[..., 1, :]) / 2.0
+    return torch.stack([mid, side], dim=-2)
+
+
+def from_mid_side(ms: torch.Tensor) -> torch.Tensor:
+    left = ms[..., 0, :] + ms[..., 1, :]
+    right = ms[..., 0, :] - ms[..., 1, :]
+    return torch.stack([left, right], dim=-2)
+
+
+def stereo_widener(x: torch.Tensor, width) -> torch.Tensor:
+    """width in [0, 1]: 0 = mono, 0.5 = unchanged, 1 = maximally wide.
+    Energy-preserving mid/side scaling."""
+    width = torch.as_tensor(width, dtype=torch.float32, device=x.device)
+    sqrt2 = math.sqrt(2.0)
+    mid_gain = torch.sqrt(torch.clamp(1.0 - width, 0.0, 1.0)) * sqrt2
+    side_gain = torch.sqrt(torch.clamp(width, 0.0, 1.0)) * sqrt2
+    ms = to_mid_side(x)
+    ms = torch.stack([ms[..., 0, :] * mid_gain, ms[..., 1, :] * side_gain],
+                     dim=-2)
+    return from_mid_side(ms)

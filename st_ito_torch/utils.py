@@ -1,10 +1,13 @@
-"""Device selection and opt-in per-phase CUDA-event timing."""
+"""Device selection, WAV I/O (the port's own copies of
+``st_ito_tpu/utils.py``'s ``load_audio`` / ``save_audio``, on
+``scipy.io.wavfile``) and opt-in per-phase CUDA-event timing."""
 
 from __future__ import annotations
 
 import contextlib
 from collections import defaultdict
 
+import numpy as np
 import torch
 
 
@@ -20,6 +23,39 @@ def resolve_device(device) -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def load_audio(path: str) -> tuple[np.ndarray, int]:
+    """Read a WAV file -> (audio (C, T) float32 in [-1, 1], sample_rate)."""
+    from scipy.io import wavfile
+
+    sr, data = wavfile.read(path)
+    if data.dtype == np.int16:
+        data = data.astype(np.float32) / 32768.0
+    elif data.dtype == np.int32:
+        data = data.astype(np.float32) / 2147483648.0
+    elif data.dtype == np.uint8:
+        data = (data.astype(np.float32) - 128.0) / 128.0
+    else:
+        data = data.astype(np.float32)
+    if data.ndim == 1:
+        data = data[None, :]
+    else:
+        data = data.T  # (T, C) -> (C, T)
+    return np.ascontiguousarray(data), int(sr)
+
+
+def save_audio(path: str, audio, sample_rate: int) -> None:
+    """Write (C, T) float32 audio as 16-bit WAV."""
+    from scipy.io import wavfile
+
+    if isinstance(audio, torch.Tensor):
+        audio = audio.detach().cpu().numpy()
+    audio = np.asarray(audio, np.float32)
+    if audio.ndim == 1:
+        audio = audio[None, :]
+    audio = np.clip(audio, -1.0, 1.0)
+    wavfile.write(path, sample_rate, (audio.T * 32767.0).astype(np.int16))
 
 
 class PhaseTimer:
@@ -60,6 +96,7 @@ class PhaseTimer:
                 for name, pairs in self._events.items()}
 
 
-# the main path's spans: ask, k1, the LTI group's (k3, k4 in mega2; k5, k2, k4
-# in mega; fft_fwd, k9, fft_inv in mx), embed, tell
+# the main path's spans: ask, k1 or k6, the LTI group's (k3, k4 in mega2; k5,
+# k2, k4 in mega; fft_fwd, k9, fft_inv in mx), the nonlinear stages' (k8,
+# multiband_fft), embed, tell
 phase_timer = PhaseTimer()

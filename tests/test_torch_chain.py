@@ -148,7 +148,8 @@ def test_rp_bypass_compose_and_packed_apply_match():
 
 
 @pytest.mark.parametrize("filter_type", ["low_shelf", "peaking",
-                                         "high_shelf"])
+                                         "high_shelf", "lowpass", "highpass",
+                                         "bandpass", "notch", "allpass"])
 def test_biquad_coeffs_match(filter_type):
     rng = np.random.default_rng(4)
     g, f, q = (rng.uniform(-24, 24, B), rng.uniform(20, 18000, B),

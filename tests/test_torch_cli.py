@@ -1,0 +1,99 @@
+"""The port's style-transfer CLI (``st_ito_torch.cli.run_optim``) against
+st_ito_tpu's: the same chains and synthetic target, a whole run on the CPU
+that writes its WAVs and parameter JSON, and the flags that are not ported
+raising with their ROADMAP item."""
+
+import json
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from st_ito_tpu.cli import run_optim as jax_cli
+from st_ito_tpu.models.cnn14 import Cnn14Config as JaxCnn14Config
+from st_ito_tpu.models.registry import export_encoder_npz
+
+from st_ito_torch.cli import run_optim
+from st_ito_torch.utils import load_audio, save_audio
+
+from tests.test_torch_cnn14 import jax_params
+
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
+
+# a small encoder (hop 128: 64 frames at T 8192; the deployed one needs
+# 31744 samples at least), written in the export_encoder_npz layout that
+# load_param_model finds under $STITO_CKPT_DIR
+SMALL_CLI = dict(embed_dim=32, window_size=256, hop_size=128, mel_bins=32,
+                 base_channels=4)
+
+
+def _facts(chain):
+    return [(s.name, s.effect, s.num_channels,
+             [(p.name, p.min_value, p.max_value, p.default) for p in s.params])
+            for s in chain.stages] + [chain.with_bypass]
+
+
+@pytest.mark.parametrize("effect_type", ["vst", "basic"])
+@pytest.mark.parametrize("with_bypass", [False, True])
+def test_build_chain_and_synthetic_target_match_jax(effect_type, with_bypass):
+    got = run_optim.build_chain(effect_type, "es", with_bypass)
+    want = jax_cli.build_chain(effect_type, "es", with_bypass)
+    assert _facts(got) == _facts(want)
+    np.testing.assert_array_equal(run_optim.synthetic_target_params(got),
+                                  jax_cli.synthetic_target_params(want))
+    assert run_optim.build_chain(effect_type, "autodiff") is None
+
+
+@pytest.fixture
+def cli_inputs(tmp_path, monkeypatch):
+    """A stereo WAV at 44.1 kHz (the CLI resamples it to 48 kHz) and the
+    small encoder's checkpoint."""
+    rng = np.random.default_rng(0)
+    T = 12000
+    t = np.arange(T) / 44100
+    x = (0.3 * np.sin(2 * np.pi * 220 * t) * np.ones((2, 1))
+         + 0.05 * rng.standard_normal((2, T)))
+    wav = str(tmp_path / "song.wav")
+    save_audio(wav, x.astype(np.float32), 44100)
+    export_encoder_npz(jax_params(1, random_bn=False),
+                       str(tmp_path / "afx-rep.npz"),
+                       JaxCnn14Config(**SMALL_CLI))
+    monkeypatch.setenv("STITO_CKPT_DIR", str(tmp_path))
+    monkeypatch.chdir(tmp_path)
+    return wav, str(tmp_path / "out")
+
+
+def test_cli_runs_on_the_cpu(cli_inputs, capsys):
+    wav, out = cli_inputs
+    res = run_optim.main([wav, "None", "--device", "cpu", "--popsize", "8",
+                          "--max-iters", "2", "--max-length", "8192",
+                          "--allow-random-model", "--output-dir", out])
+    run_dir = os.path.join(out, "song_to_synthetic_target_es")
+    for name in ("input_audio.wav", "target_audio.wav",
+                 "output_audio_sigma=0.33.wav"):
+        audio, sr = load_audio(os.path.join(run_dir, name))
+        assert sr == 48000 and audio.shape == (2, 8192), name
+        assert np.isfinite(audio).all() and np.abs(audio).max() > 0, name
+    with open(os.path.join(run_dir, "parameters_sigma=0.33.json")) as f:
+        params = json.load(f)
+    assert list(params) == ["ParametricEQ", "Delay", "Reverb"]
+    assert all(np.isfinite(v) for p in params.values() for v in p.values())
+    out_text = capsys.readouterr().out
+    summary = json.loads(out_text[out_text.index("{\n"):])
+    assert summary["run_dir"] == run_dir
+    assert summary["total_evals"] == 24 and summary["evals_per_sec"] > 0
+    assert res["total_evals"] == 24 and np.isfinite(res["fopt"])
+    assert len(res["fval_history"]) == 2
+
+
+@pytest.mark.parametrize("flags,item", [
+    (["--algorithm", "autodiff"], "8"), (["--metric", "mfcc"], "9"),
+    (["--metric", "clap"], "11"), (["--staged"], "6"), (["--savepop"], "6"),
+    (["--chunked"], "6"), (["--num-devices", "4"], "13"),
+])
+def test_unported_flags_raise(flags, item):
+    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
+        run_optim.main(["in.wav", "None", "--device", "cpu"] + flags)

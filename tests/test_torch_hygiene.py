@@ -10,10 +10,12 @@ import torch
 
 import st_ito_torch
 from st_ito_torch.chain import (basic_chain, build_batched_render_fn,
-                                build_render_fn)
+                                build_render_fn, chain_from_json)
+from st_ito_torch.cli import run_optim
 from st_ito_torch.ito import make_fitness_fn, run_es
 from st_ito_torch.models import Cnn14, Cnn14Config, ParamModel, load_param_model
-from st_ito_torch.ops.kernels import _build, eqcomp, mega_fft
+from st_ito_torch.ops import dynamics
+from st_ito_torch.ops.kernels import _build, eqcomp, mega_fft, scan
 from st_ito_torch.ops.kernels import packed_response as k9
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +60,13 @@ def test_entry_points_default_to_the_card(no_card):
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_es(x, x, 48000, chain, model, max_iters=1, popsize=4,
                find_w0=False, verbose=False)
+    style = chain_from_json(str(ROOT / "chains/eq+multiband-comp+limiter.json"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_batched_render_fn(style, 48000, 2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_fitness_fn(style, model, 48000, 2, normalize_stages=True)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_optim.main(["in.wav", "None", "--allow-random-model"])
 
 
 def test_wrappers_raise_when_the_kernel_cannot_load(monkeypatch):
@@ -98,6 +107,19 @@ def test_wrappers_raise_when_the_kernel_cannot_load(monkeypatch):
                   mega_fft.packed_lti_apply_mega2):
         with pytest.raises(RuntimeError, match="cannot load kernel mega_fft"):
             group(x, stages, n, 48000)
+    # K6 on a shared and a per-candidate input, and K8, also from where the
+    # linked compressor reaches it
+    act = torch.ones(B, 1, device=dev)
+    for xs, lead in ((torch.zeros(2, 64, device=dev), (B, 2)),
+                     (torch.zeros(B, 2, 64, device=dev), None)):
+        with pytest.raises(RuntimeError, match="cannot load kernel scan"):
+            scan.biquad_cascade(xs, b, b, active=act, shared_lead_shape=lead)
+    c = torch.zeros(B, 1, 64, device=dev)
+    with pytest.raises(RuntimeError, match="cannot load kernel scan"):
+        scan.ballistics(c, 0.9, 0.99)
+    with pytest.raises(RuntimeError, match="cannot load kernel scan"):
+        dynamics.compressor(torch.zeros(B, 2, 64, device=dev), 48000,
+                            threshold_db=-10.0, fast=True, link_channels=True)
 
 
 def test_the_mega_entry_points_take_the_kernel_for_any_other_device(
@@ -131,3 +153,15 @@ def test_the_mega_entry_points_take_the_kernel_for_any_other_device(
     assert hits == ["fwd_pack_fft_cuda", "fwd_pack_fft_response_cuda",
                     "inv_unpack_fft_cuda", "k2"]
 
+
+
+def test_unlinked_fast_compressor_on_the_card_names_k7():
+    """The fast unlinked compressor is the JAX package's fused kernel K7,
+    which is not ported: off the CPU it raises and never quietly runs the
+    op-by-op form. (A "meta" tensor stands in for a CUDA one.)"""
+    x = torch.zeros(2, 2, 64, device="meta")
+    with pytest.raises(NotImplementedError, match="K7.*ROADMAP §2"):
+        dynamics.compressor(x, 48000, fast=True, link_channels=False)
+    y = dynamics.compressor(torch.zeros(2, 2, 64), 48000, fast=True,
+                            link_channels=False)
+    assert y.shape == x.shape

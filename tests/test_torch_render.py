@@ -31,14 +31,16 @@ SR = 48000
 def force_jax_tpu_plan(monkeypatch):
     """Make st_ito_tpu render with its TPU plan on the CPU: the backend
     reads as "tpu" and the Pallas kernels of the mx, mega and mega2 plans
-    run in interpret mode. packed_lti_apply_rp is patched (not
+    and of the chains' lone EQ (K6) and linked compressors (K8) run in
+    interpret mode. packed_lti_apply_rp is patched (not
     packed_response_apply_rp, which it calls with interpret=False), and so
     are the two mega group functions the executor calls."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
-    monkeypatch.setattr(
-        jax_scan, "eq_compressor_fused_pallas",
-        functools.partial(jax_scan.eq_compressor_fused_pallas,
-                          interpret=True))
+    for name in ("eq_compressor_fused_pallas", "biquad_cascade_pallas",
+                 "ballistics_pallas"):
+        monkeypatch.setattr(
+            jax_scan, name,
+            functools.partial(getattr(jax_scan, name), interpret=True))
     monkeypatch.setattr(
         jax_packed_response, "packed_lti_apply_rp",
         functools.partial(jax_packed_response.packed_lti_apply_rp,

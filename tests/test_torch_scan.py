@@ -1,0 +1,211 @@
+"""K6 (the lone biquad-cascade EQ) and K8 (the lone compressor ballistics):
+the port's plain PyTorch versions against st_ito_tpu's
+biquad_cascade_pallas and ballistics_pallas run in interpret mode, and (on a
+card only) the CUDA kernels against the plain versions.
+
+Tolerances. The plain versions equal, bit for bit, a numpy float32 replica
+of the TPU kernels' arithmetic (``scan.py:71-77``, ``:109-123``) that rounds
+every product and every sum, which is what the CUDA kernels compute under
+``-fmad=false``. XLA on the CPU, which runs the Pallas kernels in interpret
+mode, contracts each a*b + c into one fused multiply-add (``jax.jit(lambda
+a, b, c: a * b + c)`` equals the fused result on every one of 1e5 random
+float32 triples and the unfused one on 77% of them), so against JAX the
+limit is 5e-5 x the output's peak: measured 5.5e-5 on K6's 3.77 peak (a
+low, high-Q section amplifies the rounding) and 2.3e-5 on K8's 29.4. From a
+float64 run of the same recurrences the port stays within 1.5x of JAX's
+distance (K6 6.6e-5 against JAX's 7.4e-5, K8 2.2e-5 against 1.6e-5)."""
+
+import numpy as np
+import pytest
+import torch
+import jax.numpy as jnp
+
+from st_ito_tpu.ops.pallas.scan import ballistics_pallas, biquad_cascade_pallas
+
+from st_ito_torch.chain import basic_chain
+from st_ito_torch.chain.executor import stage_params
+from st_ito_torch.chain.responses import _eq_section_stack
+from st_ito_torch.ops.dynamics import _time_constant_alpha
+from st_ito_torch.ops.kernels import scan
+
+# the suite runs in several worker processes side by side: one intra-op
+# thread each, so that their pools do not oversubscribe the cores
+torch.set_num_threads(1)
+
+SR = 48000
+
+
+def k6_case(B, C, T, seed, shared):
+    """x (shared (C, T) or (B, C, T)), the basic EQ's (B, 1, 6, 3) sections
+    from random raw parameters, and a (B, 1) mask with the EQ on in some
+    candidates and bypassed in the others."""
+    rng = np.random.default_rng(seed)
+    chain = basic_chain()
+    eq, start, _ = chain.stage_slices()[0]
+    W = torch.from_numpy(rng.random((B, chain.num_params)).astype(np.float32))
+    b, a = _eq_section_stack(stage_params(eq, W, start, 1), SR)
+    x = (rng.standard_normal((C, T) if shared else (B, C, T)) * 0.5).astype(
+        np.float32)
+    act = (rng.random(B) > 0.5).astype(np.float32)
+    act[0], act[-1] = 1.0, 0.0
+    return x, b[:, None].numpy(), a[:, None].numpy(), act[:, None]
+
+
+def k8_case(lanes, T, seed):
+    """Gain-computer-like dB values (<= 0, a third exactly 0) and per-lane
+    attack/release coefficients over the style chain's time ranges."""
+    rng = np.random.default_rng(seed)
+    c = -np.abs(rng.standard_normal((lanes, T)) * 12.0)
+    c[rng.random((lanes, T)) < 0.33] = 0.0
+    aa = _time_constant_alpha(rng.uniform(0.05, 100.0, lanes), SR).numpy()
+    ar = _time_constant_alpha(rng.uniform(10.0, 1000.0, lanes), SR).numpy()
+    return c.astype(np.float32), aa, ar
+
+
+def k6_numpy(x, b, a, act, dtype):
+    """scan.py:109-123 in numpy at ``dtype``, every product and sum rounded
+    on its own. x (L, T); b, a (L, S, 3); act (L,) or None."""
+    x, b, a = (np.asarray(v, dtype) for v in (x, b, a))
+    L, T = x.shape
+    S = b.shape[1]
+    st = np.zeros((L, S, 2), dtype)
+    out = np.empty((L, T), dtype)
+    one = dtype(1.0)
+    for t in range(T):
+        v = x[:, t]
+        for s in range(S):
+            y = b[:, s, 0] * v + st[:, s, 0]
+            st[:, s, 0] = b[:, s, 1] * v - a[:, s, 1] * y + st[:, s, 1]
+            st[:, s, 1] = b[:, s, 2] * v - a[:, s, 2] * y
+            v = y
+        if act is not None:
+            v = act * v + (one - act) * x[:, t]
+        out[:, t] = v
+    return out
+
+
+def k8_numpy(c, aa, ar, dtype):
+    """scan.py:71-77 in numpy at ``dtype``. c (L, T); aa, ar (L,)."""
+    c, aa, ar = (np.asarray(v, dtype) for v in (c, aa, ar))
+    y1 = np.zeros(c.shape[0], dtype)
+    g = np.zeros(c.shape[0], dtype)
+    out = np.empty_like(c)
+    one = dtype(1.0)
+    for t in range(c.shape[1]):
+        y1 = np.minimum(c[:, t], ar * y1 + (one - ar) * c[:, t])
+        g = aa * g + (one - aa) * y1
+        out[:, t] = g
+    return out
+
+
+def assert_matches_jax(got, want, f64):
+    """Within 5e-5 x peak of the JAX kernel (its multiply-adds are fused on
+    the CPU), and within 1.5x of its distance from float64."""
+    peak = np.abs(want).max()
+    assert np.abs(got - want).max() <= 5e-5 * peak
+    assert np.abs(got - f64).max() <= 1.5 * np.abs(want - f64).max()
+
+
+@pytest.mark.parametrize("masked", [True, False])
+def test_k6_plain_matches_pallas_interpret(masked):
+    """T 1300 against t_block 512: a ragged last block; every lane's state
+    crosses two block boundaries."""
+    B, C, T = 3, 2, 1300
+    x, b, a, act = k6_case(B, C, T, 1, shared=False)
+    act = act if masked else None
+    got = scan.biquad_cascade(torch.from_numpy(x), torch.from_numpy(b),
+                              torch.from_numpy(a),
+                              active=None if act is None
+                              else torch.from_numpy(act)).numpy()
+    want = np.asarray(biquad_cascade_pallas(
+        jnp.asarray(x), jnp.asarray(b), jnp.asarray(a), t_block=512,
+        interpret=True, active=None if act is None else jnp.asarray(act)))
+    assert got.shape == want.shape == (B, C, T)
+    lanes = (x.reshape(B * C, T), np.repeat(b[:, 0], C, axis=0),
+             np.repeat(a[:, 0], C, axis=0),
+             None if act is None else np.repeat(act[:, 0], C))
+    np.testing.assert_array_equal(got.reshape(B * C, T),
+                                  k6_numpy(*lanes, np.float32))
+    assert_matches_jax(got.reshape(B * C, T), want.reshape(B * C, T),
+                       k6_numpy(*lanes, np.float64))
+
+
+def test_k6_shared_input_equals_its_broadcast():
+    """The shared (C, T) mode reads x[c] for lane b*C + c: the same result
+    as the broadcast (B, C, T) input, bit for bit."""
+    B, C, T = 4, 2, 300
+    x, b, a, act = k6_case(B, C, T, 2, shared=True)
+    args = (torch.from_numpy(b), torch.from_numpy(a))
+    got = scan.biquad_cascade(torch.from_numpy(x), *args,
+                              active=torch.from_numpy(act),
+                              shared_lead_shape=(B, C))
+    want = scan.biquad_cascade(torch.from_numpy(np.broadcast_to(
+        x, (B, C, T)).copy()), *args, active=torch.from_numpy(act))
+    assert torch.equal(got, want)
+
+
+def test_k8_plain_matches_pallas_interpret():
+    lanes, T = 5, 1300
+    c, aa, ar = k8_case(lanes, T, 3)
+    got = scan.ballistics(torch.from_numpy(c)[:, None],
+                          torch.from_numpy(aa)[:, None],
+                          torch.from_numpy(ar)[:, None])
+    want = np.asarray(ballistics_pallas(
+        jnp.asarray(c)[:, None], jnp.asarray(aa)[:, None],
+        jnp.asarray(ar)[:, None], t_block=512, interpret=True))
+    assert got.shape == want.shape == (lanes, 1, T)
+    got, want = got.numpy()[:, 0], want[:, 0]
+    np.testing.assert_array_equal(got, k8_numpy(c, aa, ar, np.float32))
+    assert_matches_jax(got, want, k8_numpy(c, aa, ar, np.float64))
+
+
+def test_launch_counts_stay_zero_on_cpu():
+    x, b, a, act = k6_case(2, 2, 64, 4, shared=True)
+    c, aa, ar = k8_case(2, 64, 5)
+    before = dict(scan.launches)
+    scan.biquad_cascade(torch.from_numpy(x), torch.from_numpy(b),
+                        torch.from_numpy(a), active=torch.from_numpy(act),
+                        shared_lead_shape=(2, 2))
+    scan.ballistics(torch.from_numpy(c), torch.from_numpy(aa),
+                    torch.from_numpy(ar))
+    assert scan.launches == before
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shared", [True, False])
+def test_k6_kernel_matches_plain_on_card(cuda_device, shared):
+    # 74 lanes: three 32-lane blocks, the last one ragged; T ragged too
+    B, C, T = 37, 2, 2000
+    x, b, a, act = k6_case(B, C, T, 6, shared)
+    lead = (B, C) if shared else None
+    want = scan.biquad_cascade(torch.from_numpy(x), torch.from_numpy(b),
+                               torch.from_numpy(a),
+                               active=torch.from_numpy(act),
+                               shared_lead_shape=lead)
+    before = scan.launches["biquad_cascade"]
+    got = scan.biquad_cascade(*(torch.from_numpy(v).to(cuda_device)
+                                for v in (x, b, a)),
+                              active=torch.from_numpy(act).to(cuda_device),
+                              shared_lead_shape=lead)
+    torch.cuda.synchronize()
+    assert scan.launches["biquad_cascade"] == before + 1
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_k8_kernel_matches_plain_on_card(cuda_device):
+    c, aa, ar = k8_case(37, 2000, 7)
+    want = scan.ballistics(*map(torch.from_numpy, (c, aa, ar)))
+    before = scan.launches["ballistics"]
+    got = scan.ballistics(*(torch.from_numpy(v).to(cuda_device)
+                            for v in (c, aa, ar)))
+    torch.cuda.synchronize()
+    assert scan.launches["ballistics"] == before + 1
+    assert torch.equal(got.cpu(), want)
