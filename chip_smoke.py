@@ -2,7 +2,7 @@
 """Drive the PyTorch/CUDA port (``st_ito_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--record PATH]
-                          [--phases k1,k9,fft,scan,main,style,cli,dtype]
+                          [--phases k1,k9,fft,scan,main,style,comp,cli,dtype]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -21,36 +21,49 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel and the forward FFT with the response as its epilogue) each
    against its plain version (torch.fft plus glue), B=37 at n=2^14 (n1=n2=128) and n=2^15 (n1=256, n2=128)
    with T=n/2 and T<n/2, K4 with NaN written into every bin it must not
-   read; then at the headline n=2^19, B=512 in full; the groups K3 -> K4
-   and K5 -> K2 -> K4 against the mx path there; each kernel's time, and
-   cuFFT's for the same transforms;
-6. ``scan``: K6 (the lone biquad-cascade EQ) and K8 (the lone compressor
-   ballistics) against their plain versions: B=37, stereo, T=20011, K6 with
-   mixed bypass on a shared and a per-candidate input, K8 on the 37 linked
-   lanes; then each at the main path's shape in full, K8 at the style
-   chain's 512 lanes x 262144, K6 at the CLI's 1024 lanes x 262144 on the
-   shared input; then each kernel's time there;
+   read; then at the headline n=2^19, B=512 in full; the groups K3 -> K4,
+   K5 -> K2 -> K4 and K10 -> K9 -> K10 against the mx path there; K10 (the
+   planar complex DFT of the fused path) against its plain version
+   (torch.fft) at B=37, forward with a guard band and inverse with an
+   out_len that is not a multiple of n1, then at the headline forward
+   (in_len 2^18 -> 2^19 bins) and inverse (2^19 -> out_len 2^18); each
+   kernel's time, and cuFFT's for the same transforms;
+6. ``scan``: K6 (the lone biquad-cascade EQ), K7 (the whole unlinked
+   compressor), K8 (the lone compressor ballistics) and K11 (the linear
+   recurrence) against their plain versions: 74 lanes (B=37, stereo),
+   T=20011, K6 with mixed bypass on a shared and a per-candidate input, K7
+   with and without its bypass row; then each at its headline shape in
+   full: K6 at the CLI's 1024 lanes x 262144 on the shared input, K7 at the
+   compressor-led chain's 1024 lanes x 262144 with and without the bypass
+   row, K8 at the style chain's 512 lanes x 262144, K11 at 1024 lanes x
+   262144; then each kernel's time there;
 7. ``main``: ``run_es`` with the basic chain, a random-weight Cnn14 at the
    deployed config, stereo T=262144 at 48 kHz, popsize 512, in each
-   fft_mode ("mega2", which "auto" picks, then "mega", then "mx"): one
-   warm-up block and one timed block of 2 generations, every kernel's
+   fft_mode ("mega2", which "auto" picks, then "mega", "mx" and "fused"):
+   one warm-up block and one timed block of 2 generations, every kernel's
    launch count set to 0 before the timed run, read after it and held
    against what the mode must launch;
 8. ``style``: the same run with the reference style chain
    ``chains/eq+multiband-comp+limiter.json`` (K6, then K8 in each of the
    multiband compressor's 3 bands and in the limiter), spans and peak
    memory;
-9. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
+9. ``comp``: the same run with the single-compressor chain (the one
+   ``st_ito_tpu/eval/psm.py:44`` builds) with its bypass slot: K7, with
+   its in-kernel blend, once per generation and no other kernel;
+10. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
    material with the synthetic target and the default vst chain (K6, then
    K3 -> K4) at popsize 512, 3 iterations, T 262144; launch counts per
    fitness call, and the written WAV and parameter JSON;
-10. ``dtype``: bfloat16 against float32 fitness on a population of 64;
-11. the ``kernels`` JSON line, then the card line and the result line.
+11. ``dtype``: bfloat16 against float32 fitness on a population of 64;
+12. the ``kernels`` JSON line, then the card line and the result line.
+   K11 is on no main path (in the JAX package only its tests call it): its
+   launches there are 0.
 
-Tolerances: K1, K6 and K8 atol 1e-4 (all three match bitwise); every other
-kernel 1e-4 x max|want| per output array on the valid bins (K9 and K2 match
-bitwise; an FFT cannot match cuFFT bitwise); the groups atol 5e-5, rtol
-1e-4 against the mx path on a peak-normalised input.
+Tolerances: K1, K6, K7, K8 and K11 atol 1e-4 (they are expected to match
+bitwise: the log says whether they do); every other kernel 1e-4 x max|want|
+per output array on the valid bins (K9 and K2 match bitwise; an FFT cannot
+match cuFFT bitwise); the groups atol 5e-5, rtol 1e-4 against the mx path
+on a peak-normalised input.
 
 ``--record PATH`` also writes the full record, compiler reports included,
 as JSON. ``--phases`` runs a subset (a development aid: a partial run
@@ -91,9 +104,15 @@ K9_OPS_PER_BIN = 30 + 16 * 9 + 40 + 8 + 24 + 16 + 28
 # blend 4; K8 the release stage 5 (min counted) and the attack stage 4.
 K6_OPS_PER_SAMPLE = 58
 K8_OPS_PER_SAMPLE = 9
+# K7: the gain computer 18 (abs, floor, log, scale, over, the knee's half,
+# h, h*h, slope*, 2*knee, the divide, 2*over, the negated knee, two
+# compares, slope*over, two selects), the ballistics 9, the gain 4 (scale,
+# exp and two products), the bypass blend 4; K11 a product and a sum.
+K7_OPS_PER_SAMPLE = 18 + 9 + 4 + 4
+K11_OPS_PER_SAMPLE = 2
 STYLE_CHAIN = "chains/eq+multiband-comp+limiter.json"
 CLI_ITERS = 3
-PHASES = ("k1", "k9", "fft", "scan", "main", "style", "cli", "dtype")
+PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "cli", "dtype")
 
 
 def log(*a):
@@ -385,8 +404,12 @@ def fft_check(B, n, T, seed, dev, label, recs, timed=False):
     del y_got, Y_got
 
     mx = lti.packed_lti_apply_rp(x, stages, n, tables)
-    for name, fn in (("K3 -> K4", mf.packed_lti_apply_mega2),
-                     ("K5 -> K2 -> K4", mf.packed_lti_apply_mega)):
+    for name, fn in (
+            ("K3 -> K4", mf.packed_lti_apply_mega2),
+            ("K5 -> K2 -> K4", mf.packed_lti_apply_mega),
+            ("K10 -> K9 -> K10", lambda x, stages, n, _sr: (
+                lti.packed_lti_apply_rp(x, stages, n, tables,
+                                        fft_impl="fused")))):
         y = fn(x, stages, n, SR)
         diff = (y - mx).abs()
         worst = float((diff - 1e-4 * mx.abs()).max())
@@ -433,13 +456,81 @@ def fft_check(B, n, T, seed, dev, label, recs, timed=False):
         torch.cuda.empty_cache()
 
 
+def k10_check(B, n, in_len, sign, out_len, seed, dev, label):
+    """K10 against its plain version on one input set (1e-4 x max|want|);
+    returns (max |kernel - plain|, the inputs)."""
+    from st_ito_torch.ops.kernels import fused_fft
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    z = [torch.randn((B, in_len), generator=g, device=dev) for _ in range(2)]
+    want = fused_fft.fft_fused_plain(*z, sign=sign, n=n, out_len=out_len)
+    got = fused_fft.fft_fused_cuda(*z, sign=sign, n=n, out_len=out_len)
+    if [tuple(v.shape) for v in got] != [tuple(v.shape) for v in want]:
+        raise AssertionError(f"K10 {label}: shapes {got[0].shape} against "
+                             f"{want[0].shape}")
+    err, rel = rel_err(got, want)
+    hold("K10", label, err, rel)
+    return err, z
+
+
+def phase_k10(dev, rec):
+    """K10 at B 37 with the scratch chunk cut to 8 (a ragged last chunk):
+    forward with a guard band, inverse with an out_len that is not a
+    multiple of n1; then the fused path's two headline calls in full, and
+    their times beside torch.fft's."""
+    from st_ito_torch.ops.kernels import fused_fft
+    from st_ito_torch.ops.kernels import mega_fft as mf
+
+    chunk, mf.CHUNK = mf.CHUNK, 8
+    errs = [k10_check(37, n, in_len, sign, out_len, 50 + i, dev,
+                      f"B 37, n {n}, in_len {in_len}, sign {sign}, "
+                      f"out_len {out_len}")[0]
+            for i, (n, in_len, sign, out_len) in enumerate((
+                (2 ** 14, 2 ** 13, -1, None), (2 ** 14, 2 ** 14, 1, 1000),
+                (2 ** 15, 37 * 128, -1, None), (2 ** 15, 2 ** 15, 1, 20001)))]
+    mf.CHUNK = chunk
+    n = 2 ** 19
+    fft_ops = 5 * n * int(math.log2(n)) * POP
+    for d, (sign, in_len, out_len) in (("fwd", (-1, T_HEAD, None)),
+                                       ("inv", (1, n, T_HEAD))):
+        e, z = k10_check(POP, n, in_len, sign, out_len, 60, dev,
+                         f"headline {d}, B {POP}, n 2^19, in_len {in_len}, "
+                         f"out_len {out_len or n}")
+        errs.append(e)
+
+        def run(fn, z=z, sign=sign, out_len=out_len):
+            return fn(*z, sign=sign, n=n, out_len=out_len)
+
+        rec[f"ms_{d}"] = cuda_ms(lambda: run(fused_fft.fft_fused_cuda), 5)
+        rec[f"plain_ms_{d}"] = cuda_ms(lambda: run(fused_fft.fft_fused_plain),
+                                       2)
+        # the one PyTorch call for the same transform is torch.fft, which
+        # with the planar split is the plain version itself
+        rec[f"library_ms_{d}"] = cuda_ms(
+            lambda: run(fused_fft.fft_fused_plain), 3)
+        rec[f"bytes_{d}"] = 4 * 2 * POP * (in_len + (out_len or n))
+        log(f"K10 headline {d} (B {POP}, n {n}, in_len {in_len}, out_len "
+            f"{out_len or n}): {rec[f'ms_{d}']!r} ms, plain "
+            f"{rec[f'plain_ms_{d}']!r} ms, library "
+            f"{rec[f'library_ms_{d}']!r} ms")
+        del z
+        torch.cuda.empty_cache()
+    # the kernels line's entry is per launch: the mean of the two calls the
+    # fused path makes once each per generation
+    for key in ("ms", "plain_ms", "library_ms", "bytes"):
+        rec[key] = (rec[f"{key}_fwd"] + rec[f"{key}_inv"]) / 2
+    rec["operations"] = fft_ops
+    rec["max_abs_err"] = max(errs)
+
+
 def phase_fft(dev, recs):
     from st_ito_torch.ops.kernels import mega_fft as mf
 
     # n 2^14 splits 128 x 128, n 2^15 splits 256 x 128; T = n/2 and a
     # T < n/2 that is a multiple of n2 = 128; B 37 with the scratch chunk
-    # cut to 8 candidates for these checks, so that the walk over chunks
-    # runs and ends on a ragged one (the headline's 512 are 8 full chunks)
+    # (shared by the four FFT kernels) cut to 8 candidates for these
+    # checks, so that the walk over chunks runs and ends on a ragged one
+    # (the headline's 512 are 8 full chunks)
     chunk, mf.CHUNK = mf.CHUNK, 8
     for i, (n, T) in enumerate(((2 ** 14, 2 ** 13), (2 ** 14, 33 * 128),
                                 (2 ** 15, 2 ** 14), (2 ** 15, 37 * 128))):
@@ -449,6 +540,7 @@ def phase_fft(dev, recs):
     fft_check(POP, 2 ** 19, T_HEAD, 30, dev,
               f"headline n 2^19, T {T_HEAD}, B {POP}", recs, timed=True)
     torch.cuda.empty_cache()
+    phase_k10(dev, recs["k10"])
 
 
 # ------------------------------------------------------------- K6, K8
@@ -491,13 +583,50 @@ def k8_inputs(lanes, T, seed, dev):
         ar.to(dev))[:2]
 
 
+def k7_inputs(B, C, T, seed, with_active, dev):
+    """K7's (x_in, vec, with_active) for the compressor stage of the
+    single-compressor chain with random parameters and, with the bypass
+    row, a mixed mask; program-like input with silent stretches (the gain
+    computer's 1e-8 floor), made on the card."""
+    from st_ito_torch.chain import EFFECT_REGISTRY, ChainSpec
+    from st_ito_torch.chain.executor import stage_params
+    from st_ito_torch.ops.dynamics import _time_constant_alpha
+    from st_ito_torch.ops.kernels import scan
+
+    rng = np.random.default_rng(seed)
+    chain = ChainSpec((EFFECT_REGISTRY["compressor"](),), with_bypass=True)
+    stage, start, _ = chain.stage_slices()[0]
+    W = torch.from_numpy(rng.random((B, chain.num_params)).astype(np.float32))
+    p = stage_params(stage, W, start, 1)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((B, C, T), generator=g, device=dev) * 0.5
+    x[..., T // 3:T // 3 + 1000] = 0.0
+
+    def col(v):
+        return torch.as_tensor(v, dtype=torch.float32)[:, None].to(dev)
+
+    return scan.compressor_fused_inputs(
+        x, col(p["threshold_db"]), col(p["ratio"]), 0.5,
+        col(_time_constant_alpha(p["attack_ms"], SR)),
+        col(_time_constant_alpha(p["release_ms"], SR)), 0.0,
+        active=col((W[:, start] <= 0.5).float()) if with_active else None)[:3]
+
+
+def k11_inputs(lanes, T, seed, dev):
+    """K11's (a, b): a decaying coefficient near 1 and a random drive, made
+    on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = 0.9 + 0.099 * torch.rand((lanes, T), generator=g, device=dev)
+    return a, torch.randn((lanes, T), generator=g, device=dev)
+
+
 def scan_check(name, kernel, plain, args, label):
     """(max |kernel - plain|, plain ms) on one input set (atol 1e-4)."""
     got = kernel(*args)
     want, plain_ms = once_ms(lambda: plain(*args))
     e = float((got - want).abs().max())
-    log(f"{name} {label}: max |kernel - plain| = {e!r} (plain {plain_ms!r} "
-        f"ms)")
+    log(f"{name} {label}: max |kernel - plain| = {e!r}, bitwise "
+        f"{bool(torch.equal(got, want))} (plain {plain_ms!r} ms)")
     if not math.isfinite(e) or e > 1e-4:
         raise AssertionError(f"{name} disagrees with its plain version: {e}")
     return e, plain_ms
@@ -547,6 +676,51 @@ def phase_scan(dev, recs):
     del head
     torch.cuda.empty_cache()
 
+    # K7 with and without its bypass row, on 74 lanes and then on the
+    # compressor-led chain's 1024 in full; timed with the row, as the
+    # chain runs it
+    k7 = recs["k7"]
+    errs = [scan_check("K7", scan.compressor_fused_cuda,
+                       scan.compressor_fused_plain,
+                       k7_inputs(37, 2, 20011, 45 + act, act, dev),
+                       f"{ragged}, active={act}")[0] for act in (True, False)]
+    k7["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}, active row"
+    for act in (False, True):
+        head = k7_inputs(POP, 2, T_HEAD, 47 + act, act, dev)
+        e, k7["plain_ms"] = scan_check(
+            "K7", scan.compressor_fused_cuda, scan.compressor_fused_plain,
+            head, f"headline lanes {lanes}, T {T_HEAD}, active={act}")
+        errs.append(e)
+        if not act:
+            del head
+            torch.cuda.empty_cache()
+    k7["max_abs_err"] = max(errs)
+    k7["ms"] = cuda_ms(lambda: scan.compressor_fused_cuda(*head), 3)
+    k7["bytes"] = 4 * (2 * lanes * T_HEAD + head[1].numel())
+    k7["operations"] = K7_OPS_PER_SAMPLE * lanes * T_HEAD
+    log(f"K7 headline (lanes {lanes}, T {T_HEAD}, active row): "
+        f"{k7['ms']!r} ms")
+    del head
+    torch.cuda.empty_cache()
+
+    k11 = recs["k11"]
+    e_small, _ = scan_check("K11", scan.linear_recurrence_cuda,
+                            scan.linear_recurrence_plain,
+                            k11_inputs(74, 20011, 48, dev),
+                            "lanes 74, T 20011")
+    head = k11_inputs(lanes, T_HEAD, 49, dev)
+    k11["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}"
+    e, k11["plain_ms"] = scan_check("K11", scan.linear_recurrence_cuda,
+                                    scan.linear_recurrence_plain, head,
+                                    k11["plain_shape"])
+    k11["max_abs_err"] = max(e_small, e)
+    k11["ms"] = cuda_ms(lambda: scan.linear_recurrence_cuda(*head), 3)
+    k11["bytes"] = 4 * 3 * lanes * T_HEAD
+    k11["operations"] = K11_OPS_PER_SAMPLE * lanes * T_HEAD
+    log(f"K11 headline (lanes {lanes}, T {T_HEAD}): {k11['ms']!r} ms")
+    del head
+    torch.cuda.empty_cache()
+
 
 # ------------------------------------------------------------ main path
 
@@ -577,13 +751,14 @@ def styled_target(x, chain, dev, seed):
 
 def launch_counts(reset=False):
     """Every kernel's launch count; with ``reset`` set them all to 0."""
-    from st_ito_torch.ops.kernels import eqcomp
+    from st_ito_torch.ops.kernels import eqcomp, fused_fft
     from st_ito_torch.ops.kernels import mega_fft as mf
     from st_ito_torch.ops.kernels import packed_response as k9
     from st_ito_torch.ops.kernels import scan
 
     if reset:
         eqcomp.launches = k9.launches = k9.launches_padded = 0
+        fused_fft.launches = 0
         for counts in (mf.launches, scan.launches):
             for name in counts:
                 counts[name] = 0
@@ -592,19 +767,24 @@ def launch_counts(reset=False):
             "k3": mf.launches["fwd_pack_fft_response"],
             "k4": mf.launches["inv_unpack_fft"],
             "k6": scan.launches["biquad_cascade"],
-            "k8": scan.launches["ballistics"]}
+            "k7": scan.launches["compressor_fused"],
+            "k8": scan.launches["ballistics"],
+            "k10": fused_fft.launches,
+            "k11": scan.launches["linear_recurrence"]}
 
 
-# the kernels each fft_mode launches once per generation; the others stay 0
-MODE_KERNELS = {"mega2": ("k1", "k3", "k4"), "mega": ("k1", "k5", "k2", "k4"),
-                "mx": ("k1", "k9")}
+# the kernels each fft_mode launches per generation; the others stay 0
+MODE_KERNELS = {"mega2": {"k1": 1, "k3": 1, "k4": 1},
+                "mega": {"k1": 1, "k5": 1, "k2": 1, "k4": 1},
+                "mx": {"k1": 1, "k9": 1},
+                "fused": {"k1": 1, "k9": 1, "k10": 2}}
 
 
 def phase_main(dev, model, rec, fft_mode, chain=None, label=None,
                want_per_gen=None):
     """One warm-up and one timed block of ``run_es``; the timed block's
     launch counts must equal ``want_per_gen`` x GENS (default: the
-    fft_mode's kernels once each) and every other kernel's 0."""
+    fft_mode's kernels, ``MODE_KERNELS``) and every other kernel's 0."""
     from st_ito_torch.chain import basic_chain
     from st_ito_torch.ito import run_es
     from st_ito_torch.utils import phase_timer
@@ -612,7 +792,7 @@ def phase_main(dev, model, rec, fft_mode, chain=None, label=None,
     chain = basic_chain() if chain is None else chain
     label = fft_mode if label is None else label
     if want_per_gen is None:
-        want_per_gen = {name: 1 for name in MODE_KERNELS[fft_mode]}
+        want_per_gen = MODE_KERNELS[fft_mode]
     x = program_audio(0, T_HEAD)
     y = styled_target(x, chain, dev, 1)
     common = dict(popsize=POP, find_w0=False, sigma0=0.33, crop_len=T_HEAD,
@@ -672,6 +852,17 @@ def phase_style(dev, model, rec):
         os.path.abspath(__file__)), STYLE_CHAIN))
     return phase_main(dev, model, rec, "auto", chain=chain, label="style",
                       want_per_gen={"k6": 1, "k8": 4})
+
+
+def phase_comp(dev, model, rec):
+    """``run_es`` on the single-compressor chain with its bypass slot: the
+    broadcast input, then K7 with its in-kernel blend once per generation,
+    and no other kernel."""
+    from st_ito_torch.chain import EFFECT_REGISTRY, ChainSpec
+
+    chain = ChainSpec((EFFECT_REGISTRY["compressor"](),), with_bypass=True)
+    return phase_main(dev, model, rec, "auto", chain=chain, label="comp",
+                      want_per_gen={"k7": 1})
 
 
 def phase_cli(dev, rec):
@@ -803,7 +994,7 @@ def main() -> int:
     record["build_logs"] = dict(_build.BUILD_LOGS)
 
     recs = {name: {} for name in ("k1", "k9", "k5", "k2", "k3", "k4", "k6",
-                                  "k8", "groups")}
+                                  "k7", "k8", "k10", "k11", "groups")}
     if "k1" in phases:
         phase_k1(dev, recs["k1"])
     if "k9" in phases:
@@ -814,8 +1005,9 @@ def main() -> int:
         phase_scan(dev, recs)
 
     model = main_rec = None
-    launches = {}
-    if {"main", "style", "dtype"} & set(phases):
+    # K11 is on no main path: no run of one launches it
+    launches = {"k11": 0}
+    if {"main", "style", "comp", "dtype"} & set(phases):
         model = load_param_model(allow_random=True, seed=0, device=dev)
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
@@ -829,17 +1021,19 @@ def main() -> int:
         for mode, r in main_rec.items():
             log(f"{mode}: {r['ms_per_generation']!r} ms/generation, "
                 f"{r['ms_per_generation'] / base!r} of mx")
-    style_rec, cli_rec = {}, {}
+    style_rec, comp_rec, cli_rec = {}, {}, {}
     if "style" in phases:
         launches["k8"] = phase_style(dev, model, style_rec)["k8"]
+    if "comp" in phases:
+        launches["k7"] = phase_comp(dev, model, comp_rec)["k7"]
     if "cli" in phases:
         launches["k6"] = phase_cli(dev, cli_rec)["k6"]
     dtype_rec = {}
     if "dtype" in phases:
         phase_dtype(dev, model, dtype_rec)
 
-    record.update(recs=recs, main=main_rec, style=style_rec, cli=cli_rec,
-                  dtype=dtype_rec)
+    record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
+                  cli=cli_rec, dtype=dtype_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -864,8 +1058,14 @@ def main() -> int:
              "st_ito_tpu/ops/pallas/mega_fft.py:489"),
             ("k6_biquad_cascade", "k6", "st_ito_torch/csrc/scan.cu",
              "st_ito_tpu/ops/pallas/scan.py:133"),
+            ("k7_compressor_fused", "k7", "st_ito_torch/csrc/scan.cu",
+             "st_ito_tpu/ops/pallas/scan.py:436"),
             ("k8_ballistics", "k8", "st_ito_torch/csrc/scan.cu",
-             "st_ito_tpu/ops/pallas/scan.py:810")):
+             "st_ito_tpu/ops/pallas/scan.py:810"),
+            ("k10_fft_fused", "k10", "st_ito_torch/csrc/fused_fft.cu",
+             "st_ito_tpu/ops/pallas/fused_fft.py:167"),
+            ("k11_linear_recurrence", "k11", "st_ito_torch/csrc/scan.cu",
+             "st_ito_tpu/ops/pallas/scan.py:836")):
         rec = recs[key]
         t_bytes = rec["bytes"] / HBM_BYTES_PER_S * 1e3
         t_ops = rec["operations"] / FP32_OPS_PER_S * 1e3
@@ -876,8 +1076,12 @@ def main() -> int:
             "plain_ms": rec["plain_ms"], "bound_ms": max(t_bytes, t_ops),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rec.get("library_ms")})
-        if "plain_shape" in rec:
-            kernels[-1]["plain_shape"] = rec["plain_shape"]
+        # extra keys: the plain version's shape where it is not the
+        # headline's, and K10's two calls (the entry is their mean)
+        for extra in ("plain_shape", "ms_fwd", "ms_inv", "plain_ms_fwd",
+                      "plain_ms_inv", "library_ms_fwd", "library_ms_inv"):
+            if extra in rec:
+                kernels[-1][extra] = rec[extra]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start
     write_record(args.record, record)

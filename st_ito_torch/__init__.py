@@ -7,7 +7,7 @@ The package mirrors ``st_ito_tpu``'s layout and public names:
               ``build_batched_render_fn`` and the per-candidate renderer
               ``build_render_fn``.
 - ``ops``     the effects' DSP in plain PyTorch, the fused-LTI group around
-              ``torch.fft`` (``ops/lti.py``), the FFT resampler and the
+              ``torch.fft`` or K10 (``ops/lti.py``), the FFT resampler and the
               hand-written CUDA kernels' wrappers (``ops/kernels/``); the
               CUDA sources live in ``st_ito_torch/csrc/``.
 - ``models``  the AFx-Rep Cnn14 as an ``nn.Module``, its weight converter and

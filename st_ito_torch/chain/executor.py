@@ -15,10 +15,11 @@ JAX package runs on its accelerator (``executor.py:150-195``, ``:206-327``):
   with a guard of the full T for feedback tails, so the FFT size is
   next_pow2(T + T), applied by ``fft_mode``: "mega2" as K3 -> K4, "mega" as
   K5 -> K2 -> K4 (``ops/kernels/mega_fft.py``), "mx" as torch.fft -> K9 ->
-  torch.fft (``ops/lti.py``);
+  torch.fft and "fused" as K10 -> K9 -> K10 (``ops/lti.py``);
 - every other stage ("nl": compressor, distortion, limiter, multiband
   compressor) through its batched function (``chain/responses.py
-  NL_BATCHED``), the linked compressors' ballistics in K8;
+  NL_BATCHED``): the unlinked compressor as one pass of K7, the linked
+  compressors' ballistics in K8;
 - peak normalisation of the output.
 
 A population-shared (C, T) input is streamed into a leading K1 or K6 pass
@@ -152,24 +153,27 @@ def build_batched_render_fn(
     x either (C, T) shared across candidates or (B, C, T) per-candidate.
 
     Runs on ``device`` (default the card). ``fft_mode`` picks how the fused
-    LTI group is applied: "mega2" (K3 -> K4), "mega" (K5 -> K2 -> K4) or
-    "mx" (torch.fft -> K9 -> torch.fft). "auto", the default, is "mega2" on
-    any device (the JAX package's "xla" response path for other backends is
-    not ported; on the CPU the kernels' plain versions run). A shape that
+    LTI group is applied: "mega2" (K3 -> K4), "mega" (K5 -> K2 -> K4), "mx"
+    (torch.fft -> K9 -> torch.fft) or "fused" (K10 -> K9 -> K10; "mx3" is
+    its JAX alias). "auto", the default, is "mega2" on any device (the JAX
+    package's "xla" response path for other backends is not ported; on the
+    CPU the kernels' plain versions run). A shape that
     ``mega_fft.supported(n, T)`` rejects (T not a multiple of n2, or n below
-    2^14) takes the "mx" path in either mega mode, as in the JAX package: a
-    shape dispatch, visible in the kernels' launch counters. The JAX gate
+    2^14) takes the "mx" path in either mega mode, and one that
+    ``fused_fft.supported(n, T)`` rejects (the same rule) takes it in
+    "fused", as in the JAX package: a shape dispatch, visible in the
+    kernels' launch counters. The JAX gate
     ``B % 8 == 0`` is a TPU tile rule and is not kept: any B takes the mega
     path. Every transform is float32, at least as precise as
     ``fft_precision="high"``; the reduced-precision modes are TPU devices
     (bf16 dot passes) and are not ported."""
     if fft_mode == "auto":
         fft_mode = "mega2"
-    if fft_mode not in ("mega2", "mega", "mx"):
+    if fft_mode not in ("mega2", "mega", "mx", "fused", "mx3"):
         raise NotImplementedError(
-            f"fft_mode={fft_mode!r}: 'auto', 'mega2', 'mega' and 'mx' are "
-            f"ported; the fused FFT kernel (K10, 'fused') is ROADMAP §2 and "
-            f"the 'xla' response path ROADMAP §1 item 7")
+            f"fft_mode={fft_mode!r}: 'auto', 'mega2', 'mega', 'mx' and "
+            f"'fused' ('mx3') are ported; the 'xla' response path is "
+            f"ROADMAP §1 item 7")
     if fft_precision not in ("high", "highest"):
         raise NotImplementedError(
             f"fft_precision={fft_precision!r}: reduced-precision FFTs are "
@@ -277,7 +281,9 @@ def build_batched_render_fn(
                 x = packed_lti_apply_rp(
                     x, rp_stages, n,
                     rp_tables([s.effect for s, _, _ in stages], sample_rate,
-                              n, dev))
+                              n, dev),
+                    fft_impl="mx" if fft_mode in ("mega2", "mega")
+                    else fft_mode)
 
         if peak_normalize_output:
             peak = torch.amax(x.abs(), dim=(-2, -1), keepdim=True)

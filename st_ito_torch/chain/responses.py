@@ -5,7 +5,8 @@ stages ``compressor_batched``, ``distortion_batched``, ``limiter_batched``,
 plus the multiband compressor's batched form
 (``st_ito_tpu/chain/effects.py:282``). Each takes x (B, C, T) and a dict of
 (B,) parameters; a function with ``supports_active`` blends its bypass mask
-itself. ``NL_BATCHED`` maps an effect to its nonlinear batched function."""
+itself (the unlinked compressor inside K7, ``ops/dynamics.py``).
+``NL_BATCHED`` maps an effect to its nonlinear batched function."""
 
 from __future__ import annotations
 

@@ -9,10 +9,10 @@
 //     g = aa*g + (1-aa)*y1;
 //   - v * exp(g*ln10/20) * makeup, the compressor blend, then (optionally)
 //     tanh(y*drive)*outg and the distortion blend.
-// The cascade, the ballistics and the tile loop are scan_core.cuh's, which
-// K6 and K8 (scan.cu) run too. The plain PyTorch version
-// (st_ito_torch/ops/kernels/eqcomp.py) does the same operations in the same
-// order.
+// The cascade, the compressor (gain computer, ballistics and gain) and the
+// tile loop are scan_core.cuh's, which K6, K7 and K8 (scan.cu) run too. The
+// plain PyTorch version (st_ito_torch/ops/kernels/eqcomp.py) does the same
+// operations in the same order.
 //
 // Bound: the (lanes, T) float32 output write, 1.07 GB at the headline
 // 1024 lanes x 262144 samples, about 0.32 ms at the H100 SXM's 3.35 TB/s;
@@ -33,26 +33,19 @@ namespace {
 
 using scancore::kTile;
 
-constexpr float kDbPerLog = (float)(20.0 / 2.302585092994046);      // 20/ln10
-constexpr float kLn10Over20 = (float)(2.302585092994046 / 20.0);
-
 // vec rows, each (lanes,): 5 per section (b0, b1, b2, a1, a2), then
 // eq_act, th, slope, knee, aa, ar, mk, comp_act, drive, outg, dist_act.
 template <int S>
 struct EqComp {
   scancore::BiquadCascade<S> eq;  // reads eq_act, row 5*S, as its mask
-  scancore::Ballistics det;
-  float th, slope, knee, mk, comp_act, drive, outg, dist_act;
+  scancore::Compressor comp;      // rows 5*S + 1 .. 5*S + 6, as K7's
+  float comp_act, drive, outg, dist_act;
   int with_dist;
 
   __device__ __forceinline__ EqComp(const float* __restrict__ vec,
                                     long long L, int li, int with_dist_)
       : eq(vec, L, li, 1),
-        det(vec[(5 * S + 4) * L + li], vec[(5 * S + 5) * L + li]),
-        th(vec[(5 * S + 1) * L + li]),
-        slope(vec[(5 * S + 2) * L + li]),
-        knee(vec[(5 * S + 3) * L + li]),
-        mk(vec[(5 * S + 6) * L + li]),
+        comp(vec, L, li, 5 * S + 1),
         comp_act(vec[(5 * S + 7) * L + li]),
         drive(vec[(5 * S + 8) * L + li]),
         outg(vec[(5 * S + 9) * L + li]),
@@ -61,17 +54,7 @@ struct EqComp {
 
   __device__ __forceinline__ float step(float xin) {
     const float v = eq.step(xin);
-
-    const float env_db = logf(fmaxf(fabsf(v), 1e-8f)) * kDbPerLog;
-    const float over = env_db - th;
-    const float h = over + knee / 2.0f;
-    const float knee_region = slope * (h * h) / (2.0f * knee);
-    const float c = (2.0f * over < -knee)
-                        ? 0.0f
-                        : ((2.0f * over > knee) ? slope * over : knee_region);
-    const float g = det.step(c);
-
-    float y = v * expf(g * kLn10Over20) * mk;
+    float y = comp.step(v);
     y = comp_act * y + (1.0f - comp_act) * v;
     if (with_dist) {
       const float yd = tanhf(y * drive) * outg;

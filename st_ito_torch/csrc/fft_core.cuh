@@ -1,5 +1,6 @@
 // Block-cooperative float32 butterfly FFTs in shared memory, the device code
-// under the three FFT kernels of mega_fft.cu.
+// under the FFT kernels of mega_fft.cu (K5, K3, K4) and fused_fft.cu (K10),
+// and the host helpers that size their tiles.
 //
 // A block holds `rows` independent power-of-two transforms of one length in
 // shared memory, one per row of row_pitch(len) float2 elements. Element i of
@@ -25,6 +26,12 @@
 // float64 on the host (L the longer of the two lengths of the four-step
 // split); load_twiddles() copies the len/2 entries a block needs into shared
 // memory. The inverse transform conjugates them. No fast-math intrinsics.
+//
+// The four-step split of n = n1*n2 (n1 >= n2, both powers of two) that both
+// files use: a pass of length-n1 transforms over tiles of 2^log_cw adjacent
+// columns, a pass of length-n2 transforms over tiles of whole rows, each
+// tile sized by tile_log() to fit kTileBytes of shared memory beside the
+// twiddles.
 
 #pragma once
 
@@ -190,6 +197,43 @@ __device__ void fft_rows_dit(float2* s, int rows, int pitch, int log_len,
     lh += L;
   }
   __syncthreads();
+}
+
+constexpr int kThreads = 256;            // threads of every FFT block
+constexpr int kMaxTileLog = 4;           // at most 16 rows in a tile
+constexpr size_t kTileBytes = 70 * 1024; // 16 rows of 512 or 8 of 1024 float2
+constexpr int kMaxLogN = 24;             // k1*j2 stays exact in float32
+
+struct Split {
+  int n, n1, n2, log_n1, log_n2;
+};
+
+inline int ilog2(int v) {
+  int l = 0;
+  while ((1 << l) < v) ++l;
+  return l;
+}
+
+// log2 of the widest tile (at most 2^kMaxTileLog rows) of transforms of
+// length len that fits kTileBytes
+inline int tile_log(int len) {
+  int lg = kMaxTileLog;
+  while (lg > 0 &&
+         (((size_t)row_pitch(len) * sizeof(float2)) << lg) > kTileBytes)
+    --lg;
+  return lg;
+}
+
+// the dynamic shared memory of a block: len/2 twiddles and 2^log_rows rows
+inline size_t smem_bytes(int len, int log_rows) {
+  return ((size_t)(len >> 1) + ((size_t)row_pitch(len) << log_rows)) *
+         sizeof(float2);
+}
+
+template <typename K>
+int allow_smem(K kernel, size_t bytes) {
+  return static_cast<int>(cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
 }
 
 }  // namespace fftcore

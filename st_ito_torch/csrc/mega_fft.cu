@@ -73,19 +73,17 @@
 
 namespace {
 
+using fftcore::allow_smem;
 using fftcore::bitrev;
 using fftcore::cmul;
+using fftcore::ilog2;
+using fftcore::kMaxLogN;
+using fftcore::kThreads;
 using fftcore::row_pitch;
+using fftcore::smem_bytes;
+using fftcore::Split;
 using fftcore::sw;
-
-constexpr int kThreads = 256;
-constexpr int kMaxTileLog = 4;             // at most 16 rows in a tile
-constexpr size_t kTileBytes = 70 * 1024;   // 16 rows of 512 or 8 of 1024 float2
-constexpr int kMaxLogN = 24;               // k1*j2 stays exact in float32
-
-struct Split {
-  int n, n1, n2, log_n1, log_n2;
-};
+using fftcore::tile_log;
 
 // ---------------------------------------------------------------- forward
 
@@ -302,12 +300,6 @@ __global__ void __launch_bounds__(kThreads) inv_cols_kernel(
 
 // ------------------------------------------------------------------- host
 
-int ilog2(int v) {
-  int l = 0;
-  while ((1 << l) < v) ++l;
-  return l;
-}
-
 // 0 and the split, or cudaErrorInvalidValue
 int make_split(int n1, int n2, int T, int B, int chunk, long long Fp,
                Split* sp) {
@@ -321,27 +313,6 @@ int make_split(int n1, int n2, int T, int B, int chunk, long long Fp,
     return cudaErrorInvalidValue;
   *sp = Split{n1 << log_n2, n1, n2, log_n1, log_n2};
   return 0;
-}
-
-// log2 of the widest tile (at most 2^kMaxTileLog rows) of transforms of
-// length len that fits kTileBytes
-int tile_log(int len) {
-  int lg = kMaxTileLog;
-  while (lg > 0 &&
-         (((size_t)row_pitch(len) * sizeof(float2)) << lg) > kTileBytes)
-    --lg;
-  return lg;
-}
-
-size_t smem_bytes(int len, int log_rows) {
-  return ((size_t)(len >> 1) + ((size_t)row_pitch(len) << log_rows)) *
-         sizeof(float2);
-}
-
-template <typename K>
-int allow_smem(K kernel, size_t bytes) {
-  return static_cast<int>(cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes));
 }
 
 template <bool kResp>

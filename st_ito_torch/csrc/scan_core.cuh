@@ -1,7 +1,6 @@
-// The serial scans along time shared by K1 (eqcomp.cu), K6 and K8
+// The serial scans along time shared by K1 (eqcomp.cu), K6, K7, K8 and K11
 // (scan.cu): one copy of each recurrence and of the tile loop that drives
-// them, so that the three kernels agree op for op with their plain
-// versions.
+// them, so that the kernels agree op for op with their plain versions.
 //
 // Layout: one warp per block, 32 lanes per block; the warp walks T in
 // 32-sample tiles staged through shared memory, so that every row is loaded
@@ -14,7 +13,8 @@
 // launch, at any length.
 //
 // An Op holds one lane's coefficients and state in registers and maps one
-// input sample to one output sample with step().
+// input sample (or, with two input sequences, one pair) to one output
+// sample with step().
 
 #pragma once
 
@@ -81,6 +81,50 @@ struct Ballistics {
   }
 };
 
+constexpr float kDbPerLog = (float)(20.0 / 2.302585092994046);      // 20/ln10
+constexpr float kLn10Over20 = (float)(2.302585092994046 / 20.0);
+
+// The unlinked feed-forward compressor of scan.py:400-431 (K7) and
+// scan.py:238-265 (inside K1), per sample: the soft-knee gain computer on
+// log(max(|v|, 1e-8)) * 20/ln10, the decoupled ballistics, then
+// v * exp(g*ln10/20) * makeup. The bypass blend is the caller's.
+// vec rows from row0, each (lanes,): th, slope = 1/ratio - 1,
+// knee = max(knee_db, 1e-3), aa, ar, mk (linear makeup).
+struct Compressor {
+  float th, slope, knee, mk;
+  Ballistics det;
+
+  __device__ __forceinline__ Compressor(const float* __restrict__ vec,
+                                        long long L, int li, int row0)
+      : th(vec[row0 * L + li]),
+        slope(vec[(row0 + 1) * L + li]),
+        knee(vec[(row0 + 2) * L + li]),
+        mk(vec[(row0 + 5) * L + li]),
+        det(vec[(row0 + 3) * L + li], vec[(row0 + 4) * L + li]) {}
+
+  __device__ __forceinline__ float step(float v) {
+    const float env_db = logf(fmaxf(fabsf(v), 1e-8f)) * kDbPerLog;
+    const float over = env_db - th;
+    const float h = over + knee / 2.0f;
+    const float knee_region = slope * (h * h) / (2.0f * knee);
+    const float c = (2.0f * over < -knee)
+                        ? 0.0f
+                        : ((2.0f * over > knee) ? slope * over : knee_region);
+    const float g = det.step(c);
+    return v * expf(g * kLn10Over20) * mk;
+  }
+};
+
+// y = a*y + b from y = 0 (K11, scan.py:478): two input sequences.
+struct LinearRecurrence {
+  float y = 0.0f;
+
+  __device__ __forceinline__ float step(float a, float b) {
+    y = a * y + b;
+    return y;
+  }
+};
+
 // The lane thread threadIdx.x computes in the block at lane0: its own, or
 // lane 0 past the last lane.
 __device__ __forceinline__ int lane_index(int lanes, int lane0) {
@@ -108,33 +152,62 @@ __device__ __forceinline__ void load_tile(float (&next)[kTile],
 
 // One warp walks its 32 lanes over all of T. Row r of a tile is lane
 // lane0 + r; thread l loads and stores column l of every row (coalesced)
-// and computes row l (its own lane) from the shared tile.
+// and computes row l (its own lane) from the shared tiles, one per input
+// sequence (NIn = 1: op.step(x); NIn = 2: op.step(a, b)). Only a single
+// input may be the shared (C, T) one.
+template <int NIn, class Op>
+__device__ __forceinline__ void run_tiles_n(Op& op,
+                                            const float* const (&x)[NIn],
+                                            int shared_channels,
+                                            float* __restrict__ out,
+                                            int lanes, long long T,
+                                            int lane0) {
+  static_assert(NIn == 1 || NIn == 2, "one or two input sequences");
+  __shared__ float tile[NIn][kTile][kTile + 1];
+  const int l = threadIdx.x;
+  float next[NIn][kTile];
+
+#pragma unroll
+  for (int i = 0; i < NIn; ++i) {
+    load_tile(next[i], x[i], shared_channels, lanes, T, lane0, 0);
+  }
+  for (long long t0 = 0; t0 < T; t0 += kTile) {
+    const int n = (int)((T - t0) < kTile ? (T - t0) : kTile);
+#pragma unroll
+    for (int i = 0; i < NIn; ++i) {
+#pragma unroll
+      for (int r = 0; r < kTile; ++r) tile[i][r][l] = next[i][r];
+    }
+    __syncwarp();
+    if (t0 + kTile < T) {  // in flight during the steps below
+#pragma unroll
+      for (int i = 0; i < NIn; ++i)
+        load_tile(next[i], x[i], shared_channels, lanes, T, lane0,
+                  t0 + kTile);
+    }
+    for (int j = 0; j < n; ++j) {
+      if constexpr (NIn == 1)
+        tile[0][l][j] = op.step(tile[0][l][j]);
+      else
+        tile[0][l][j] = op.step(tile[0][l][j], tile[1][l][j]);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int r = 0; r < kTile; ++r) {
+      const int ln = lane0 + r;
+      if (ln < lanes && l < n) out[(long long)ln * T + t0 + l] = tile[0][r][l];
+    }
+    __syncwarp();
+  }
+}
+
 template <class Op>
 __device__ __forceinline__ void run_tiles(Op& op, const float* __restrict__ x,
                                           int shared_channels,
                                           float* __restrict__ out, int lanes,
                                           long long T, int lane0) {
-  __shared__ float tile[kTile][kTile + 1];
-  const int l = threadIdx.x;
-  float next[kTile];
-
-  load_tile(next, x, shared_channels, lanes, T, lane0, 0);
-  for (long long t0 = 0; t0 < T; t0 += kTile) {
-    const int n = (int)((T - t0) < kTile ? (T - t0) : kTile);
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) tile[r][l] = next[r];
-    __syncwarp();
-    if (t0 + kTile < T)  // in flight during the steps below
-      load_tile(next, x, shared_channels, lanes, T, lane0, t0 + kTile);
-    for (int j = 0; j < n; ++j) tile[l][j] = op.step(tile[l][j]);
-    __syncwarp();
-#pragma unroll
-    for (int r = 0; r < kTile; ++r) {
-      const int ln = lane0 + r;
-      if (ln < lanes && l < n) out[(long long)ln * T + t0 + l] = tile[r][l];
-    }
-    __syncwarp();
-  }
+  const float* const xs[1] = {x};
+  run_tiles_n<1>(op, xs, shared_channels, out, lanes, T, lane0);
 }
 
 }  // namespace scancore

@@ -5,9 +5,11 @@ device-resident block loop, ``_run_es_device_loop``).
 Per generation: ``cma_ask`` draws the population on the device; the
 population renderer renders every candidate on the shared input with the
 chain's kernels (the basic chain: K1, then the fused LTI group by
-``fft_mode``, K3 -> K4 for "mega2", which "auto" picks; the CLI's vst chain:
-K6, then K3 -> K4; the style chain: K6, then K8 inside the multiband
-compressor and the limiter); the Cnn14 embeds the renders; the fitness is
+``fft_mode``: K3 -> K4 for "mega2", which "auto" picks, K5 -> K2 -> K4 for
+"mega", torch.fft -> K9 -> torch.fft for "mx", K10 -> K9 -> K10 for
+"fused"; the CLI's vst chain: K6, then K3 -> K4; the style chain: K6, then
+K8 inside the multiband compressor and the limiter; a lone unlinked
+compressor: K7); the Cnn14 embeds the renders; the fitness is
 the negative cosine against the target embeddings; ``cma_tell`` updates the
 search state. Statistics stay on the device and reach the host once per
 ``gens_per_dispatch`` block.
@@ -71,8 +73,9 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     bfloat16 on the card and float32 on the CPU. ``pop_microbatch``: score
     the population in sub-batches of this size when it divides the
     population (not with return_audio). ``fft_mode``: how the renderer
-    applies the fused LTI group (``build_batched_render_fn``; "auto" is
-    "mega2"). The renderer's output normalisation is skipped when the embed
+    applies the fused LTI group (``build_batched_render_fn``: "mega2",
+    "mega", "mx" or "fused"; "auto" is "mega2"). The renderer's output
+    normalisation is skipped when the embed
     peak-normalises its input. ``normalize_stages`` renders each candidate
     through the per-candidate ``build_render_fn`` instead (plain PyTorch, no
     kernel)."""

@@ -1,16 +1,17 @@
 """The compressor and the limiter — port of ``st_ito_tpu/ops/dynamics.py``'s
-``_time_constant_alpha``, ``gain_computer`` (the fused K1 kernel in
-``ops/kernels/eqcomp.py`` inlines the same gain computer per sample),
-``ballistics_parallel``, ``ballistics`` (K8 when ``fast``),
-``ballistics_scan``, ``compressor`` and ``limiter``.
+``_time_constant_alpha``, ``gain_computer`` (the fused K1 and K7 kernels
+inline the same gain computer per sample), ``ballistics_parallel``,
+``ballistics`` (K8 when ``fast``), ``ballistics_scan``, ``compressor`` (K7
+when fast and unlinked) and ``limiter``.
 
 The attack/release ballistics are the decoupled peak detector (Giannoulis,
 Massberg & Reiss 2012). Its release stage is a min-affine recurrence, closed
 under composition, so it evaluates exactly as a parallel prefix scan; the
 attack stage is an LTI one-pole. ``fast=True`` (the population renderer)
-runs the detector through K8 (``ops/kernels/scan.py``), the rest op by op.
-The JAX package's other fast form, the whole unlinked compressor as one
-kernel (K7), is not ported."""
+runs a fast, unlinked compressor without lookahead as one pass of K7
+(``ops/kernels/scan.py compressor_fused``), and the detector of any other
+fast compressor through K8, the rest op by op. On a CPU tensor both kernels'
+plain versions stand in for them."""
 
 from __future__ import annotations
 
@@ -107,21 +108,16 @@ def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
                makeup_gain_db=0.0, lookahead_samples: int = 0,
                link_channels: bool = True, exact_ballistics: bool = False,
                fast: bool = False, active=None) -> torch.Tensor:
-    """Feed-forward compressor on x of shape (..., C, T), op by op.
+    """Feed-forward compressor on x of shape (..., C, T).
 
     Detection: peak of |x|, linked over channels or per channel.
-    ``fast=True`` runs the ballistics through K8. The JAX package runs a
-    fast, unlinked compressor without lookahead as one kernel (K7, not
-    ported): on a CUDA tensor that case raises, on a CPU tensor it runs
-    op by op, as the JAX package does off the TPU.
+    ``fast=True`` runs a compressor that is unlinked, has no lookahead and
+    no ``exact_ballistics`` as one pass of K7 (its plain version on a CPU
+    tensor), as the JAX package does on the TPU; any other fast compressor
+    runs op by op with its ballistics in K8.
     ``active``: optional per-item float bypass mask broadcastable to the
-    leading dims (1.0 = effect on), blended arithmetically."""
-    if (fast and not link_channels and lookahead_samples == 0
-            and not exact_ballistics and x.device.type != "cpu"):
-        raise NotImplementedError(
-            "a fast unlinked compressor is the JAX package's fused "
-            "compressor kernel K7 (compressor_fused_pallas), which is not "
-            "ported (ROADMAP §2); no shipped chain plans one")
+    leading dims (1.0 = effect on), blended in-kernel on the K7 path and
+    arithmetically otherwise."""
     dev = x.device
 
     def f32(v):
@@ -130,6 +126,23 @@ def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
     x_in = x  # the dry signal before the lookahead, for the bypass blend
     alpha_a = _time_constant_alpha(f32(attack_ms), sample_rate)
     alpha_r = _time_constant_alpha(f32(release_ms), sample_rate)
+    if (fast and not link_channels and lookahead_samples == 0
+            and not exact_ballistics):
+        # the whole compressor as one pass (unlinked: the detector is per
+        # lane), the JAX package's dispatch (st_ito_tpu/ops/dynamics.py:171)
+        lead = tuple(x.shape[:-1])
+
+        def to_lead(v):
+            v = f32(v)
+            while v.ndim > len(lead):  # drop broadcast T axes like (B,1,1)
+                v = v[..., 0]
+            return v.expand(lead)
+
+        with phase_timer.span("k7", dev):
+            return _scan.compressor_fused(
+                x, to_lead(threshold_db), to_lead(ratio), to_lead(knee_db),
+                to_lead(alpha_a), to_lead(alpha_r), to_lead(makeup_gain_db),
+                active=None if active is None else to_lead(active))
     if link_channels:
         env = x.abs().amax(dim=-2, keepdim=True)  # (..., 1, T)
     else:

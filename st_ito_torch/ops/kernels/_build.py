@@ -29,16 +29,17 @@ _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
 # name -> (source, extra nvcc flags). All build with -fmad=false. For K1,
-# K6, K8 and K9/K2 the arithmetic is then the plain PyTorch version's op for
-# op (which never contracts a*b + c into one rounding); with nvcc's default
-# contraction K1 drifted past its 1e-4 tolerance (PERF.md). The FFT kernels
-# cannot match cuFFT bitwise either way; they take the flag so that K3's
-# epilogue is K2's arithmetic exactly (both include rp_response.cuh), and
-# their cost is shared-memory traffic, not flops.
+# K6, K7, K8, K11 and K9/K2 the arithmetic is then the plain PyTorch
+# version's op for op (which never contracts a*b + c into one rounding); with
+# nvcc's default contraction K1 drifted past its 1e-4 tolerance (PERF.md).
+# The FFT kernels cannot match cuFFT bitwise either way; they take the flag
+# so that K3's epilogue is K2's arithmetic exactly (both include
+# rp_response.cuh), and their cost is shared-memory traffic, not flops.
 KERNELS = {
     "eqcomp": ("eqcomp.cu", ["-fmad=false"]),
     "packed_response": ("packed_response.cu", ["-fmad=false"]),
     "mega_fft": ("mega_fft.cu", ["-fmad=false"]),
+    "fused_fft": ("fused_fft.cu", ["-fmad=false"]),
     "scan": ("scan.cu", ["-fmad=false"]),
 }
 

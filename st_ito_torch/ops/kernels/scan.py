@@ -1,12 +1,16 @@
-"""K6 (the lone biquad-cascade EQ) and K8 (the lone compressor ballistics).
+"""K6 (the lone biquad-cascade EQ), K7 (the whole unlinked compressor), K8
+(the lone compressor ballistics) and K11 (the linear recurrence).
 
-Ports of ``st_ito_tpu/ops/pallas/scan.py:133 biquad_cascade_pallas`` and
-``:810 ballistics_pallas``. The CUDA kernels are ``st_ito_torch/csrc/scan.cu``;
-beside them here are their plain PyTorch versions, Python loops over T on
-(lanes,) tensors in the kernels' order of operations. The wrappers
-``biquad_cascade`` and ``ballistics`` run the plain version for a CPU tensor
-and the kernel for any other: on a CUDA tensor they launch the kernel or
-raise.
+Ports of ``st_ito_tpu/ops/pallas/scan.py:133 biquad_cascade_pallas``,
+``:436 compressor_fused_pallas``, ``:810 ballistics_pallas`` and
+``:836 linear_recurrence_pallas``. The CUDA kernels are
+``st_ito_torch/csrc/scan.cu``; beside them here are their plain PyTorch
+versions, Python loops over T on (lanes,) tensors in the kernels' order of
+operations (K7's gain computer and gain, which carry no state, are taken
+over the whole (lanes, T) block around its loop). The wrappers
+``biquad_cascade``, ``compressor_fused``, ``ballistics`` and
+``linear_recurrence`` run the plain version for a CPU tensor and the kernel
+for any other: on a CUDA tensor they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -19,10 +23,14 @@ import torch
 from st_ito_torch.ops.kernels import _build
 
 # Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
-launches = {"biquad_cascade": 0, "ballistics": 0}
+launches = {"biquad_cascade": 0, "compressor_fused": 0, "ballistics": 0,
+            "linear_recurrence": 0}
 
 # the section count K6 is instantiated for (the basic parametric EQ)
 KERNEL_SECTIONS = 6
+
+_DB_PER_LOG = 20.0 / math.log(10.0)
+_LN10_OVER_20 = math.log(10.0) / 20.0
 
 
 def _check_cuda(*tensors):
@@ -38,6 +46,12 @@ def _check_cuda(*tensors):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _lead_vec(v, lead_shape, dev) -> torch.Tensor:
+    """A per-lane parameter broadcast to the lead dims, flattened."""
+    return torch.as_tensor(v, dtype=torch.float32, device=dev).expand(
+        lead_shape).reshape(math.prod(lead_shape))
 
 
 # ------------------------------------------------------------------ K6
@@ -152,21 +166,102 @@ def biquad_cascade(x, b, a, active=None, shared_lead_shape=None):
     return out.reshape(*lead_shape, x.shape[-1])
 
 
+# ------------------------------------------------------------------ K7
+
+
+def compressor_fused_inputs(x, threshold_db, ratio, knee_db, alpha_attack,
+                            alpha_release, makeup_gain_db=0.0, active=None):
+    """The kernel's inputs as ``scan.py:451-468`` prepares them.
+
+    Returns (x_in (lanes, T), vec, with_active, lead_shape): vec is the
+    (6 [+ 1], lanes) float32 table th, slope = 1/ratio - 1,
+    knee = max(knee_db, 1e-3), aa, ar, mk = 10^(makeup/20) and, with a
+    bypass mask, the mask."""
+    lead_shape = tuple(x.shape[:-1])
+    dev = x.device
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    rows = [f32(threshold_db), 1.0 / f32(ratio) - 1.0,
+            torch.clamp_min(f32(knee_db), 1e-3), f32(alpha_attack),
+            f32(alpha_release), torch.pow(10.0, f32(makeup_gain_db) / 20.0)]
+    if active is not None:
+        rows.append(f32(active))
+    vec = torch.stack([_lead_vec(r, lead_shape, dev) for r in rows])
+    x_in = x.to(torch.float32).reshape(-1, x.shape[-1]).contiguous()
+    return x_in, vec.contiguous(), active is not None, lead_shape
+
+
+def compressor_fused_plain(x_in, vec, with_active: bool) -> torch.Tensor:
+    """Plain PyTorch version of K7 in the kernel's order: the gain computer
+    over the whole block, the decoupled ballistics one time step at a time
+    over all lanes (K8's plain version), then the gain and the bypass
+    blend. Returns (lanes, T)."""
+    th, slope, knee, _, _, mk = (v[:, None] for v in vec[:6])
+    env_db = torch.log(torch.clamp_min(x_in.abs(), 1e-8)) * _DB_PER_LOG
+    over = env_db - th
+    h = over + knee / 2.0
+    knee_region = slope * (h * h) / (2.0 * knee)
+    c = torch.where(2.0 * over < -knee, torch.zeros_like(over),
+                    torch.where(2.0 * over > knee, slope * over, knee_region))
+    g = ballistics_plain(c, vec[3:5])
+    y = x_in * torch.exp(g * _LN10_OVER_20) * mk
+    if with_active:
+        act = vec[6][:, None]
+        y = act * y + (1.0 - act) * x_in
+    return y
+
+
+def compressor_fused_cuda(x_in, vec, with_active: bool) -> torch.Tensor:
+    """Launch K7 on the current stream. Returns (lanes, T)."""
+    lib = _build.load("scan")
+    _check_cuda(x_in, vec)
+    lanes, T = x_in.shape
+    if vec.shape != (6 + int(with_active), lanes):
+        raise ValueError(f"vec is {tuple(vec.shape)}, expected "
+                         f"({6 + int(with_active)}, {lanes})")
+    out = torch.empty((lanes, T), dtype=torch.float32, device=x_in.device)
+    fn = lib.compressor_fused_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
+                   ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(x_in.data_ptr(), vec.data_ptr(), out.data_ptr(), lanes, T,
+             int(with_active), _stream(x_in))
+    if err != 0:
+        raise RuntimeError(f"compressor kernel launch failed: CUDA error "
+                           f"{err}")
+    launches["compressor_fused"] += 1
+    return out
+
+
+def compressor_fused(x, threshold_db, ratio, knee_db, alpha_attack,
+                     alpha_release, makeup_gain_db=0.0, active=None):
+    """The whole unlinked feed-forward compressor as one pass. x: (..., T);
+    the parameters broadcast to x's leading dims; ``active``: optional
+    float bypass mask (1.0 = effect on), blended in-kernel. Returns x's
+    shape, float32."""
+    x_in, vec, with_active, lead_shape = compressor_fused_inputs(
+        x, threshold_db, ratio, knee_db, alpha_attack, alpha_release,
+        makeup_gain_db, active)
+    if x.device.type == "cpu":
+        out = compressor_fused_plain(x_in, vec, with_active)
+    else:
+        out = compressor_fused_cuda(x_in, vec, with_active)
+    return out.reshape(*lead_shape, x.shape[-1])
+
+
 # ------------------------------------------------------------------ K8
 
 
 def ballistics_inputs(c, alpha_attack, alpha_release):
     """(c_in (lanes, T), vec (2, lanes) = [aa; ar], lead_shape)."""
     lead_shape = tuple(c.shape[:-1])
-    lead = math.prod(lead_shape)
-
-    def vec(v):
-        return torch.as_tensor(v, dtype=torch.float32, device=c.device) \
-            .expand(lead_shape).reshape(lead)
-
-    c_in = c.to(torch.float32).reshape(lead, c.shape[-1]).contiguous()
-    return c_in, torch.stack([vec(alpha_attack), vec(alpha_release)]) \
-        .contiguous(), lead_shape
+    c_in = c.to(torch.float32).reshape(-1, c.shape[-1]).contiguous()
+    vec = torch.stack([_lead_vec(alpha_attack, lead_shape, c.device),
+                       _lead_vec(alpha_release, lead_shape, c.device)])
+    return c_in, vec.contiguous(), lead_shape
 
 
 def ballistics_plain(c_in, vec) -> torch.Tensor:
@@ -215,3 +310,55 @@ def ballistics(c, alpha_attack, alpha_release):
     else:
         out = ballistics_cuda(c_in, vec)
     return out.reshape(*lead_shape, c.shape[-1])
+
+
+# ----------------------------------------------------------------- K11
+
+
+def linear_recurrence_plain(a_in, b_in) -> torch.Tensor:
+    """Plain PyTorch version of K11: y = a*y + b from y = 0, one time step
+    at a time over all lanes. a_in, b_in (lanes, T); returns (lanes, T)."""
+    y = torch.zeros(a_in.shape[0], dtype=torch.float32, device=a_in.device)
+    out = []
+    for at, bt in zip(a_in.unbind(-1), b_in.unbind(-1)):
+        y = at * y + bt
+        out.append(y)
+    return torch.stack(out, dim=1)
+
+
+def linear_recurrence_cuda(a_in, b_in) -> torch.Tensor:
+    """Launch K11 on the current stream. Returns (lanes, T)."""
+    lib = _build.load("scan")
+    _check_cuda(a_in, b_in)
+    if a_in.ndim != 2 or a_in.shape != b_in.shape:
+        raise ValueError(f"a and b must be one (lanes, T) shape, got "
+                         f"{tuple(a_in.shape)} and {tuple(b_in.shape)}")
+    lanes, T = a_in.shape
+    out = torch.empty((lanes, T), dtype=torch.float32, device=a_in.device)
+    fn = lib.linear_recurrence_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(a_in.data_ptr(), b_in.data_ptr(), out.data_ptr(), lanes, T,
+             _stream(a_in))
+    if err != 0:
+        raise RuntimeError(f"linear recurrence kernel launch failed: CUDA "
+                           f"error {err}")
+    launches["linear_recurrence"] += 1
+    return out
+
+
+def linear_recurrence(coeff, drive):
+    """y[t] = coeff[t]*y[t-1] + drive[t] along the last axis, y[-1] = 0;
+    coeff and drive of one shape (..., T). Returns that shape, float32."""
+    if coeff.shape != drive.shape:
+        raise ValueError(f"coeff {tuple(coeff.shape)} and drive "
+                         f"{tuple(drive.shape)} differ")
+    T = coeff.shape[-1]
+    a_in, b_in = (v.to(torch.float32).reshape(-1, T).contiguous()
+                  for v in (coeff, drive))
+    if coeff.device.type == "cpu":
+        out = linear_recurrence_plain(a_in, b_in)
+    else:
+        out = linear_recurrence_cuda(a_in, b_in)
+    return out.reshape(coeff.shape)

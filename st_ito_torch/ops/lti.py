@@ -1,45 +1,60 @@
 """The fused-LTI group for a stereo population: packed forward FFT -> K9 ->
 inverse FFT. Port of ``st_ito_tpu/ops/pallas/packed_response.py:318
-packed_lti_apply_rp`` in its ``fft_mode="mx"`` form, where the JAX package
-runs XLA's four-step matmul FFT (``ops/mxfft.py fft_mx``) around the
-kernel; here that FFT is ``torch.fft`` (cuFFT on the card)."""
+packed_lti_apply_rp`` with its ``fft_impl`` switch: "mx", where the JAX
+package runs XLA's four-step matmul FFT (``ops/mxfft.py fft_mx``) around the
+kernel and the port ``torch.fft`` (cuFFT on the card), and "fused" (alias
+"mx3"), where both transforms are K10 (``ops/kernels/fused_fft.py``) on the
+shapes ``fused_fft.supported`` admits and ``torch.fft`` on any other."""
 
 from __future__ import annotations
 
 import torch
 
+from st_ito_torch.ops.kernels import fused_fft
 from st_ito_torch.ops.kernels.packed_response import packed_response_apply
 from st_ito_torch.utils import phase_timer
 
 
-def packed_lti_apply_rp(x: torch.Tensor, stages, n: int,
-                        tables: dict) -> torch.Tensor:
+def packed_lti_apply_rp(x: torch.Tensor, stages, n: int, tables: dict,
+                        fft_impl: str = "mx") -> torch.Tensor:
     """x: (B, 2, T) float32. Packs z = x_L + i x_R, takes Z = FFT_n(z),
     hands the half grids Zlo = Z[:, :F] and Zrev[k] = Z[(n-k) mod n] to
     K9, reassembles Y = [Ylo, flip(Yhig[:, 1:n/2])] and returns
-    (Re, Im) of IFFT_n(Y)[:, :T] as the (B, 2, T) stereo output.
-    ``torch.fft.ifft`` already scales by 1/n."""
+    (Re, Im) of IFFT_n(Y)[:, :T] / n as the (B, 2, T) stereo output."""
     B, C, T = x.shape
     if C != 2:
         raise ValueError("the fused rp path is stereo-only")
+    if fft_impl not in ("mx", "fused", "mx3"):
+        raise ValueError(f"fft_impl={fft_impl!r}: 'mx', 'fused' or 'mx3'")
+    fused = fft_impl != "mx" and fused_fft.supported(n, T)
     F = n // 2 + 1
     dev = x.device
-    with phase_timer.span("fft_fwd", dev):
-        Z = torch.fft.fft(torch.complex(x[:, 0], x[:, 1]), n=n, dim=-1)
-        Zrev = torch.cat([Z[:, :1], torch.flip(Z[:, n // 2:], (-1,))], -1)
-        ZrL, ZiL = Z[:, :F].real.contiguous(), Z[:, :F].imag.contiguous()
-        del Z
-        ZrR, ZiR = Zrev.real.contiguous(), Zrev.imag.contiguous()
-        del Zrev
+    with phase_timer.span("k10_fwd" if fused else "fft_fwd", dev):
+        if fused:
+            # the channels read in place; a broadcast population input
+            # (the group first in the chain) is written out once, as the
+            # mega paths do
+            x = x.contiguous()
+            Zr, Zi = fused_fft.fft_fused(x[:, 0], x[:, 1], sign=-1, n=n)
+        else:
+            Z = torch.fft.fft(torch.complex(x[:, 0], x[:, 1]), n=n, dim=-1)
+            Zr, Zi = Z.real, Z.imag
+            del Z
+        ZrL, ZiL = Zr[:, :F].contiguous(), Zi[:, :F].contiguous()
+        # Zrev[k] = Z[(n-k) mod n] for k in [0, n/2]: [Z0, Z_{n-1}, .., Z_{n/2}]
+        ZrR, ZiR = (torch.cat([v[:, :1], torch.flip(v[:, n // 2:], (-1,))], -1)
+                    for v in (Zr, Zi))
+        del Zr, Zi
     with phase_timer.span("k9", dev):
         YloR, YloI, YhiR, YhiI = packed_response_apply(ZrL, ZiL, ZrR, ZiR,
                                                        stages, tables)
     del ZrL, ZiL, ZrR, ZiR
-    with phase_timer.span("fft_inv", dev):
-        Y = torch.complex(
-            torch.cat([YloR, torch.flip(YhiR[:, 1:n // 2], (-1,))], -1),
-            torch.cat([YloI, torch.flip(YhiI[:, 1:n // 2], (-1,))], -1))
+    with phase_timer.span("k10_inv" if fused else "fft_inv", dev):
+        Yr = torch.cat([YloR, torch.flip(YhiR[:, 1:n // 2], (-1,))], -1)
+        Yi = torch.cat([YloI, torch.flip(YhiI[:, 1:n // 2], (-1,))], -1)
         del YloR, YloI, YhiR, YhiI
-        y = torch.fft.ifft(Y, n=n, dim=-1)[:, :T]
-        del Y
+        if fused:
+            yr, yi = fused_fft.fft_fused(Yr, Yi, sign=1, n=n, out_len=T)
+            return torch.stack([yr, yi], dim=1) * (1.0 / n)
+        y = torch.fft.ifft(torch.complex(Yr, Yi), n=n, dim=-1)[:, :T]
         return torch.stack([y.real, y.imag], dim=1)

@@ -97,6 +97,6 @@ class PhaseTimer:
 
 
 # the main path's spans: ask, k1 or k6, the LTI group's (k3, k4 in mega2; k5,
-# k2, k4 in mega; fft_fwd, k9, fft_inv in mx), the nonlinear stages' (k8,
-# multiband_fft), embed, tell
+# k2, k4 in mega; fft_fwd, k9, fft_inv in mx; k10_fwd, k9, k10_inv in fused),
+# the nonlinear stages' (k7, k8, multiband_fft), embed, tell
 phase_timer = PhaseTimer()

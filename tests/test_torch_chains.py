@@ -1,6 +1,7 @@
-"""The port's K6 and K8 chains against st_ito_tpu: the reference style chain
-(EQ -> multiband compressor -> limiter, K6 then K8), the CLI's vst chain
-(EQ -> delay -> reverb, K6 then K3 -> K4) and the presets; the
+"""The port's K6, K7 and K8 chains against st_ito_tpu: the reference style
+chain (EQ -> multiband compressor -> limiter, K6 then K8), the CLI's vst
+chain (EQ -> delay -> reverb, K6 then K3 -> K4), the single-compressor chain
+(K7) and the presets; the
 ops under them (multiband compressor, limiter, linked fast compressor,
 widener, gain, resampler); the registry (``chain_from_json``,
 ``chain_preset``); ``build_render_fn`` and ``make_fitness_fn(
@@ -22,6 +23,7 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from st_ito_tpu.chain import ChainSpec as JaxChainSpec
 from st_ito_tpu.chain import effects as jeffects
 from st_ito_tpu.chain.executor import (
     build_batched_render_fn as jax_build_batched_render_fn,
@@ -36,8 +38,8 @@ from st_ito_tpu.ops import multiband as jmb
 from st_ito_tpu.ops.resample import resample as jax_resample
 from st_ito_tpu.ops import stereo as jst
 
-from st_ito_torch.chain import (build_batched_render_fn, build_render_fn,
-                                chain_from_json, chain_preset)
+from st_ito_torch.chain import (ChainSpec, build_batched_render_fn,
+                                build_render_fn, chain_from_json, chain_preset)
 from st_ito_torch.chain import effects as teffects
 from st_ito_torch.ito import make_fitness_fn
 from st_ito_torch.models import get_param_embeds
@@ -130,8 +132,8 @@ def test_multiband_compressor_matches_jax(monkeypatch):
 @pytest.mark.parametrize("link", [True, False])
 def test_fast_compressor_matches_jax(monkeypatch, link):
     """compressor(fast=True) on the CPU: linked, K8 on both sides; unlinked,
-    the op-by-op form here, K7 in interpret mode on the JAX side (the case
-    that raises on a CUDA tensor)."""
+    K7 on both sides (its plain version here, the Pallas kernel in interpret
+    mode there; on a CUDA tensor the port launches the kernel)."""
     force_jax_tpu_plan(monkeypatch)
     from st_ito_tpu.ops.pallas import scan as jax_scan
     import functools
@@ -276,6 +278,29 @@ def test_vst_chain_render_matches_jax_mega2(monkeypatch, with_bypass):
         jax_build_chain("vst", "es", with_bypass), B=8, T=8192,
         fft_mode="mega2")
     assert np.all(err <= 5e-5), err
+
+
+@pytest.mark.parametrize("with_bypass", [False, True])
+def test_compressor_chain_render_matches_jax(monkeypatch, with_bypass):
+    """The single-compressor chain that st_ito_tpu/eval/psm.py:44 builds
+    (and with a bypass slot, for K7's in-kernel blend): the broadcast
+    input, then K7 once per render (its plain version here,
+    compressor_fused_pallas interpreted there), and no other kernel
+    wrapper."""
+    calls = []
+    for name in ("compressor_fused_plain", "biquad_cascade_plain",
+                 "ballistics"):
+        real = getattr(scan, name)
+        monkeypatch.setattr(scan, name, lambda *a, _r=real, _n=name: (
+            calls.append(_n), _r(*a))[1])
+    err, _ = _render_pair(
+        monkeypatch,
+        ChainSpec((teffects.EFFECT_REGISTRY["compressor"](),),
+                  with_bypass=with_bypass),
+        JaxChainSpec((jeffects.EFFECT_REGISTRY["compressor"](),),
+                     with_bypass=with_bypass), B=4, T=4096)
+    assert np.all(err <= 5e-5), err
+    assert calls == ["compressor_fused_plain"]
 
 
 def test_guitar_preset_render_matches_jax(monkeypatch):

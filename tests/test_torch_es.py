@@ -1,8 +1,8 @@
 """The port's CMA-ES, fitness function and run_es against st_ito_tpu's:
 cma_tell on identical populations, cma_ask on injected normals, the
 fitness values against the forced-TPU JAX fitness (fft_mode="mx",
-float32), a CPU run_es, and run_es's output_audio against the per-candidate
-renderers of both packages."""
+float32), a CPU run_es (also in fft_mode="fused"), and run_es's
+output_audio against the per-candidate renderers of both packages."""
 
 import numpy as np
 import pytest
@@ -195,6 +195,34 @@ def test_run_es_cpu_smoke():
     assert res["evals_per_sec"] > 0
 
 
+def test_run_es_cpu_smoke_fused(monkeypatch):
+    """fft_mode="fused": the LTI group through K10 -> K9 -> K10 (the plain
+    versions here), two K10 calls per generation, on T 8192 (n = 2^14, the
+    smallest size fused_fft.supported admits)."""
+    from st_ito_torch.ops.kernels import fused_fft
+
+    calls = []
+    real = fused_fft.fft_fused_plain
+    monkeypatch.setattr(fused_fft, "fft_fused_plain", lambda *a, **k: (
+        calls.append(k.get("sign", a[2] if len(a) > 2 else -1)),
+        real(*a, **k))[1])
+    cfg = Cnn14Config(embed_dim=32, window_size=256, hop_size=128,
+                      mel_bins=32, base_channels=4)
+    model = ParamModel(net=init_cnn14_(Cnn14(cfg),
+                                       torch.Generator().manual_seed(4)),
+                       config=cfg, embed_dim=32)
+    res = run_es(_audio(2), _audio(3, styled=True), SR, basic_chain(), model,
+                 max_iters=2, popsize=4, find_w0=False, gens_per_dispatch=2,
+                 sigma0=0.3, early_stop_patience=100, verbose=False,
+                 fft_mode="fused", device="cpu")
+    hist = res["fval_history"]
+    assert len(hist) == 2 and np.isfinite(hist).all()
+    assert res["total_evals"] == 8
+    assert res["output_audio"].shape == (1, 2, T)
+    assert torch.isfinite(res["output_audio"]).all()
+    assert calls == [-1, 1] * 2
+
+
 def test_output_audio_is_the_per_candidate_render():
     """run_es renders output_audio with build_render_fn, as the JAX package
     does (st_ito_tpu/ito/engine.py:628-630): equal to the port's
@@ -235,7 +263,6 @@ def test_output_audio_is_the_per_candidate_render():
 @pytest.mark.parametrize("kwargs", [
     {"savepop": True}, {"chunked": True}, {"es_state_path": "s.npz"},
     {"opt_slice": (0, 19)}, {"dropout": 0.1}, {"content_model": object()},
-    {"fft_mode": "fused"},
 ])
 def test_unported_run_es_options_raise(kwargs):
     model = port_model(jax_params(5))

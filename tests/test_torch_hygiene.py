@@ -15,7 +15,8 @@ from st_ito_torch.cli import run_optim
 from st_ito_torch.ito import make_fitness_fn, run_es
 from st_ito_torch.models import Cnn14, Cnn14Config, ParamModel, load_param_model
 from st_ito_torch.ops import dynamics
-from st_ito_torch.ops.kernels import _build, eqcomp, mega_fft, scan
+from st_ito_torch.ops import lti
+from st_ito_torch.ops.kernels import _build, eqcomp, fused_fft, mega_fft, scan
 from st_ito_torch.ops.kernels import packed_response as k9
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -120,6 +121,21 @@ def test_wrappers_raise_when_the_kernel_cannot_load(monkeypatch):
     with pytest.raises(RuntimeError, match="cannot load kernel scan"):
         dynamics.compressor(torch.zeros(B, 2, 64, device=dev), 48000,
                             threshold_db=-10.0, fast=True, link_channels=True)
+    # K7, also from where the unlinked compressor reaches it, and K11
+    xs = torch.zeros(B, 2, 64, device=dev)
+    with pytest.raises(RuntimeError, match="cannot load kernel scan"):
+        scan.compressor_fused(xs, -10.0, 4.0, 0.5, 0.9, 0.99, active=act)
+    with pytest.raises(RuntimeError, match="cannot load kernel scan"):
+        dynamics.compressor(xs, 48000, fast=True, link_channels=False)
+    with pytest.raises(RuntimeError, match="cannot load kernel scan"):
+        scan.linear_recurrence(c, c)
+    # K10, alone and from the fused LTI group
+    z = torch.zeros(B, n, device=dev)
+    for sign in (-1, 1):
+        with pytest.raises(RuntimeError, match="cannot load kernel fused_fft"):
+            fused_fft.fft_fused(z, z, sign=sign, n=n, out_len=T)
+    with pytest.raises(RuntimeError, match="cannot load kernel fused_fft"):
+        lti.packed_lti_apply_rp(x, stages, n, {"gain": {}}, fft_impl="fused")
 
 
 def test_the_mega_entry_points_take_the_kernel_for_any_other_device(
@@ -155,13 +171,24 @@ def test_the_mega_entry_points_take_the_kernel_for_any_other_device(
 
 
 
-def test_unlinked_fast_compressor_on_the_card_names_k7():
-    """The fast unlinked compressor is the JAX package's fused kernel K7,
-    which is not ported: off the CPU it raises and never quietly runs the
-    op-by-op form. (A "meta" tensor stands in for a CUDA one.)"""
+def test_unlinked_fast_compressor_off_the_cpu_takes_k7(monkeypatch):
+    """The fast unlinked compressor is one pass of K7: off the CPU it
+    launches compressor_fused_cuda (replaced by a marker here) and never
+    quietly runs the op-by-op form or the plain version; on the CPU it
+    runs the plain version. (A "meta" tensor stands in for a CUDA one.)"""
+    hits = []
+    monkeypatch.setattr(
+        scan, "compressor_fused_cuda",
+        lambda x_in, vec, with_active: hits.append(
+            (tuple(vec.shape), with_active)) or torch.empty_like(x_in))
+    monkeypatch.setattr(scan, "ballistics_cuda",
+                        lambda *a: pytest.fail("took the op-by-op form"))
     x = torch.zeros(2, 2, 64, device="meta")
-    with pytest.raises(NotImplementedError, match="K7.*ROADMAP §2"):
-        dynamics.compressor(x, 48000, fast=True, link_channels=False)
+    y = dynamics.compressor(x, 48000, fast=True, link_channels=False,
+                            active=torch.ones(2, 1, device="meta"))
+    assert y.shape == x.shape and y.device.type == "meta"
+    assert hits == [((7, 4), True)]
     y = dynamics.compressor(torch.zeros(2, 2, 64), 48000, fast=True,
                             link_channels=False)
-    assert y.shape == x.shape
+    assert y.shape == x.shape and y.device.type == "cpu"
+    assert len(hits) == 1

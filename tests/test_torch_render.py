@@ -1,7 +1,8 @@
 """The port's population renderer against st_ito_tpu's, with the JAX side
 forced onto its TPU plan and its Pallas kernels run in interpret mode:
 ``fft_mode="mx"`` (K1, then the four-step FFT around K9), ``"mega2"``
-(K1, K3 -> K4, what ``"auto"`` picks) and ``"mega"`` (K1, K5 -> K2 -> K4)."""
+(K1, K3 -> K4, what ``"auto"`` picks), ``"mega"`` (K1, K5 -> K2 -> K4) and
+``"fused"`` (K1, K10 -> K9 -> K10)."""
 
 import functools
 
@@ -30,14 +31,15 @@ SR = 48000
 
 def force_jax_tpu_plan(monkeypatch):
     """Make st_ito_tpu render with its TPU plan on the CPU: the backend
-    reads as "tpu" and the Pallas kernels of the mx, mega and mega2 plans
-    and of the chains' lone EQ (K6) and linked compressors (K8) run in
-    interpret mode. packed_lti_apply_rp is patched (not
-    packed_response_apply_rp, which it calls with interpret=False), and so
-    are the two mega group functions the executor calls."""
+    reads as "tpu" and the Pallas kernels of the mx, fused, mega and mega2
+    plans and of the chains' lone EQ (K6), unlinked compressors (K7) and
+    linked compressors (K8) run in interpret mode. packed_lti_apply_rp is
+    patched (not packed_response_apply_rp or fft_fused, which it calls
+    with its own interpret flag), and so are the two mega group functions
+    the executor calls."""
     monkeypatch.setattr(jax, "default_backend", lambda: "tpu")
     for name in ("eq_compressor_fused_pallas", "biquad_cascade_pallas",
-                 "ballistics_pallas"):
+                 "compressor_fused_pallas", "ballistics_pallas"):
         monkeypatch.setattr(
             jax_scan, name,
             functools.partial(getattr(jax_scan, name), interpret=True))
@@ -113,6 +115,16 @@ def test_render_matches_jax_mx_plan(monkeypatch):
     _assert_render_matches_jax(monkeypatch, "mx", B=4, jit=True)
 
 
+def test_render_matches_jax_fused_plan(monkeypatch):
+    """K10 -> K9 -> K10 here, fft_fused -> K9 -> fft_fused interpreted
+    there: T 8192 gives n = 2^14, the smallest size ``supported`` admits;
+    the split tolerance of the other plans."""
+    from st_ito_torch.ops.kernels import fused_fft
+
+    assert fused_fft.supported(16384, 8192)
+    _assert_render_matches_jax(monkeypatch, "fused", B=4, jit=False)
+
+
 @pytest.mark.parametrize("fft_mode", ["mega2", "mega"])
 def test_render_matches_jax_mega_plans(monkeypatch, fft_mode):
     """B = 8 so that the JAX gate B % 8 == 0 takes its mega branch; T 8192
@@ -150,15 +162,17 @@ def test_auto_is_mega2_by_default(monkeypatch):
     assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("fft_mode", ["mega2", "mega", "auto"])
+@pytest.mark.parametrize("fft_mode", ["mega2", "mega", "auto", "fused",
+                                      "mx3"])
 def test_unsupported_shape_takes_the_mx_path(fft_mode):
     """T = 1000 gives n = 2048, below the 128 x 128 split, so ``supported``
-    rejects it and the mega modes run the mx path: the same code, bit for
-    bit."""
-    from st_ito_torch.ops.kernels import mega_fft
+    rejects it and the mega and fused modes run the mx path: the same code,
+    bit for bit."""
+    from st_ito_torch.ops.kernels import fused_fft, mega_fft
 
     T = 1000
     assert not mega_fft.supported(2048, T)
+    assert not fused_fft.supported(2048, T)
     x = torch.from_numpy(np.random.default_rng(5).standard_normal(
         (2, T)).astype(np.float32))
     W = torch.from_numpy(population(3, 6))
@@ -171,7 +185,7 @@ def test_unsupported_shape_takes_the_mx_path(fft_mode):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"fft_mode": "fused"}, {"fft_mode": "xla"}, {"fast": False},
+    {"fft_mode": "xla"}, {"fast": False},
     {"fuse_lti": False}, {"out_rows_hop": 1024}, {"fft_precision": "mixed"},
 ])
 def test_unported_options_raise(kwargs):
