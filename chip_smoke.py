@@ -9,11 +9,12 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card: name and power limit (nvidia-smi), torch and CUDA versions;
 2. build every CUDA kernel of the main path from ``st_ito_torch/csrc``
    (one nvcc per source, all started together);
-3. ``k1``: K1 (fused EQ -> compressor -> distortion scan) against its plain
-   PyTorch version on the card, mixed bypass throughout: B=37, stereo,
-   T=20011 (ragged lane blocks and tiles), shared and per-candidate input;
-   then the main path's shape, B=512, stereo, T=262144, shared input, in
-   full; then K1's time there;
+3. ``k1``: K1 (fused EQ -> compressor -> distortion scan, in chunks of T)
+   against its plain PyTorch version on the card, mixed bypass throughout:
+   B=37, stereo, T=20011 (ragged lane blocks, tiles and chunks), shared and
+   per-candidate input, and B=64, stereo, T=65536; then the main path's
+   shape, B=512, stereo, T=262144, shared input, in full; each also against
+   a float64 run of the plain version; then K1's time there;
 4. ``k9``: K9 (fused delay + reverb response and packed apply) against its
    plain version, fractional delays and mixed bypass: n=2^19 at B=100 (a
    ragged candidate chunk) and at the main path's B=512; then its time;
@@ -59,8 +60,15 @@ Phases, in order; any failure raises and the script exits non-zero:
    K11 is on no main path (in the JAX package only its tests call it): its
    launches there are 0.
 
-Tolerances: K1, K6, K7, K8 and K11 atol 1e-4 (they are expected to match
-bitwise: the log says whether they do); every other kernel 1e-4 x max|want|
+Tolerances: K1, a chunked scan whose carries round differently from the
+serial chain, (a) where a lane's distortion is bypassed within 1e-4 x
+max(1, the lane's peak) of the float32 plain version (B 37 x T 20011 and
+128 lanes x T 65536; logged at the headline, where the float32 plain run
+itself lies farther than that from float64), and (b) on every lane of every
+set no farther from a float64 run of the plain version than 4x the float32
+one is, plus 1e-5 x max(1, peak); K6, K7, K8 and K11 atol 1e-4 (they are expected
+to match bitwise: the log says whether they do); every other kernel
+1e-4 x max|want|
 per output array on the valid bins (K9 and K2 match bitwise; an FFT cannot
 match cuFFT bitwise); the groups atol 5e-5, rtol 1e-4 against the mx path
 on a peak-normalised input.
@@ -193,38 +201,104 @@ def k1_inputs(B, C, T, seed, shared, dev):
     )[:5]
 
 
-def k1_check(args, label):
-    """Max |kernel - plain| on one input set (atol 1e-4), and the plain
-    version's ms."""
+def k1_plain64_job(path):
+    """The float64 plain run of the headline K1 set, written to ``path``:
+    run in a process of its own (spawned), beside the float32 run in the
+    main one, since each is bound by one core's rate of launches."""
     from st_ito_torch.ops.kernels import eqcomp
 
+    args = k1_inputs(POP, 2, T_HEAD, 2, True, torch.device("cuda"))
+    torch.save(eqcomp.eqcomp_plain(*args, dtype=torch.float64).cpu(), path)
+
+
+def k1_check(args, label, rule_a=True, want64=None):
+    """K1 against its plain version on one input set, under the kernel's
+    two rules (``eqcomp.gate_excess``): (a) where a lane's distortion is
+    bypassed, |kernel - plain float32| <= 1e-4 x max(1, the lane's peak);
+    (b) on every lane, against a float64 run of the plain version,
+    max_t |kernel - plain float64| <= 4 x max_t |plain float32 - plain
+    float64| + 1e-5 x max(1, the lane's peak). Without ``rule_a`` rule (a)
+    is logged and not held. ``want64`` returns the float64 run when it was
+    made elsewhere. Returns (max |kernel - plain float32|, the plain
+    version's ms)."""
+    from st_ito_torch.ops.kernels import eqcomp
+
+    lanes, T = args[1].shape[1], args[0].shape[-1]
+    L = eqcomp.chunk_len(lanes, T)
     got = eqcomp.eqcomp_cuda(*args)
     want, plain_ms = once_ms(lambda: eqcomp.eqcomp_plain(*args))
-    e = float((got - want).abs().max())
-    log(f"K1 {label}: max |kernel - plain| = {e!r} (plain {plain_ms!r} ms)")
-    if not math.isfinite(e) or e > 1e-4:
-        raise AssertionError(f"K1 disagrees with its plain version: {e}")
-    return e, plain_ms
+    want64 = (eqcomp.eqcomp_plain(*args, dtype=torch.float64)
+              if want64 is None else want64().to(got.device))
+    ex = eqcomp.gate_excess(got, want, args[1], args[2], args[3],
+                            want64=want64)
+    log(f"K1 {label}: chunk {L}, {-(-T // L)} chunks; max |kernel - plain| "
+        f"{ex['max_err']!r} on all lanes, {ex['max_err_bypassed']!r} where "
+        f"the distortion is bypassed (rule a excess {ex['a']!r}"
+        f"{'' if rule_a else ', not held'}); max |kernel - plain64| "
+        f"{ex['max_err64']!r}, max |plain - plain64| "
+        f"{ex['max_err64_plain']!r} (rule b excess {ex['b']!r}); first "
+        f"chunk bitwise {bool(torch.equal(got[:, :L], want[:, :L]))} "
+        f"(plain {plain_ms!r} ms)")
+    if not math.isfinite(ex["max_err"]) or (rule_a and ex["a"] > 0.0) \
+            or not ex["b"] <= 0.0:
+        raise AssertionError(f"K1 misses its rules at {label}: {ex}")
+    return ex["max_err"], plain_ms
 
 
 def phase_k1(dev, rec):
     from st_ito_torch.ops.kernels import eqcomp
 
     # B 37: 74 lanes, three 32-lane blocks with the last one ragged; T 20011
-    # is not a multiple of the 32-sample tile
+    # is not a multiple of the 32-sample tile nor of the chunk; then 128
+    # lanes x T 65536 over the full parameter ranges
     err = max(k1_check(k1_inputs(37, 2, 20011, 1, shared, dev),
                        f"B 37, T 20011, shared={shared}")[0]
               for shared in (True, False))
-    # the main path's own shape: every block, over the whole of T
-    head = k1_inputs(POP, 2, T_HEAD, 2, True, dev)
-    e, rec["plain_ms"] = k1_check(head, f"headline B {POP}, T {T_HEAD}, "
-                                        "shared=True")
+    err = max(err, k1_check(k1_inputs(64, 2, 65536, 3, False, dev),
+                            "B 64, T 65536, shared=False")[0])
+    # the main path's own shape: every block, over the whole of T. Rule (a)
+    # is logged, not held: over 262144 samples the float32 plain run itself
+    # lies up to 2.5e-4 x peak from the float64 one on lanes whose
+    # distortion is bypassed (the EQ's low, high-gain sections), so no
+    # float32 order of rounding other than its own can meet (a) there
+    import multiprocessing
+
+    from st_ito_torch.ops.kernels import _build
+
+    path = _build.BUILD_DIR.parent / "k1_plain64.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    job = multiprocessing.get_context("spawn").Process(
+        target=k1_plain64_job, args=(str(path),))
+    job.start()
+
+    def want64():
+        job.join(timeout=900)
+        if job.is_alive():
+            job.kill()
+            job.join()
+        if job.exitcode != 0:
+            raise RuntimeError(f"the float64 plain run exited {job.exitcode}")
+        out = torch.load(path)
+        path.unlink()
+        return out
+
+    try:
+        head = k1_inputs(POP, 2, T_HEAD, 2, True, dev)
+        rec["ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
+        e, rec["plain_ms"] = k1_check(
+            head, f"headline B {POP}, T {T_HEAD}, shared=True",
+            rule_a=False, want64=want64)
+    finally:
+        if job.is_alive():
+            job.kill()
+        job.join()
     rec["max_abs_err"] = max(err, e)
-    rec["ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
     lanes = POP * 2
+    rec["chunk"] = eqcomp.chunk_len(lanes, T_HEAD)
     rec["bytes"] = 4 * (lanes * T_HEAD + head[0].numel() + head[1].numel())
     rec["operations"] = K1_OPS_PER_SAMPLE * lanes * T_HEAD
-    log(f"K1 headline (lanes {lanes}, T {T_HEAD}): {rec['ms']!r} ms")
+    log(f"K1 headline (lanes {lanes}, T {T_HEAD}, chunk {rec['chunk']}, "
+        f"{T_HEAD // rec['chunk']} chunks): {rec['ms']!r} ms")
 
 
 # ------------------------------------------------------------------ K9
@@ -474,21 +548,22 @@ def k10_check(B, n, in_len, sign, out_len, seed, dev, label):
 
 
 def phase_k10(dev, rec):
-    """K10 at B 37 with the scratch chunk cut to 8 (a ragged last chunk):
-    forward with a guard band, inverse with an out_len that is not a
-    multiple of n1; then the fused path's two headline calls in full, and
-    their times beside torch.fft's."""
+    """K10 at B 37 (its scratch ring of one-candidate slots reused four
+    times over): forward with a guard band, inverse with an out_len that is not
+    a multiple of n1, below and above n/2; then the fused path's two
+    headline calls in full, and their times beside torch.fft's."""
     from st_ito_torch.ops.kernels import fused_fft
-    from st_ito_torch.ops.kernels import mega_fft as mf
 
-    chunk, mf.CHUNK = mf.CHUNK, 8
+    rec["scratch_slots"] = fused_fft.scratch_slots()
+    log(f"K10: one persistent launch, chunks of one candidate, a scratch "
+        f"ring of {rec['scratch_slots']} candidates "
+        f"({rec['scratch_slots'] * 8 * 2 ** 19 / 2 ** 20!r} MiB at n 2^19)")
     errs = [k10_check(37, n, in_len, sign, out_len, 50 + i, dev,
                       f"B 37, n {n}, in_len {in_len}, sign {sign}, "
                       f"out_len {out_len}")[0]
             for i, (n, in_len, sign, out_len) in enumerate((
                 (2 ** 14, 2 ** 13, -1, None), (2 ** 14, 2 ** 14, 1, 1000),
                 (2 ** 15, 37 * 128, -1, None), (2 ** 15, 2 ** 15, 1, 20001)))]
-    mf.CHUNK = chunk
     n = 2 ** 19
     fft_ops = 5 * n * int(math.log2(n)) * POP
     for d, (sign, in_len, out_len) in (("fwd", (-1, T_HEAD, None)),

@@ -1,4 +1,5 @@
-// K1 on Hopper: the fused EQ -> compressor -> distortion scan.
+// K1 on Hopper: the fused EQ -> compressor -> distortion scan, as a chunked
+// scan over time.
 //
 // Replaces st_ito_tpu/ops/pallas/scan.py:279 eq_compressor_fused_pallas
 // (kernel _make_eq_comp_kernel, scan.py:172). Per lane (one candidate x one
@@ -9,21 +10,41 @@
 //     g = aa*g + (1-aa)*y1;
 //   - v * exp(g*ln10/20) * makeup, the compressor blend, then (optionally)
 //     tanh(y*drive)*outg and the distortion blend.
-// The cascade, the compressor (gain computer, ballistics and gain) and the
-// tile loop are scan_core.cuh's, which K6, K7 and K8 (scan.cu) run too. The
-// plain PyTorch version (st_ito_torch/ops/kernels/eqcomp.py) does the same
-// operations in the same order.
+// The cascade, the compressor and the tile loop are scan_core.cuh's, which
+// K6, K7 and K8 (scan.cu) run too. The plain PyTorch version
+// (st_ito_torch/ops/kernels/eqcomp.py) runs the same steps serially.
 //
-// Bound: the (lanes, T) float32 output write, 1.07 GB at the headline
-// 1024 lanes x 262144 samples, about 0.32 ms at the H100 SXM's 3.35 TB/s;
-// the shared (C, T) input is 2 MB and stays in L2. This first version is
-// latency-bound on the serial recurrence: one thread carries one lane over
-// all of T with every state in registers, so the headline shape has only
-// 1024 threads (32 warps) in flight. The redesign as a chunked parallel
-// scan (the biquad is linear, the ballistics are min-affine) is queued in
-// ROADMAP.md.
+// Bound: the (lanes, T) float32 output write, 1.07 GB at the headline 1024
+// lanes x 262144 samples, about 0.32 ms at the H100 SXM's 3.35 TB/s, or
+// the 94 float32 operations a sample, 0.38 ms at 67 TFLOP/s; the shared
+// (C, T) input is 2 MB and stays in L2. Walked serially, one thread a lane,
+// the headline had 1024 threads in flight, each waiting on its own chain.
+// Here T is cut into chunks of Lc samples (a multiple of the 32-sample
+// tile), and every (32-lane block, chunk) pair is a warp of its own, from
+// the state the chunk starts in; 1024 lanes x 256 chunks fill every SM.
+// The state passes between chunks exactly in real arithmetic, in four
+// passes over the chunks and three serial carries per lane over the chunk
+// count:
+//   A. the cascade from rest over chunk k < n-1; its end state f_k;
+//   1. s_{k+1} = Phi s_k + f_k, Phi = A^Lc the cascade's transition over
+//      one chunk (linear_chunk_carry);
+//   B. the cascade from s_k, the bypass blend and the gain computer; the
+//      release steps composed into one min-affine map (MinAffine);
+//   2. y1 at each chunk's start (minaffine_chunk_carry);
+//   C. the cascade, the gain computer and y1 from its carry, and g from 0:
+//      the chunk's end value gz_k;
+//   3. g_{k+1} = aa^Lc g_k + gz_k (onepole_chunk_carry);
+//   D. the whole step from (s_k, y1_k, g_k), every blend and the
+//      distortion; the only pass that writes the output.
+// The passes recompute the cascade instead of storing v and c (2 GB each
+// way at the headline). The carries round differently from the serial
+// chain, so the kernel is no longer bitwise equal to its plain version; the
+// first chunk is. The carry table holds 2S + 4 rows per chunk and lane:
+// the cascade state, then the MinAffine (k, b, m) whose first row becomes
+// y1, then g.
 //
-// C entry point: eqcomp_launch(...) returns cudaGetLastError().
+// C entry point: eqcomp_launch(...) returns cudaGetLastError() after the
+// last launch, or cudaErrorInvalidValue for arguments it does not take.
 
 #include <cuda_runtime.h>
 
@@ -32,6 +53,19 @@
 namespace {
 
 using scancore::kTile;
+
+template <int S>
+struct Table {
+  // rows 0 .. 2S-1: the cascade state (BiquadCascade<S>::kStateRows)
+  static constexpr int kY1 = 2 * S;  // MinAffine k, then y1 at the start
+  static constexpr int kG = 2 * S + 3;
+  static constexpr int kRows = 2 * S + 4;
+
+  // the offset of chunk k's row for one lane
+  __device__ static long long at(int k, int row, int lanes, int lane) {
+    return ((long long)k * kRows + row) * lanes + lane;
+  }
+};
 
 // vec rows, each (lanes,): 5 per section (b0, b1, b2, a1, a2), then
 // eq_act, th, slope, knee, aa, ar, mk, comp_act, drive, outg, dist_act.
@@ -64,28 +98,203 @@ struct EqComp {
   }
 };
 
+// pass A's step: the cascade alone (its blend does not enter the state)
 template <int S>
-__global__ void __launch_bounds__(kTile) eqcomp_kernel(
+struct CascadeState {
+  scancore::BiquadCascade<S> eq;
+
+  __device__ __forceinline__ float step(float xin) {
+    eq.step(xin);
+    return 0.0f;
+  }
+};
+
+// pass B's step: the release steps composed over the chunk
+template <int S>
+struct ReleaseMap {
+  scancore::BiquadCascade<S> eq;
+  scancore::Compressor comp;
+  scancore::MinAffine f;
+
+  __device__ __forceinline__ float step(float xin) {
+    f.then(comp.det.ar, comp.computer(eq.step(xin)));
+    return 0.0f;
+  }
+};
+
+// pass C's step: the detector without the gain
+template <int S>
+struct Detector {
+  scancore::BiquadCascade<S> eq;
+  scancore::Compressor comp;
+
+  __device__ __forceinline__ float step(float xin) {
+    comp.det.step(comp.computer(eq.step(xin)));
+    return 0.0f;
+  }
+};
+
+// A block of every pass: 32 lanes (blockIdx.y) x chunk blockIdx.x.
+struct Span {
+  int lane0, li, k;
+  long long t0, t1;
+
+  __device__ __forceinline__ Span(int lanes, long long T, long long Lc)
+      : lane0(blockIdx.y * kTile),
+        li(scancore::lane_index(lanes, blockIdx.y * kTile)),
+        k(blockIdx.x),
+        t0((long long)blockIdx.x * Lc),
+        t1(t0 + Lc < T ? t0 + Lc : T) {}
+
+  __device__ __forceinline__ bool stores(int lanes) const {
+    return lane0 + (int)threadIdx.x < lanes;
+  }
+};
+
+template <int S, bool kStore, class Op>
+__device__ __forceinline__ void walk(Op& op, const Span& sp,
+                                     const float* __restrict__ x,
+                                     int shared_channels,
+                                     float* __restrict__ out, int lanes,
+                                     long long T) {
+  const float* const xs[1] = {x};
+  scancore::run_tiles_span<1, kStore>(op, xs, shared_channels, out, lanes, T,
+                                      sp.lane0, sp.t0, sp.t1);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile) pass_a_kernel(
     const float* __restrict__ x, int shared_channels,
-    const float* __restrict__ vec, float* __restrict__ out, int lanes,
-    long long T, int with_dist) {
+    const float* __restrict__ vec, float* __restrict__ table, int lanes,
+    long long T, long long Lc) {
+  const Span sp(lanes, T, Lc);
+  CascadeState<S> op{scancore::BiquadCascade<S>(vec, lanes, sp.li, 0)};
+  walk<S, false>(op, sp, x, shared_channels, nullptr, lanes, T);
+  if (sp.stores(lanes))
+    op.eq.store_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile) pass_b_kernel(
+    const float* __restrict__ x, int shared_channels,
+    const float* __restrict__ vec, float* __restrict__ table, int lanes,
+    long long T, long long Lc) {
+  const Span sp(lanes, T, Lc);
+  ReleaseMap<S> op{scancore::BiquadCascade<S>(vec, lanes, sp.li, 1),
+                   scancore::Compressor(vec, lanes, sp.li, 5 * S + 1), {}};
+  op.eq.load_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
+  walk<S, false>(op, sp, x, shared_channels, nullptr, lanes, T);
+  if (sp.stores(lanes)) {
+    float* p = table + Table<S>::at(sp.k, Table<S>::kY1, lanes, sp.li);
+    p[0] = op.f.k;
+    p[lanes] = op.f.b;
+    p[2 * lanes] = op.f.m;
+  }
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile) pass_c_kernel(
+    const float* __restrict__ x, int shared_channels,
+    const float* __restrict__ vec, float* __restrict__ table, int lanes,
+    long long T, long long Lc) {
+  const Span sp(lanes, T, Lc);
+  Detector<S> op{scancore::BiquadCascade<S>(vec, lanes, sp.li, 1),
+                 scancore::Compressor(vec, lanes, sp.li, 5 * S + 1)};
+  op.eq.load_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
+  op.comp.det.y1 = table[Table<S>::at(sp.k, Table<S>::kY1, lanes, sp.li)];
+  walk<S, false>(op, sp, x, shared_channels, nullptr, lanes, T);
+  if (sp.stores(lanes))
+    table[Table<S>::at(sp.k, Table<S>::kG, lanes, sp.li)] = op.comp.det.g;
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile) pass_d_kernel(
+    const float* __restrict__ x, int shared_channels,
+    const float* __restrict__ vec, const float* __restrict__ table,
+    float* __restrict__ out, int lanes, long long T, long long Lc,
+    int with_dist) {
+  const Span sp(lanes, T, Lc);
+  EqComp<S> op(vec, lanes, sp.li, with_dist);
+  op.eq.load_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
+  op.comp.det.y1 = table[Table<S>::at(sp.k, Table<S>::kY1, lanes, sp.li)];
+  op.comp.det.g = table[Table<S>::at(sp.k, Table<S>::kG, lanes, sp.li)];
+  walk<S, true>(op, sp, x, shared_channels, out, lanes, T);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile * 2 * S) state_carry_kernel(
+    const float* __restrict__ vec, float* __restrict__ table, int lanes,
+    long long Lc, int nchunks) {
+  // thread i*32 + l builds column i of lane lane0 + l's Phi (lane 0's past
+  // the last lane)
   const int lane0 = blockIdx.x * kTile;
-  EqComp<S> op(vec, lanes, scancore::lane_index(lanes, lane0), with_dist);
-  scancore::run_tiles(op, x, shared_channels, out, lanes, T, lane0);
+  const int l = threadIdx.x % kTile;
+  scancore::BiquadCascade<S> eq(vec, lanes, lane0 + l < lanes ? lane0 + l : 0,
+                                0);
+  scancore::linear_chunk_carry(eq, table, Table<S>::kRows, 0, lanes, lane0,
+                               Lc, nchunks);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile) release_carry_kernel(
+    float* __restrict__ table, int lanes, int nchunks) {
+  scancore::minaffine_chunk_carry(table, Table<S>::kRows, Table<S>::kY1,
+                                  lanes, blockIdx.x * kTile, nchunks);
+}
+
+template <int S>
+__global__ void __launch_bounds__(kTile) attack_carry_kernel(
+    const float* __restrict__ vec, float* __restrict__ table, int lanes,
+    long long Lc, int nchunks) {
+  const int li = scancore::lane_index(lanes, blockIdx.x * kTile);
+  scancore::onepole_chunk_carry(table, Table<S>::kRows, Table<S>::kG, lanes,
+                                blockIdx.x * kTile, vec[(5 * S + 4) * lanes + li],
+                                Lc, nchunks);
+}
+
+template <int S>
+int run(const float* x, int shared_channels, const float* vec, float* out,
+        float* table, int lanes, long long T, long long Lc, int with_dist,
+        cudaStream_t stream) {
+  const int nchunks = (int)((T + Lc - 1) / Lc);
+  const int lane_blocks = scancore::blocks_for(lanes);
+  const dim3 spans(nchunks - 1, lane_blocks);
+  if (nchunks > 1)
+    pass_a_kernel<S><<<spans, kTile, 0, stream>>>(x, shared_channels, vec,
+                                                  table, lanes, T, Lc);
+  state_carry_kernel<S><<<lane_blocks, kTile * 2 * S, 0, stream>>>(
+      vec, table, lanes, Lc, nchunks);
+  if (nchunks > 1)
+    pass_b_kernel<S><<<spans, kTile, 0, stream>>>(x, shared_channels, vec,
+                                                  table, lanes, T, Lc);
+  release_carry_kernel<S><<<lane_blocks, kTile, 0, stream>>>(table, lanes,
+                                                             nchunks);
+  if (nchunks > 1)
+    pass_c_kernel<S><<<spans, kTile, 0, stream>>>(x, shared_channels, vec,
+                                                  table, lanes, T, Lc);
+  attack_carry_kernel<S><<<lane_blocks, kTile, 0, stream>>>(vec, table, lanes,
+                                                            Lc, nchunks);
+  pass_d_kernel<S><<<dim3(nchunks, lane_blocks), kTile, 0, stream>>>(
+      x, shared_channels, vec, table, out, lanes, T, Lc, with_dist);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// table: nchunks * (2S + 4) * lanes floats, nchunks = ceil(T / chunk_len);
+// chunk_len a positive multiple of 32.
 extern "C" int eqcomp_launch(const float* x, int shared_channels,
-                             const float* vec, float* out, int lanes,
-                             long long T, int num_sections, int with_dist,
+                             const float* vec, float* out, float* table,
+                             int lanes, long long T, int num_sections,
+                             int with_dist, long long chunk_len,
                              void* stream) {
   // The basic parametric EQ, the only EQ planned into this head, has 6
   // sections; other counts are instantiated when a chain needs them.
-  if (lanes <= 0 || T <= 0 || shared_channels < 0 || num_sections != 6)
+  if (lanes <= 0 || T <= 0 || shared_channels < 0 || num_sections != 6 ||
+      chunk_len <= 0 || chunk_len % kTile != 0 ||
+      scancore::blocks_for(lanes) > 65535 ||
+      (T + chunk_len - 1) / chunk_len > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  eqcomp_kernel<6><<<scancore::blocks_for(lanes), kTile, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      x, shared_channels, vec, out, lanes, T, with_dist);
-  return static_cast<int>(cudaGetLastError());
+  return run<6>(x, shared_channels, vec, out, table, lanes, T, chunk_len,
+                with_dist, static_cast<cudaStream_t>(stream));
 }

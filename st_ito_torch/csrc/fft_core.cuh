@@ -81,8 +81,10 @@ __device__ __forceinline__ int step_layers(int left) {
 // One decimation-in-frequency step: the L layers whose half sizes are
 // 2^lh, 2^(lh-1), ..., 2^(lh-L+1). A thread's R = 2^L elements sit at
 // stride 2^(lh+1-L) in one block of 2^(lh+1); register m of layer l is at
-// position ((m mod (R >> l)) << ls) + j of its layer's block.
-template <int L, bool kInverse>
+// position ((m mod (R >> l)) << ls) + j of its layer's block. With kHalf
+// the transform's last layer (half size 1) forms only a + b, the outputs at
+// even positions: the bins below len/2.
+template <int L, bool kInverse, bool kHalf = false>
 __device__ __forceinline__ void dif_step(float2* s, int rows, int pitch,
                                          int log_len, int lh,
                                          const float2* tw_s) {
@@ -110,6 +112,7 @@ __device__ __forceinline__ void dif_step(float2* s, int rows, int pitch,
         const float2 a = v[m];
         const float2 b = v[m + dist];
         v[m] = make_float2(a.x + b.x, a.y + b.y);
+        if (kHalf && lh == l) continue;  // the last layer, pruned
         v[m + dist] = cmul(make_float2(a.x - b.x, a.y - b.y),
                            twiddle<kInverse>(tw_s, pos << tw_shift));
       }
@@ -195,6 +198,49 @@ __device__ void fft_rows_dit(float2* s, int rows, int pitch, int log_len,
       dit_step<1, kInverse>(s, rows, pitch, log_len, lh, tw_s);
     }
     lh += L;
+  }
+  __syncthreads();
+}
+
+// Decimation in frequency in steps of up to kMaxL layers (at most 5: 32
+// elements a thread in registers): with 5, 2 trips through shared memory
+// for a 512- or 1024-point transform instead of 3 or 4. With kHalf the
+// last layer is pruned to the outputs at even positions (dif_step).
+// Barriers as above.
+__device__ __forceinline__ int wide_step_layers(int left, int cap) {
+  return left <= cap ? left : min(cap, left - left / 2);
+}
+
+template <bool kInverse, bool kHalf, int kMaxL>
+__device__ void fft_rows_dif_wide(float2* s, int rows, int pitch,
+                                  int log_len, const float2* tw_s) {
+  static_assert(kMaxL >= 3 && kMaxL <= 5, "3 to 5 layers a step");
+  int lh = log_len - 1;
+  while (lh >= 0) {
+    const int L = wide_step_layers(lh + 1, kMaxL);
+    __syncthreads();
+    if constexpr (kMaxL >= 5) {
+      if (L == 5) {
+        dif_step<5, kInverse, kHalf>(s, rows, pitch, log_len, lh, tw_s);
+        lh -= L;
+        continue;
+      }
+    }
+    if constexpr (kMaxL >= 4) {
+      if (L == 4) {
+        dif_step<4, kInverse, kHalf>(s, rows, pitch, log_len, lh, tw_s);
+        lh -= L;
+        continue;
+      }
+    }
+    if (L == 3) {
+      dif_step<3, kInverse, kHalf>(s, rows, pitch, log_len, lh, tw_s);
+    } else if (L == 2) {
+      dif_step<2, kInverse, kHalf>(s, rows, pitch, log_len, lh, tw_s);
+    } else {
+      dif_step<1, kInverse, kHalf>(s, rows, pitch, log_len, lh, tw_s);
+    }
+    lh -= L;
   }
   __syncthreads();
 }

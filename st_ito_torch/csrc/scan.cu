@@ -28,9 +28,10 @@
 // at 1024 lanes reads two sequences and writes one, 3.22 GB (0.96 ms). Like
 // K1, all four are latency-bound instead: one thread carries one lane over
 // all of T with its state in registers, so the headline has 1024 or 512
-// threads in flight. The chunked parallel scan (the cascade and the
-// recurrence are linear, the ballistics min-affine) is queued in
-// ROADMAP.md beside K1's.
+// threads in flight. K1 (eqcomp.cu) now runs as a chunked scan on
+// scan_core.cuh's span walk and chunk carries; the same form for these four
+// (the cascade and the recurrence are linear, the ballistics min-affine)
+// is queued in ROADMAP.md.
 //
 // C entry points, each returning cudaGetLastError():
 //   biquad_cascade_launch(...), compressor_fused_launch(...),

@@ -15,6 +15,14 @@
 // An Op holds one lane's coefficients and state in registers and maps one
 // input sample (or, with two input sequences, one pair) to one output
 // sample with step().
+//
+// The chunked scan (K1, eqcomp.cu) splits T into chunks of Lc samples, each
+// walked by its own warp with run_tiles_span from a given state, and passes
+// the state between chunks with three small serial carries per lane:
+// linear_chunk_carry (a linear state, e.g. the cascade's 2S values, through
+// Phi = A^Lc), minaffine_chunk_carry (the release stage of the ballistics,
+// through the chunk's composed min-affine map, MinAffine) and
+// onepole_chunk_carry (the attack stage, through aa^Lc).
 
 #pragma once
 
@@ -31,6 +39,9 @@ constexpr int kTile = 32;
 // when with_active.
 template <int S>
 struct BiquadCascade {
+  // the state as rows of a carry table: row 2s is s1 of section s, row
+  // 2s + 1 its s2
+  static constexpr int kStateRows = 2 * S;
   float b0[S], b1[S], b2[S], a1[S], a2[S], s1[S], s2[S];
   float act;
   int with_active;
@@ -62,6 +73,43 @@ struct BiquadCascade {
       v = y;
     }
     if (with_active) v = act * v + (1.0f - act) * xin;
+    return v;
+  }
+
+  __device__ __forceinline__ void load_state(const float* __restrict__ st,
+                                             long long stride) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      s1[s] = st[(2 * s) * stride];
+      s2[s] = st[(2 * s + 1) * stride];
+    }
+  }
+
+  __device__ __forceinline__ void store_state(float* __restrict__ st,
+                                              long long stride) const {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      st[(2 * s) * stride] = s1[s];
+      st[(2 * s + 1) * stride] = s2[s];
+    }
+  }
+
+  // the unit state e_i, and state row r
+  __device__ __forceinline__ void set_unit_state(int i) {
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      s1[s] = (2 * s == i) ? 1.0f : 0.0f;
+      s2[s] = (2 * s + 1 == i) ? 1.0f : 0.0f;
+    }
+  }
+
+  __device__ __forceinline__ float state(int r) const {
+    float v = 0.0f;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      if (2 * s == r) v = s1[s];
+      if (2 * s + 1 == r) v = s2[s];
+    }
     return v;
   }
 };
@@ -102,16 +150,36 @@ struct Compressor {
         mk(vec[(row0 + 5) * L + li]),
         det(vec[(row0 + 3) * L + li], vec[(row0 + 4) * L + li]) {}
 
-  __device__ __forceinline__ float step(float v) {
+  // the gain computer: the gain reduction c (dB) for the sample v
+  __device__ __forceinline__ float computer(float v) const {
     const float env_db = logf(fmaxf(fabsf(v), 1e-8f)) * kDbPerLog;
     const float over = env_db - th;
     const float h = over + knee / 2.0f;
     const float knee_region = slope * (h * h) / (2.0f * knee);
-    const float c = (2.0f * over < -knee)
-                        ? 0.0f
-                        : ((2.0f * over > knee) ? slope * over : knee_region);
-    const float g = det.step(c);
+    return (2.0f * over < -knee)
+               ? 0.0f
+               : ((2.0f * over > knee) ? slope * over : knee_region);
+  }
+
+  __device__ __forceinline__ float step(float v) {
+    const float g = det.step(computer(v));
     return v * expf(g * kLn10Over20) * mk;
+  }
+};
+
+// The release stage's steps y -> min(c, ar*y + (1-ar)*c) composed over a
+// span of samples into one map y -> min(m, k*y + b) (st_ito_tpu/ops/
+// dynamics.py:55-93): appending a step takes (k, b, m) to
+// (ar*k, ar*b + (1-ar)*c, min(c, ar*m + (1-ar)*c)), the b and m updates in
+// Ballistics::step's order of operations. Starts as the identity.
+struct MinAffine {
+  float k = 1.0f, b = 0.0f, m = INFINITY;
+
+  __device__ __forceinline__ void then(float ar, float c) {
+    const float bc = (1.0f - ar) * c;
+    k = ar * k;
+    b = ar * b + bc;
+    m = fminf(c, ar * m + bc);
   }
 };
 
@@ -135,33 +203,33 @@ __device__ __forceinline__ int lane_index(int lanes, int lane0) {
 inline int blocks_for(int lanes) { return (lanes + kTile - 1) / kTile; }
 
 // Thread l's column of the tile at t0: next[r] = x[lane0 + r][t0 + l], 0
-// past the last lane or the end of T.
+// past the last lane or at t_end and after (rows of T samples).
 __device__ __forceinline__ void load_tile(float (&next)[kTile],
                                           const float* __restrict__ x,
                                           int shared_channels, int lanes,
                                           long long T, int lane0,
-                                          long long t0) {
+                                          long long t0, long long t_end) {
   const int l = threadIdx.x;
 #pragma unroll
   for (int r = 0; r < kTile; ++r) {
     const int ln = lane0 + r;
     const long long row = shared_channels > 0 ? ln % shared_channels : ln;
-    next[r] = (ln < lanes && t0 + l < T) ? x[row * T + t0 + l] : 0.0f;
+    next[r] = (ln < lanes && t0 + l < t_end) ? x[row * T + t0 + l] : 0.0f;
   }
 }
 
-// One warp walks its 32 lanes over all of T. Row r of a tile is lane
-// lane0 + r; thread l loads and stores column l of every row (coalesced)
-// and computes row l (its own lane) from the shared tiles, one per input
-// sequence (NIn = 1: op.step(x); NIn = 2: op.step(a, b)). Only a single
-// input may be the shared (C, T) one.
-template <int NIn, class Op>
-__device__ __forceinline__ void run_tiles_n(Op& op,
-                                            const float* const (&x)[NIn],
-                                            int shared_channels,
-                                            float* __restrict__ out,
-                                            int lanes, long long T,
-                                            int lane0) {
+// One warp walks its 32 lanes over the samples [t_begin, t_end) of rows of
+// T samples, from the state op holds. Row r of a tile is lane lane0 + r;
+// thread l loads and stores column l of every row (coalesced) and computes
+// row l (its own lane) from the shared tiles, one per input sequence
+// (NIn = 1: op.step(x); NIn = 2: op.step(a, b)). Only a single input may be
+// the shared (C, T) one. Without kStore the outputs are dropped and out is
+// not read (a pass that only carries state).
+template <int NIn, bool kStore, class Op>
+__device__ __forceinline__ void run_tiles_span(
+    Op& op, const float* const (&x)[NIn], int shared_channels,
+    float* __restrict__ out, int lanes, long long T, int lane0,
+    long long t_begin, long long t_end) {
   static_assert(NIn == 1 || NIn == 2, "one or two input sequences");
   __shared__ float tile[NIn][kTile][kTile + 1];
   const int l = threadIdx.x;
@@ -169,36 +237,54 @@ __device__ __forceinline__ void run_tiles_n(Op& op,
 
 #pragma unroll
   for (int i = 0; i < NIn; ++i) {
-    load_tile(next[i], x[i], shared_channels, lanes, T, lane0, 0);
+    load_tile(next[i], x[i], shared_channels, lanes, T, lane0, t_begin,
+              t_end);
   }
-  for (long long t0 = 0; t0 < T; t0 += kTile) {
-    const int n = (int)((T - t0) < kTile ? (T - t0) : kTile);
+  for (long long t0 = t_begin; t0 < t_end; t0 += kTile) {
+    const int n = (int)((t_end - t0) < kTile ? (t_end - t0) : kTile);
 #pragma unroll
     for (int i = 0; i < NIn; ++i) {
 #pragma unroll
       for (int r = 0; r < kTile; ++r) tile[i][r][l] = next[i][r];
     }
     __syncwarp();
-    if (t0 + kTile < T) {  // in flight during the steps below
+    if (t0 + kTile < t_end) {  // in flight during the steps below
 #pragma unroll
       for (int i = 0; i < NIn; ++i)
         load_tile(next[i], x[i], shared_channels, lanes, T, lane0,
-                  t0 + kTile);
+                  t0 + kTile, t_end);
     }
     for (int j = 0; j < n; ++j) {
+      float y;
       if constexpr (NIn == 1)
-        tile[0][l][j] = op.step(tile[0][l][j]);
+        y = op.step(tile[0][l][j]);
       else
-        tile[0][l][j] = op.step(tile[0][l][j], tile[1][l][j]);
+        y = op.step(tile[0][l][j], tile[1][l][j]);
+      if constexpr (kStore) tile[0][l][j] = y;
     }
     __syncwarp();
+    if constexpr (kStore) {
 #pragma unroll
-    for (int r = 0; r < kTile; ++r) {
-      const int ln = lane0 + r;
-      if (ln < lanes && l < n) out[(long long)ln * T + t0 + l] = tile[0][r][l];
+      for (int r = 0; r < kTile; ++r) {
+        const int ln = lane0 + r;
+        if (ln < lanes && l < n)
+          out[(long long)ln * T + t0 + l] = tile[0][r][l];
+      }
+      __syncwarp();
     }
-    __syncwarp();
   }
+}
+
+// The whole of T in one walk, from the op's initial state.
+template <int NIn, class Op>
+__device__ __forceinline__ void run_tiles_n(Op& op,
+                                            const float* const (&x)[NIn],
+                                            int shared_channels,
+                                            float* __restrict__ out,
+                                            int lanes, long long T,
+                                            int lane0) {
+  run_tiles_span<NIn, true>(op, x, shared_channels, out, lanes, T, lane0, 0,
+                            T);
 }
 
 template <class Op>
@@ -208,6 +294,135 @@ __device__ __forceinline__ void run_tiles(Op& op, const float* __restrict__ x,
                                           long long T, int lane0) {
   const float* const xs[1] = {x};
   run_tiles_n<1>(op, xs, shared_channels, out, lanes, T, lane0);
+}
+
+// ---------------------------------------------------------------- carries
+//
+// A carry table holds, for chunk k of nchunks and each of its rows, one
+// float per lane at table[(k * rows + row) * lanes + lane]. The carries run
+// serially over the chunks of each lane; a chunk's entry on exit is the
+// state the chunk starts from. The last chunk's own end value is never
+// needed, so the passes before a carry write rows for chunks 0 .. n-2 only.
+
+// The linear state s (R = Op::kStateRows rows) of an op whose step with
+// input 0 is s -> A s: s_0 = 0, s_{k+1} = Phi s_k + f_k with Phi = A^Lc and
+// f_k the chunk's end state from rest (rows row0 .. row0 + R - 1 of the
+// table on entry). A block is 32 lanes x R threads (thread i*32 + l: row i,
+// lane lane0 + l). Column i of Phi is the unit state e_i stepped Lc times
+// with input 0 by the op's own step(), so it rounds as the op does.
+template <class Op>
+__device__ __forceinline__ void linear_chunk_carry(
+    Op& op, float* __restrict__ table, int rows, int row0, int lanes,
+    int lane0, long long Lc, int nchunks) {
+  constexpr int R = Op::kStateRows;
+  static_assert(R <= 32, "at most 32 state rows");
+  __shared__ float phi[R][R][kTile + 1];
+  __shared__ float sv[R][kTile];
+  const int i = threadIdx.x / kTile;
+  const int l = threadIdx.x % kTile;
+  if (nchunks > 1) {
+    op.set_unit_state(i);
+    for (long long t = 0; t < Lc; ++t) op.step(0.0f);
+#pragma unroll
+    for (int r = 0; r < R; ++r) phi[r][i][l] = op.state(r);
+  }
+  __syncthreads();
+  float row[R];
+#pragma unroll
+  for (int j = 0; j < R; ++j) row[j] = nchunks > 1 ? phi[i][j][l] : 0.0f;
+  float s = 0.0f;
+  sv[i][l] = 0.0f;
+  __syncthreads();
+
+  const bool ok = lane0 + l < lanes;
+  const long long stride = (long long)rows * lanes;
+  float* p = table + (long long)(row0 + i) * lanes + lane0 + l;
+  constexpr int kBatch = 8;  // f_k loads in flight ahead of the chain
+  for (int k0 = 0; k0 < nchunks; k0 += kBatch) {
+    float f[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = k0 + u;
+      f[u] = (ok && k < nchunks - 1) ? p[k * stride] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = k0 + u;
+      if (k >= nchunks) break;
+      if (ok) p[k * stride] = s;
+      if (k == nchunks - 1) break;
+      float acc = 0.0f;
+#pragma unroll
+      for (int j = 0; j < R; ++j) acc = acc + row[j] * sv[j][l];
+      acc = acc + f[u];
+      __syncthreads();
+      sv[i][l] = s = acc;
+      __syncthreads();
+    }
+  }
+}
+
+// The release stage y1 over the chunks of one lane (thread l of the block,
+// lane lane0 + l): rows row0 .. row0 + 2 of chunk k < n-1 hold the chunk's
+// MinAffine (k, b, m) on entry; on exit row row0 holds y1 at the chunk's
+// start: y1_0 = 0, y1_{k+1} = min(m_k, k_k*y1_k + b_k).
+__device__ __forceinline__ void minaffine_chunk_carry(
+    float* __restrict__ table, int rows, int row0, int lanes, int lane0,
+    int nchunks) {
+  const int ln = lane0 + (int)threadIdx.x;
+  if (ln >= lanes) return;
+  const long long stride = (long long)rows * lanes;
+  float* p = table + (long long)row0 * lanes + ln;
+  float y = 0.0f;
+  constexpr int kBatch = 8;
+  for (int k0 = 0; k0 < nchunks; k0 += kBatch) {
+    float fk[kBatch], fb[kBatch], fm[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const bool in = k0 + u < nchunks - 1;
+      const float* q = p + (k0 + u) * stride;
+      fk[u] = in ? q[0] : 0.0f;
+      fb[u] = in ? q[lanes] : 0.0f;
+      fm[u] = in ? q[2 * lanes] : 0.0f;
+    }
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = k0 + u;
+      if (k >= nchunks) break;
+      p[k * stride] = y;
+      y = fminf(fm[u], fk[u] * y + fb[u]);
+    }
+  }
+}
+
+// The attack stage g = aa*g + (1-aa)*y1 over the chunks of one lane: row
+// row0 of chunk k < n-1 holds the chunk's end value from g = 0 on entry,
+// and g at the chunk's start on exit: g_0 = 0, g_{k+1} = aa^Lc*g_k + gz_k,
+// with aa^Lc formed by Lc products, the homogeneous part of the steps.
+__device__ __forceinline__ void onepole_chunk_carry(
+    float* __restrict__ table, int rows, int row0, int lanes, int lane0,
+    float aa, long long Lc, int nchunks) {
+  const int ln = lane0 + (int)threadIdx.x;
+  if (ln >= lanes) return;
+  float pw = 1.0f;
+  for (long long t = 0; t < Lc; ++t) pw = aa * pw;
+  const long long stride = (long long)rows * lanes;
+  float* p = table + (long long)row0 * lanes + ln;
+  float g = 0.0f;
+  constexpr int kBatch = 8;
+  for (int k0 = 0; k0 < nchunks; k0 += kBatch) {
+    float gz[kBatch];
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u)
+      gz[u] = k0 + u < nchunks - 1 ? p[(k0 + u) * stride] : 0.0f;
+#pragma unroll
+    for (int u = 0; u < kBatch; ++u) {
+      const int k = k0 + u;
+      if (k >= nchunks) break;
+      p[k * stride] = g;
+      g = pw * g + gz[u];
+    }
+  }
 }
 
 }  // namespace scancore

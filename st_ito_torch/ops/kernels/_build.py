@@ -28,9 +28,10 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# name -> (source, extra nvcc flags). All build with -fmad=false. For K1,
-# K6, K7, K8, K11 and K9/K2 the arithmetic is then the plain PyTorch
-# version's op for op (which never contracts a*b + c into one rounding); with
+# name -> (source, extra nvcc flags). All build with -fmad=false. For K6,
+# K7, K8, K11 and K9/K2 the arithmetic is then the plain PyTorch version's
+# op for op (which never contracts a*b + c into one rounding), and so is
+# each step of K1's chunked scan, whose first chunk matches bitwise; with
 # nvcc's default contraction K1 drifted past its 1e-4 tolerance (PERF.md).
 # The FFT kernels cannot match cuFFT bitwise either way; they take the flag
 # so that K3's epilogue is K2's arithmetic exactly (both include

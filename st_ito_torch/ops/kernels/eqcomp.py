@@ -1,8 +1,9 @@
 """K1: the fused EQ -> compressor (-> distortion) scan.
 
 Port of ``st_ito_tpu/ops/pallas/scan.py:279 eq_compressor_fused_pallas``.
-The CUDA kernel is ``st_ito_torch/csrc/eqcomp.cu``; beside it here is its
-plain PyTorch version, a Python loop over T on (lanes,) tensors. The wrapper
+The CUDA kernel is ``st_ito_torch/csrc/eqcomp.cu``, a chunked scan over T
+(``chunk_len`` picks the chunk); beside it here is its plain PyTorch
+version, a Python loop over T on (lanes,) tensors. The wrapper
 ``eq_compressor_fused`` runs the plain version for a CPU tensor and the
 kernel for any other: on a CUDA tensor it launches the kernel or raises.
 """
@@ -26,6 +27,27 @@ _LN10_OVER_20 = math.log(10.0) / 20.0
 _N_TAIL = 11
 # the section count the kernel is instantiated for (the basic parametric EQ)
 KERNEL_SECTIONS = 6
+# The kernel's chunks: enough (32-lane block, chunk) warps to fill the card
+# (132 SMs x 62), chunks of at least _MIN_CHUNK samples, and a carry table
+# (2S + 4 floats per lane and chunk) of at most _TABLE_CAP bytes, past which
+# the chunks grow instead of the table.
+_TARGET_WARPS = 8192
+_MIN_CHUNK = 256
+_TABLE_CAP = 64 << 20
+
+
+def _table_rows(num_sections: int) -> int:
+    return 2 * num_sections + 4
+
+
+def chunk_len(lanes: int, T: int, num_sections: int = KERNEL_SECTIONS) -> int:
+    """The kernel's chunk length for (lanes, T): a multiple of the 32-sample
+    tile; 1024 at the headline's 1024 lanes x 262144 (256 chunks)."""
+    want = -(-_TARGET_WARPS // -(-lanes // 32))
+    L = max(_MIN_CHUNK, -(-(-(-T // want)) // 32) * 32)
+    while lanes * -(-T // L) * _table_rows(num_sections) * 4 > _TABLE_CAP:
+        L *= 2
+    return L
 
 
 def eqcomp_inputs(x, b, a, threshold_db, ratio, knee_db, alpha_attack,
@@ -93,11 +115,13 @@ def eqcomp_inputs(x, b, a, threshold_db, ratio, knee_db, alpha_attack,
 
 
 def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
-                 shared_channels: int) -> torch.Tensor:
-    """Plain PyTorch version of the kernel: the same operations in the same
-    order, one time step at a time over all lanes. Returns (lanes, T)."""
+                 shared_channels: int, dtype=torch.float32) -> torch.Tensor:
+    """Plain PyTorch version of the kernel: its step, one time step at a
+    time over all lanes. Returns (lanes, T) in ``dtype``: float32 (the
+    kernel's arithmetic) or float64 (a witness of its rounding)."""
     S = num_sections
     lanes = vec.shape[1]
+    x_in, vec = x_in.to(dtype), vec.to(dtype)
     if shared_channels:
         chan = torch.arange(lanes, device=x_in.device) % shared_channels
         x_in = x_in[chan]
@@ -107,7 +131,7 @@ def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
      dist_act) = vec[5 * S:5 * S + _N_TAIL]
 
     # EQ: serial biquad cascade, then the bypass blend
-    st = [[torch.zeros(lanes, dtype=torch.float32, device=x_in.device)
+    st = [[torch.zeros(lanes, dtype=dtype, device=x_in.device)
            for _ in range(2)] for _ in range(S)]
     cols = []
     for t in range(T):
@@ -132,7 +156,7 @@ def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
                                 slope[:, None] * over, knee_region))
 
     # decoupled ballistics, serial
-    y1 = torch.zeros(lanes, dtype=torch.float32, device=x_in.device)
+    y1 = torch.zeros(lanes, dtype=dtype, device=x_in.device)
     g = torch.zeros_like(y1)
     gs = []
     for t in range(T):
@@ -150,9 +174,44 @@ def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
     return y
 
 
+def gate_excess(got, want32, vec, num_sections: int, with_dist: bool,
+                want64=None) -> dict:
+    """How far the kernel's output ``got`` (lanes, T) lies past its two
+    accuracy rules; each value is <= 0 when the rule holds on every lane.
+
+    The kernel's chunk carries round differently from the serial chain of
+    the plain version, and tanh multiplies a rounding of y by up to
+    drive x output gain, so it is held (a) where a lane's distortion is
+    bypassed (or absent) to max_t |got - want32| <= 1e-4 x max(1,
+    max_t |want32|), and (b), with the float64 plain run ``want64``, on
+    every lane to max_t |got - want64| <= 4 x max_t |want32 - want64| +
+    1e-5 x max(1, max_t |want64|). "a" is -inf where no lane is bypassed."""
+    got, want32 = got.to(torch.float64), want32.to(torch.float64)
+    peak32 = torch.clamp_min(want32.abs().amax(1), 1.0)
+    err32 = (got - want32).abs().amax(1)
+    bypassed = (vec[5 * num_sections + 10] == 0) if with_dist else \
+        torch.ones(vec.shape[1], dtype=torch.bool, device=vec.device)
+    out = {"a": float((err32 - 1e-4 * peak32)[bypassed].max())
+           if bool(bypassed.any()) else -math.inf,
+           "max_err_bypassed": float(err32[bypassed].max())
+           if bool(bypassed.any()) else 0.0,
+           "max_err": float(err32.max())}
+    if want64 is not None:
+        want64 = want64.to(torch.float64)
+        e_plain = (want32 - want64).abs().amax(1)
+        e_got = (got - want64).abs().amax(1)
+        peak64 = torch.clamp_min(want64.abs().amax(1), 1.0)
+        out["b"] = float((e_got - 4.0 * e_plain - 1e-5 * peak64).max())
+        out["max_err64"] = float(e_got.max())
+        out["max_err64_plain"] = float(e_plain.max())
+    return out
+
+
 def eqcomp_cuda(x_in, vec, num_sections: int, with_dist: bool,
                 shared_channels: int) -> torch.Tensor:
-    """Launch the kernel on the current stream. Returns (lanes, T)."""
+    """Launch the kernel on the current stream, in chunks of
+    ``chunk_len(lanes, T)`` samples. Returns (lanes, T). Its seven launches
+    count as one."""
     global launches
     lib = _build.load("eqcomp")
     for t in (x_in, vec):
@@ -172,14 +231,18 @@ def eqcomp_cuda(x_in, vec, num_sections: int, with_dist: bool,
                          f"{5 * num_sections + _N_TAIL}")
     if shared_channels == 0 and x_in.shape[0] != lanes:
         raise ValueError(f"x has {x_in.shape[0]} lanes, vec {lanes}")
+    L = chunk_len(lanes, T, num_sections)
     out = torch.empty((lanes, T), dtype=torch.float32, device=x_in.device)
+    table = torch.empty((-(-T // L), _table_rows(num_sections), lanes),
+                        dtype=torch.float32, device=x_in.device)
     fn = lib.eqcomp_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x_in.data_ptr(), shared_channels, vec.data_ptr(), out.data_ptr(),
-             lanes, T, num_sections, int(with_dist),
+             table.data_ptr(), lanes, T, num_sections, int(with_dist), L,
              torch.cuda.current_stream(x_in.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"eqcomp kernel launch failed: CUDA error {err}")

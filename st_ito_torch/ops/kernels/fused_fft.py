@@ -9,7 +9,9 @@ zero pad and a multiple of n2; ``sign=-1`` forward, ``+1`` inverse
 taken and mean the same, and the reduced modes are not ported.
 
 The CUDA kernel is ``st_ito_torch/csrc/fused_fft.cu`` (a four-step FFT in
-two passes on the butterflies of ``csrc/fft_core.cuh``). Beside it stands
+two passes on the butterflies of ``csrc/fft_core.cuh``, one persistent
+launch through a scratch ring of ``scratch_slots()`` candidates that stays
+in L2). Beside it stands
 its plain PyTorch version ``fft_fused_plain`` (``torch.fft``), which the CPU
 tests use: the wrapper takes it only for a CPU tensor, and on any other
 launches the kernel or raises.
@@ -18,18 +20,42 @@ launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import math
 
 import torch
 
 from st_ito_torch.ops.kernels import _build
-from st_ito_torch.ops.kernels import mega_fft
-# the same n = n1*n2 split, size limit, twiddle table and scratch as K5, K3
-# and K4: the scratch of one (n, chunk, device) serves all four kernels
+# the same n = n1*n2 split, size limit, twiddle table and scratch cache as
+# K5, K3 and K4
 from st_ito_torch.ops.kernels.mega_fft import _MAX_N, _radix, _scratch, \
     _twiddles
 
 # Kernel launches since the last reset (chip_smoke.py reads it).
 launches = 0
+
+_ROOTS: dict = {}
+
+
+def _roots(n: int, dev) -> torch.Tensor:
+    """The n-th roots the kernel's twiddle W_n^(k1*j2) is made of, as
+    (n2 + n1, 2) float32 computed in float64: W_n^(h*n1) for h < n2, then
+    W_n^l for l < n1 (k1*j2 = h*n1 + l); built once per (n, device)."""
+    key = (n, dev)
+    if key not in _ROOTS:
+        n1, n2 = _radix(n)
+        e = torch.cat([torch.arange(n2, dtype=torch.float64) * n1,
+                       torch.arange(n1, dtype=torch.float64)])
+        ang = (-2.0 * math.pi / n) * e
+        _ROOTS[key] = torch.stack([torch.cos(ang), torch.sin(ang)], -1).to(
+            device=dev, dtype=torch.float32).contiguous()
+    return _ROOTS[key]
+
+
+def scratch_slots() -> int:
+    """The candidates the kernel's scratch ring holds (builds the kernel)."""
+    fn = _build.load("fused_fft").fft_fused_scratch_slots
+    fn.restype = ctypes.c_int
+    return fn()
 
 
 def supported(n: int, in_len: int) -> bool:
@@ -105,18 +131,20 @@ def fft_fused_cuda(zr: torch.Tensor, zi: torch.Tensor, sign: int = -1,
         raise ValueError(f"fft_fused rows overlap: row stride {in_stride} < "
                          f"in_len {in_len}")
     n1, n2 = _radix(n)
-    chunk = min(mega_fft.CHUNK, B)
     yr = torch.empty((B, out_len), dtype=torch.float32, device=dev)
     yi = torch.empty_like(yr)
+    counters = torch.empty(1 + 2 * B, dtype=torch.int32, device=dev)
     fn = lib.fft_fused_launch
     fn.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong]
-                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+                   + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     err = fn(zr.data_ptr(), zi.data_ptr(), in_stride,
-             yr.data_ptr(), yi.data_ptr(), _scratch(n, chunk, dev).data_ptr(),
-             _twiddles(n1, dev).data_ptr(), B, in_len, n1, n2, out_len, chunk,
-             sign, torch.cuda.current_stream(dev).cuda_stream)
+             yr.data_ptr(), yi.data_ptr(),
+             _scratch(n, scratch_slots(), dev).data_ptr(),
+             _twiddles(n1, dev).data_ptr(), _roots(n, dev).data_ptr(),
+             counters.data_ptr(), B, in_len, n1, n2, out_len, sign,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fft_fused_launch failed: CUDA error {err}")
     launches += 1

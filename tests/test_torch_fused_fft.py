@@ -77,6 +77,23 @@ def test_unsupported_shapes_and_precisions_raise():
                             precision="default")
 
 
+@pytest.mark.parametrize("n", [N, 2 ** 15, 2 ** 19])
+def test_root_tables_form_every_twiddle(n):
+    """The kernel's twiddle between its passes, W_n^(k1*j2) for k1 < n1 and
+    j2 < n2, as the product of its two root tables W_n^(h*n1) x W_n^l
+    (k1*j2 = h*n1 + l), in float32 as the kernel forms it, against the
+    exact root: within 3e-7 (a few float32 roundings)."""
+    n1, n2 = mega_fft._radix(n)
+    roots = fused_fft._roots(n, "cpu")
+    k1 = torch.arange(n1)[:, None]
+    j2 = torch.arange(0, n2, max(1, n2 // 64))[None, :]
+    e = k1 * j2
+    a = torch.complex(*roots[e >> (n1.bit_length() - 1)].unbind(-1))
+    b = torch.complex(*roots[n2 + (e & (n1 - 1))].unbind(-1))
+    exact = torch.exp(-2j * np.pi * e.to(torch.float64) / n)
+    assert float((a * b - exact).abs().max()) <= 3e-7
+
+
 def test_launch_count_is_zero_on_cpu():
     z = torch.zeros(1, N)
     before = fused_fft.launches
@@ -95,14 +112,13 @@ def cuda_device():
 @pytest.mark.parametrize("n,in_len,sign,out_len", [
     (N, N // 2, -1, None), (2 ** 15, 2 ** 15, 1, 1000),
     (2 ** 15, 3 * 128, -1, 2 ** 14)])
-def test_kernel_matches_plain_on_card(monkeypatch, cuda_device, n, in_len,
-                                      sign, out_len):
-    # B 5 with the scratch cut to 2 candidates: a ragged last chunk
-    z = _cplx((5, in_len), 3)
+def test_kernel_matches_plain_on_card(cuda_device, n, in_len, sign,
+                                      out_len):
+    # B 11 candidates through the kernel's scratch ring of 9: slots reused
+    z = _cplx((11, in_len), 3)
     zr, zi = torch.from_numpy(z.real.copy()), torch.from_numpy(z.imag.copy())
     want = fused_fft.fft_fused(zr, zi, sign=sign, n=n, out_len=out_len)
     before = fused_fft.launches
-    monkeypatch.setattr(mega_fft, "CHUNK", 2)
     got = fused_fft.fft_fused(zr.to(cuda_device), zi.to(cuda_device),
                               sign=sign, n=n, out_len=out_len)
     torch.cuda.synchronize()
