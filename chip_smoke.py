@@ -30,14 +30,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    (in_len 2^18 -> 2^19 bins) and inverse (2^19 -> out_len 2^18); each
    kernel's time, and cuFFT's for the same transforms;
 6. ``scan``: K6 (the lone biquad-cascade EQ), K7 (the whole unlinked
-   compressor), K8 (the lone compressor ballistics) and K11 (the linear
-   recurrence) against their plain versions: 74 lanes (B=37, stereo),
-   T=20011, K6 with mixed bypass on a shared and a per-candidate input, K7
-   with and without its bypass row; then each at its headline shape in
-   full: K6 at the CLI's 1024 lanes x 262144 on the shared input, K7 at the
-   compressor-led chain's 1024 lanes x 262144 with and without the bypass
-   row, K8 at the style chain's 512 lanes x 262144, K11 at 1024 lanes x
-   262144; then each kernel's time there;
+   compressor) and K8 (the lone compressor ballistics), both chunked
+   scans, and K11 (the linear recurrence) against their plain versions:
+   74 lanes (B=37, stereo; K8 37 lanes), T=20011, K6 with mixed bypass on
+   a shared and a per-candidate input, K7 with and without its bypass row;
+   then each at its headline shape in full: K6 at the CLI's 1024 lanes x
+   262144 on the shared input, K7 at the compressor-led chain's 1024 lanes
+   x 262144 with and without the bypass row, K8 at the style chain's 512
+   lanes x 262144, K11 at 1024 lanes x 262144; K7 and K8 also against
+   float64 runs of their plain versions (at the headline made in a spawned
+   process beside the float32 ones); then each kernel's time there, and
+   ``ops/dynamics.py ballistics_parallel`` (several ops, a yardstick) at
+   K8's;
 7. ``main``: ``run_es`` with the basic chain, a random-weight Cnn14 at the
    deployed config, stereo T=262144 at 48 kHz, popsize 512, in each
    fft_mode ("mega2", which "auto" picks, then "mega", "mx" and "fused"):
@@ -59,6 +63,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 12. the ``kernels`` JSON line, then the card line and the result line.
    K11 is on no main path (in the JAX package only its tests call it): its
    launches there are 0.
+Each phase logs the card's SM and memory clocks, power draw and
+temperature (nvidia-smi) at its start and end.
 
 Tolerances: K1, a chunked scan whose carries round differently from the
 serial chain, (a) where a lane's distortion is bypassed within 1e-4 x
@@ -66,9 +72,12 @@ max(1, the lane's peak) of the float32 plain version (B 37 x T 20011 and
 128 lanes x T 65536; logged at the headline, where the float32 plain run
 itself lies farther than that from float64), and (b) on every lane of every
 set no farther from a float64 run of the plain version than 4x the float32
-one is, plus 1e-5 x max(1, peak); K6, K7, K8 and K11 atol 1e-4 (they are expected
-to match bitwise: the log says whether they do); every other kernel
-1e-4 x max|want|
+one is, plus 1e-5 x max(1, peak); K7 and K8, chunked scans too, by the
+same two rules on every lane of every set (``chunked.gate_excess``), with
+their first chunk bitwise; a lane may miss (a) only where the float32 plain
+run itself lies farther than 1e-4 x peak from float64, and the log counts
+such lanes; K6 and K11 atol 1e-4 (they are expected to match bitwise: the
+log says whether they do); every other kernel 1e-4 x max|want|
 per output array on the valid bins (K9 and K2 match bitwise; an FFT cannot
 match cuFFT bitwise); the groups atol 5e-5, rtol 1e-4 against the mx path
 on a peak-normalised input.
@@ -161,6 +170,51 @@ def once_ms(fn):
     return out, start.elapsed_time(end)
 
 
+def clocks(label, record):
+    """Log and record the card's SM and memory clocks, power draw and
+    temperature (nvidia-smi) at a phase's start or end."""
+    line = subprocess.run(
+        ["nvidia-smi",
+         "--query-gpu=clocks.sm,clocks.mem,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    log(f"clocks {label}: {line}")
+    record.setdefault("clocks", []).append([label, line])
+
+
+def await_saved(path, job, timeout=900):
+    """The tensor a spawned job saves at ``path`` (then deleted), once it
+    is there; raises when the job ends without it or the time runs out."""
+    t0 = time.perf_counter()
+    while not os.path.exists(path):
+        if not job.is_alive() and not os.path.exists(path):
+            raise RuntimeError(f"the float64 plain job exited "
+                               f"{job.exitcode} without writing {path}")
+        if time.perf_counter() - t0 > timeout:
+            raise RuntimeError(f"no {path} after {timeout} s")
+        time.sleep(0.5)
+    out = torch.load(path)
+    os.unlink(path)
+    return out
+
+
+def spawn(target, *args):
+    """A started process of its own (spawned) running target(*args)."""
+    import multiprocessing
+
+    job = multiprocessing.get_context("spawn").Process(target=target,
+                                                       args=args)
+    job.start()
+    return job
+
+
+def stop(job):
+    """End a spawned job (killed if it still runs) and reap it."""
+    if job.is_alive():
+        job.kill()
+    job.join()
+
+
 # ------------------------------------------------------------------ K1
 
 
@@ -208,7 +262,9 @@ def k1_plain64_job(path):
     from st_ito_torch.ops.kernels import eqcomp
 
     args = k1_inputs(POP, 2, T_HEAD, 2, True, torch.device("cuda"))
-    torch.save(eqcomp.eqcomp_plain(*args, dtype=torch.float64).cpu(), path)
+    torch.save(eqcomp.eqcomp_plain(*args, dtype=torch.float64).cpu(),
+               path + ".tmp")
+    os.replace(path + ".tmp", path)
 
 
 def k1_check(args, label, rule_a=True, want64=None):
@@ -232,7 +288,7 @@ def k1_check(args, label, rule_a=True, want64=None):
     ex = eqcomp.gate_excess(got, want, args[1], args[2], args[3],
                             want64=want64)
     log(f"K1 {label}: chunk {L}, {-(-T // L)} chunks; max |kernel - plain| "
-        f"{ex['max_err']!r} on all lanes, {ex['max_err_bypassed']!r} where "
+        f"{ex['max_err']!r} on all lanes, {ex['max_err_a']!r} where "
         f"the distortion is bypassed (rule a excess {ex['a']!r}"
         f"{'' if rule_a else ', not held'}); max |kernel - plain64| "
         f"{ex['max_err64']!r}, max |plain - plain64| "
@@ -261,37 +317,19 @@ def phase_k1(dev, rec):
     # lies up to 2.5e-4 x peak from the float64 one on lanes whose
     # distortion is bypassed (the EQ's low, high-gain sections), so no
     # float32 order of rounding other than its own can meet (a) there
-    import multiprocessing
-
     from st_ito_torch.ops.kernels import _build
 
     path = _build.BUILD_DIR.parent / "k1_plain64.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    job = multiprocessing.get_context("spawn").Process(
-        target=k1_plain64_job, args=(str(path),))
-    job.start()
-
-    def want64():
-        job.join(timeout=900)
-        if job.is_alive():
-            job.kill()
-            job.join()
-        if job.exitcode != 0:
-            raise RuntimeError(f"the float64 plain run exited {job.exitcode}")
-        out = torch.load(path)
-        path.unlink()
-        return out
-
+    job = spawn(k1_plain64_job, str(path))
     try:
         head = k1_inputs(POP, 2, T_HEAD, 2, True, dev)
         rec["ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
         e, rec["plain_ms"] = k1_check(
             head, f"headline B {POP}, T {T_HEAD}, shared=True",
-            rule_a=False, want64=want64)
+            rule_a=False, want64=lambda: await_saved(str(path), job))
     finally:
-        if job.is_alive():
-            job.kill()
-        job.join()
+        stop(job)
     rec["max_abs_err"] = max(err, e)
     lanes = POP * 2
     rec["chunk"] = eqcomp.chunk_len(lanes, T_HEAD)
@@ -618,7 +656,7 @@ def phase_fft(dev, recs):
     phase_k10(dev, recs["k10"])
 
 
-# ------------------------------------------------------------- K6, K8
+# ------------------------------------------------------- K6, K7, K8, K11
 
 
 def k6_inputs(B, C, T, seed, shared, dev):
@@ -696,7 +734,8 @@ def k11_inputs(lanes, T, seed, dev):
 
 
 def scan_check(name, kernel, plain, args, label):
-    """(max |kernel - plain|, plain ms) on one input set (atol 1e-4)."""
+    """(max |kernel - plain|, plain ms) on one input set (atol 1e-4; K6 and
+    K11 are expected to match bitwise, and the log says whether they do)."""
     got = kernel(*args)
     want, plain_ms = once_ms(lambda: plain(*args))
     e = float((got - want).abs().max())
@@ -707,9 +746,85 @@ def scan_check(name, kernel, plain, args, label):
     return e, plain_ms
 
 
-def phase_scan(dev, recs):
+def scan_heads(dev):
+    """The headline K8 and K7 input sets by name, each made from its seed
+    when called (the spawned float64 job makes them again)."""
+    return {"k8": lambda: k8_inputs(POP, T_HEAD, 44, dev),
+            "k7_active0": lambda: k7_inputs(POP, 2, T_HEAD, 47, False, dev),
+            "k7_active1": lambda: k7_inputs(POP, 2, T_HEAD, 48, True, dev)}
+
+
+def scan_plain64_job(folder):
+    """The float64 plain runs of the headline K8 and K7 sets, each saved
+    under ``folder`` as soon as it is made: run in a process of its own
+    (spawned), beside the float32 runs of the main one."""
     from st_ito_torch.ops.kernels import scan
 
+    for name, make in scan_heads(torch.device("cuda")).items():
+        plain = (scan.ballistics_plain if name == "k8"
+                 else scan.compressor_fused_plain)
+        out = plain(*make(), dtype=torch.float64).cpu()
+        tmp = os.path.join(folder, f"{name}.tmp")
+        torch.save(out, tmp)
+        os.replace(tmp, os.path.join(folder, f"{name}.pt"))
+        del out
+        torch.cuda.empty_cache()
+
+
+def detector_check(name, kernel, plain, args, label, want64=None):
+    """K7 or K8, chunked scans, against the plain version on one input set:
+    the first chunk bitwise, then the two rules of ``chunked.gate_excess``:
+    (b) on every lane; (a) on every lane, except that a lane may miss it
+    where the float32 plain run itself lies farther than 1e-4 x peak from
+    the float64 one (those lanes are counted in the log). ``want64``
+    returns the float64 run when it was made elsewhere. Returns
+    (max |kernel - plain float32|, the plain version's ms, the excess)."""
+    from st_ito_torch.ops.kernels import chunked, scan
+
+    lanes, T = args[0].shape
+    L = scan.detector_chunk_len(lanes, T)
+    got = kernel(*args)
+    want, plain_ms = once_ms(lambda: plain(*args))
+    want64 = (plain(*args, dtype=torch.float64) if want64 is None
+              else want64().to(got.device))
+    ex = chunked.gate_excess(got, want, want64=want64)
+    first = bool(torch.equal(got[:, :L], want[:, :L]))
+    log(f"{name} {label}: chunk {L}, {-(-T // L)} chunks; max |kernel - "
+        f"plain| {ex['max_err']!r} (rule a excess {ex['a']!r}; lanes "
+        f"missing it where the float32 plain run lies past 1e-4 x peak of "
+        f"float64: {ex['a_miss_plain_far']}, elsewhere: "
+        f"{ex['a_miss_plain_near']}); max |kernel - plain64| "
+        f"{ex['max_err64']!r}, max |plain - plain64| "
+        f"{ex['max_err64_plain']!r} (rule b excess {ex['b']!r}); first "
+        f"chunk bitwise {first} (plain {plain_ms!r} ms)")
+    if not math.isfinite(ex["max_err"]) or not first or not ex["b"] <= 0.0 \
+            or ex["a_miss_plain_near"] > 0:
+        raise AssertionError(f"{name} misses its rules at {label}: {ex}")
+    return ex["max_err"], plain_ms, ex
+
+
+def phase_scan(dev, recs):
+    from st_ito_torch.ops.kernels import _build
+
+    # the headline float64 witnesses of K8 and K7 run beside all of
+    # scan_checks, in a process of their own
+    folder = _build.BUILD_DIR.parent / "scan_plain64"
+    folder.mkdir(parents=True, exist_ok=True)
+    job = spawn(scan_plain64_job, str(folder))
+    try:
+        scan_checks(dev, recs, lambda name: lambda: await_saved(
+            str(folder / f"{name}.pt"), job))
+    finally:
+        stop(job)
+
+
+def scan_checks(dev, recs, want64):
+    """The scan phase's checks and times; want64(name) returns a function
+    that returns the float64 plain run of the headline set ``name``."""
+    from st_ito_torch.ops import dynamics
+    from st_ito_torch.ops.kernels import scan
+
+    heads = scan_heads(dev)
     k6, k8 = recs["k6"], recs["k8"]
     # 74 lanes: three 32-lane blocks, the last ragged; T 20011 is not a
     # multiple of the 32-sample tile
@@ -736,45 +851,65 @@ def phase_scan(dev, recs):
     del head
     torch.cuda.empty_cache()
 
-    e_small, _ = scan_check("K8", scan.ballistics_cuda, scan.ballistics_plain,
-                            k8_inputs(37, 20011, 43, dev), "lanes 37, T 20011")
-    head = k8_inputs(POP, T_HEAD, 44, dev)
-    e, k8["plain_ms"] = scan_check("K8", scan.ballistics_cuda,
-                                   scan.ballistics_plain, head,
-                                   f"headline lanes {POP}, T {T_HEAD}")
+    # K8: 37 lanes (two blocks, the last ragged) x T 20011 in 79 chunks of
+    # 256 (the last ragged), then the style chain's 512 lanes in full
+    e_small, _, _ = detector_check("K8", scan.ballistics_cuda,
+                                   scan.ballistics_plain,
+                                   k8_inputs(37, 20011, 43, dev),
+                                   "lanes 37, T 20011")
+    head = heads["k8"]()
     k8["plain_shape"] = f"headline lanes {POP}, T {T_HEAD}"
+    e, k8["plain_ms"], ex = detector_check(
+        "K8", scan.ballistics_cuda, scan.ballistics_plain, head,
+        k8["plain_shape"], want64("k8"))
     k8["max_abs_err"] = max(e_small, e)
+    k8["a_miss_plain_far"] = ex["a_miss_plain_far"]
+    k8["chunk"] = scan.detector_chunk_len(POP, T_HEAD)
     k8["ms"] = cuda_ms(lambda: scan.ballistics_cuda(*head), 3)
     k8["bytes"] = 4 * (2 * POP * T_HEAD + head[1].numel())
     k8["operations"] = K8_OPS_PER_SAMPLE * POP * T_HEAD
-    log(f"K8 headline (lanes {POP}, T {T_HEAD}): {k8['ms']!r} ms")
-    del head
+    log(f"K8 headline (lanes {POP}, T {T_HEAD}, chunk {k8['chunk']}): "
+        f"{k8['ms']!r} ms")
+    # a yardstick of several PyTorch ops, not a library call: the exact
+    # parallel form (two doubling scans of 18 steps)
+    c, aa, ar = head[0], head[1][0][:, None], head[1][1][:, None]
+    k8["ballistics_parallel_ms"] = cuda_ms(
+        lambda: dynamics.ballistics_parallel(c, aa, ar), 3)
+    log(f"ops/dynamics.py ballistics_parallel at K8's headline: "
+        f"{k8['ballistics_parallel_ms']!r} ms")
+    del head, c
     torch.cuda.empty_cache()
 
     # K7 with and without its bypass row, on 74 lanes and then on the
     # compressor-led chain's 1024 in full; timed with the row, as the
     # chain runs it
     k7 = recs["k7"]
-    errs = [scan_check("K7", scan.compressor_fused_cuda,
-                       scan.compressor_fused_plain,
-                       k7_inputs(37, 2, 20011, 45 + act, act, dev),
-                       f"{ragged}, active={act}")[0] for act in (True, False)]
+    errs = [detector_check("K7", scan.compressor_fused_cuda,
+                           scan.compressor_fused_plain,
+                           k7_inputs(37, 2, 20011, 45 + act, act, dev),
+                           f"{ragged}, active={act}")[0]
+            for act in (True, False)]
     k7["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}, active row"
+    k7["a_miss_plain_far"] = 0
     for act in (False, True):
-        head = k7_inputs(POP, 2, T_HEAD, 47 + act, act, dev)
-        e, k7["plain_ms"] = scan_check(
+        name = f"k7_active{int(act)}"
+        head = heads[name]()
+        e, k7["plain_ms"], ex = detector_check(
             "K7", scan.compressor_fused_cuda, scan.compressor_fused_plain,
-            head, f"headline lanes {lanes}, T {T_HEAD}, active={act}")
+            head, f"headline lanes {lanes}, T {T_HEAD}, active={act}",
+            want64(name))
         errs.append(e)
+        k7["a_miss_plain_far"] += ex["a_miss_plain_far"]
         if not act:
             del head
             torch.cuda.empty_cache()
     k7["max_abs_err"] = max(errs)
+    k7["chunk"] = scan.detector_chunk_len(lanes, T_HEAD)
     k7["ms"] = cuda_ms(lambda: scan.compressor_fused_cuda(*head), 3)
     k7["bytes"] = 4 * (2 * lanes * T_HEAD + head[1].numel())
     k7["operations"] = K7_OPS_PER_SAMPLE * lanes * T_HEAD
-    log(f"K7 headline (lanes {lanes}, T {T_HEAD}, active row): "
-        f"{k7['ms']!r} ms")
+    log(f"K7 headline (lanes {lanes}, T {T_HEAD}, active row, chunk "
+        f"{k7['chunk']}): {k7['ms']!r} ms")
     del head
     torch.cuda.empty_cache()
 
@@ -1070,14 +1205,22 @@ def main() -> int:
 
     recs = {name: {} for name in ("k1", "k9", "k5", "k2", "k3", "k4", "k6",
                                   "k7", "k8", "k10", "k11", "groups")}
+
+    def run(label, fn, *a):
+        """fn(*a) with the card's clocks and power logged around it."""
+        clocks(f"{label} start", record)
+        out = fn(*a)
+        clocks(f"{label} end", record)
+        return out
+
     if "k1" in phases:
-        phase_k1(dev, recs["k1"])
+        run("k1", phase_k1, dev, recs["k1"])
     if "k9" in phases:
-        phase_k9(dev, recs["k9"])
+        run("k9", phase_k9, dev, recs["k9"])
     if "fft" in phases:
-        phase_fft(dev, recs)
+        run("fft", phase_fft, dev, recs)
     if "scan" in phases:
-        phase_scan(dev, recs)
+        run("scan", phase_scan, dev, recs)
 
     model = main_rec = None
     # K11 is on no main path: no run of one launches it
@@ -1087,7 +1230,8 @@ def main() -> int:
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
         for mode in MODE_KERNELS:
-            counts = phase_main(dev, model, main_rec[mode], mode)
+            counts = run(f"main {mode}", phase_main, dev, model,
+                         main_rec[mode], mode)
             # a kernel's count comes from the run of a mode that launches
             # it, the default mode's first
             for name in MODE_KERNELS[mode]:
@@ -1098,14 +1242,15 @@ def main() -> int:
                 f"{r['ms_per_generation'] / base!r} of mx")
     style_rec, comp_rec, cli_rec = {}, {}, {}
     if "style" in phases:
-        launches["k8"] = phase_style(dev, model, style_rec)["k8"]
+        launches["k8"] = run("style", phase_style, dev, model,
+                             style_rec)["k8"]
     if "comp" in phases:
-        launches["k7"] = phase_comp(dev, model, comp_rec)["k7"]
+        launches["k7"] = run("comp", phase_comp, dev, model, comp_rec)["k7"]
     if "cli" in phases:
-        launches["k6"] = phase_cli(dev, cli_rec)["k6"]
+        launches["k6"] = run("cli", phase_cli, dev, cli_rec)["k6"]
     dtype_rec = {}
     if "dtype" in phases:
-        phase_dtype(dev, model, dtype_rec)
+        run("dtype", phase_dtype, dev, model, dtype_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
                   cli=cli_rec, dtype=dtype_rec)
@@ -1152,9 +1297,11 @@ def main() -> int:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
             "library_ms": rec.get("library_ms")})
         # extra keys: the plain version's shape where it is not the
-        # headline's, and K10's two calls (the entry is their mean)
-        for extra in ("plain_shape", "ms_fwd", "ms_inv", "plain_ms_fwd",
-                      "plain_ms_inv", "library_ms_fwd", "library_ms_inv"):
+        # headline's, a chunked scan's chunk length, and K10's two calls
+        # (the entry is their mean)
+        for extra in ("plain_shape", "chunk", "ms_fwd", "ms_inv",
+                      "plain_ms_fwd", "plain_ms_inv", "library_ms_fwd",
+                      "library_ms_inv"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
     record["kernels"] = kernels

@@ -1,6 +1,6 @@
 // K6, K7, K8 and K11 on Hopper: the lone biquad-cascade EQ, the whole
 // unlinked compressor, the lone compressor ballistics and the linear
-// recurrence, serial first-order recurrences along time.
+// recurrence, first-order recurrences along time.
 //
 // K6 replaces st_ito_tpu/ops/pallas/scan.py:133 biquad_cascade_pallas
 // (kernel _make_biquad_cascade_kernel, scan.py:84): S TDF-II sections in
@@ -16,8 +16,8 @@
 // The recurrences and the tile loop are scan_core.cuh's, which K1
 // (eqcomp.cu) runs too; K7's compressor is K1's after its cascade. The plain
 // PyTorch versions (st_ito_torch/ops/kernels/scan.py) do the same
-// operations in the same order; built with -fmad=false the kernels match
-// them bitwise.
+// operations in the same order; built with -fmad=false, K6 and K11 match
+// them bitwise, and so does the first chunk of K7 and K8.
 //
 // Bound: bytes. K6 at the CLI's headline (1024 lanes x 262144 samples)
 // writes 1.07 GB and reads the 2 MB shared input (0.32 ms at the H100 SXM's
@@ -25,13 +25,16 @@
 // per sample take 0.23 ms at 67 TFLOP/s. K7 at the compressor-led chain's
 // 1024 lanes x 262144 reads and writes 1.07 GB each (0.64 ms). K8 at the
 // style chain's 512 lanes reads 0.54 GB and writes 0.54 GB (0.32 ms). K11
-// at 1024 lanes reads two sequences and writes one, 3.22 GB (0.96 ms). Like
-// K1, all four are latency-bound instead: one thread carries one lane over
-// all of T with its state in registers, so the headline has 1024 or 512
-// threads in flight. K1 (eqcomp.cu) now runs as a chunked scan on
-// scan_core.cuh's span walk and chunk carries; the same form for these four
-// (the cascade and the recurrence are linear, the ballistics min-affine)
-// is queued in ROADMAP.md.
+// at 1024 lanes reads two sequences and writes one, 3.22 GB (0.96 ms).
+// K6 and K11 are latency-bound instead: one thread carries one lane over
+// all of T with its state in registers, so the headline has 1024 threads
+// in flight. K7 and K8 run as chunked scans (scan_core.cuh
+// run_chunked_detector: three passes over chunks of Lc samples, each
+// (32-lane block, chunk) pair a warp, and two serial carries per lane), so
+// that 256 or 512 chunks fill the card; they read their input three times
+// and write once, and their carries round differently from the serial
+// chain after the first chunk. The carry table is the caller's: 4 floats
+// per chunk and lane.
 //
 // C entry points, each returning cudaGetLastError():
 //   biquad_cascade_launch(...), compressor_fused_launch(...),
@@ -57,44 +60,45 @@ __global__ void __launch_bounds__(kTile) biquad_cascade_kernel(
   scancore::run_tiles(op, x, shared_channels, out, lanes, T, lane0);
 }
 
-// vec rows, each (lanes,): aa, ar.
-__global__ void __launch_bounds__(kTile) ballistics_kernel(
-    const float* __restrict__ c, const float* __restrict__ vec,
-    float* __restrict__ out, int lanes, long long T) {
-  const int lane0 = blockIdx.x * kTile;
-  const int li = scancore::lane_index(lanes, lane0);
-  scancore::Ballistics op(vec[li], vec[lanes + li]);
-  scancore::run_tiles(op, c, 0, out, lanes, T, lane0);
-}
+// K8's detector policy (scan_core.cuh run_chunked_detector): vec rows,
+// each (lanes,): aa, ar; the input is c itself and the output g.
+struct BallisticsDetector {
+  float aa, ar;
 
-// vec rows, each (lanes,): th, slope, knee, aa, ar, mk, then act when
-// with_active.
-struct CompressorFused {
+  __device__ __forceinline__ BallisticsDetector(const float* __restrict__ vec,
+                                                long long L, int li, int)
+      : aa(vec[li]), ar(vec[L + li]) {}
+
+  __device__ __forceinline__ float front(float c) const { return c; }
+  __device__ __forceinline__ float tail(float, float g) const { return g; }
+};
+
+// K7's: vec rows, each (lanes,): th, slope, knee, aa, ar, mk, then act when
+// flags (with_active); the front is the gain computer, the tail the gain
+// and the bypass blend, in Compressor::step's order.
+struct CompressorDetector {
   scancore::Compressor comp;
-  float act;
+  float aa, ar, act;
   int with_active;
 
-  __device__ __forceinline__ CompressorFused(const float* __restrict__ vec,
-                                             long long L, int li,
-                                             int with_active_)
+  __device__ __forceinline__ CompressorDetector(const float* __restrict__ vec,
+                                                long long L, int li,
+                                                int with_active_)
       : comp(vec, L, li, 0),
+        aa(comp.det.aa),
+        ar(comp.det.ar),
         act(with_active_ ? vec[6 * L + li] : 1.0f),
         with_active(with_active_) {}
 
-  __device__ __forceinline__ float step(float xin) {
-    const float y = comp.step(xin);
-    return with_active ? act * y + (1.0f - act) * xin : y;
+  __device__ __forceinline__ float front(float x) const {
+    return comp.computer(x);
+  }
+
+  __device__ __forceinline__ float tail(float x, float g) const {
+    const float y = x * expf(g * scancore::kLn10Over20) * comp.mk;
+    return with_active ? act * y + (1.0f - act) * x : y;
   }
 };
-
-__global__ void __launch_bounds__(kTile) compressor_fused_kernel(
-    const float* __restrict__ x, const float* __restrict__ vec,
-    float* __restrict__ out, int lanes, long long T, int with_active) {
-  const int lane0 = blockIdx.x * kTile;
-  CompressorFused op(vec, lanes, scancore::lane_index(lanes, lane0),
-                     with_active);
-  scancore::run_tiles(op, x, 0, out, lanes, T, lane0);
-}
 
 __global__ void __launch_bounds__(kTile) linear_recurrence_kernel(
     const float* __restrict__ a, const float* __restrict__ b,
@@ -121,23 +125,30 @@ extern "C" int biquad_cascade_launch(const float* x, int shared_channels,
   return static_cast<int>(cudaGetLastError());
 }
 
+// K8 and K7 take a carry table of ceil(T / chunk_len) * 4 * lanes floats;
+// chunk_len a positive multiple of 32. stage < 0 runs the whole scan, and
+// 0 to 4 only that stage of it (a tool times them apart).
 extern "C" int ballistics_launch(const float* c, const float* vec, float* out,
-                                 int lanes, long long T, void* stream) {
-  if (lanes <= 0 || T <= 0) return cudaErrorInvalidValue;
-  ballistics_kernel<<<scancore::blocks_for(lanes), kTile, 0,
-                      static_cast<cudaStream_t>(stream)>>>(c, vec, out, lanes,
-                                                           T);
-  return static_cast<int>(cudaGetLastError());
+                                 float* table, int lanes, long long T,
+                                 long long chunk_len, int stage,
+                                 void* stream) {
+  if (!scancore::chunked_detector_args_ok(lanes, T, chunk_len))
+    return cudaErrorInvalidValue;
+  return scancore::run_chunked_detector<BallisticsDetector>(
+      c, vec, out, table, lanes, T, chunk_len, 0, stage,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int compressor_fused_launch(const float* x, const float* vec,
-                                       float* out, int lanes, long long T,
-                                       int with_active, void* stream) {
-  if (lanes <= 0 || T <= 0) return cudaErrorInvalidValue;
-  compressor_fused_kernel<<<scancore::blocks_for(lanes), kTile, 0,
-                            static_cast<cudaStream_t>(stream)>>>(
-      x, vec, out, lanes, T, with_active);
-  return static_cast<int>(cudaGetLastError());
+                                       float* out, float* table, int lanes,
+                                       long long T, int with_active,
+                                       long long chunk_len, int stage,
+                                       void* stream) {
+  if (!scancore::chunked_detector_args_ok(lanes, T, chunk_len))
+    return cudaErrorInvalidValue;
+  return scancore::run_chunked_detector<CompressorDetector>(
+      x, vec, out, table, lanes, T, chunk_len, with_active, stage,
+      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" int linear_recurrence_launch(const float* a, const float* b,

@@ -16,13 +16,15 @@
 // input sample (or, with two input sequences, one pair) to one output
 // sample with step().
 //
-// The chunked scan (K1, eqcomp.cu) splits T into chunks of Lc samples, each
-// walked by its own warp with run_tiles_span from a given state, and passes
-// the state between chunks with three small serial carries per lane:
-// linear_chunk_carry (a linear state, e.g. the cascade's 2S values, through
-// Phi = A^Lc), minaffine_chunk_carry (the release stage of the ballistics,
-// through the chunk's composed min-affine map, MinAffine) and
-// onepole_chunk_carry (the attack stage, through aa^Lc).
+// The chunked scans (K1, eqcomp.cu; K7 and K8, scan.cu) split T into chunks
+// of Lc samples, each walked by its own warp with run_tiles_span from a
+// given state, and pass the state between chunks with small serial carries
+// per lane: linear_chunk_carry (a linear state, e.g. the cascade's 2S
+// values, through Phi = A^Lc), minaffine_chunk_carry (the release stage of
+// the ballistics, through the chunk's composed min-affine map, MinAffine)
+// and onepole_chunk_carry (the attack stage, through aa^Lc). K7 and K8 run
+// the detector's passes and carries as written once at the end of this
+// file (run_chunked_detector); K1 keeps its own, with its cascade.
 
 #pragma once
 
@@ -296,6 +298,23 @@ __device__ __forceinline__ void run_tiles(Op& op, const float* __restrict__ x,
   run_tiles_n<1>(op, xs, shared_channels, out, lanes, T, lane0);
 }
 
+// x^n rounded once to float: the product formed in double by squaring
+// (relative error about 2 log2(n) x 2^-53 before the rounding). Formed by
+// n float products instead, as MinAffine::then forms k = ar^Lc and
+// onepole_chunk_carry aa^Lc, the power drifts by up to n/2 ulp, which at
+// release or attack times of seconds (ar, aa > 0.99999 at 48 kHz) moved
+// the chunks' starting state farther from the float64 chain than the
+// float32 serial chain lies (the CPU model of the passes, PERF.md). The
+// chunked detector takes both powers from here.
+__device__ __forceinline__ float pow_n(float x, long long n) {
+  double r = 1.0, b = x;
+  for (; n > 0; n >>= 1) {
+    if (n & 1) r *= b;
+    b *= b;
+  }
+  return (float)r;
+}
+
 // ---------------------------------------------------------------- carries
 //
 // A carry table holds, for chunk k of nchunks and each of its rows, one
@@ -397,15 +416,13 @@ __device__ __forceinline__ void minaffine_chunk_carry(
 
 // The attack stage g = aa*g + (1-aa)*y1 over the chunks of one lane: row
 // row0 of chunk k < n-1 holds the chunk's end value from g = 0 on entry,
-// and g at the chunk's start on exit: g_0 = 0, g_{k+1} = aa^Lc*g_k + gz_k,
-// with aa^Lc formed by Lc products, the homogeneous part of the steps.
-__device__ __forceinline__ void onepole_chunk_carry(
+// and g at the chunk's start on exit: g_0 = 0, g_{k+1} = pw*g_k + gz_k,
+// with pw = aa^Lc, the homogeneous part of the steps.
+__device__ __forceinline__ void onepole_chunk_carry_pw(
     float* __restrict__ table, int rows, int row0, int lanes, int lane0,
-    float aa, long long Lc, int nchunks) {
+    float pw, int nchunks) {
   const int ln = lane0 + (int)threadIdx.x;
   if (ln >= lanes) return;
-  float pw = 1.0f;
-  for (long long t = 0; t < Lc; ++t) pw = aa * pw;
   const long long stride = (long long)rows * lanes;
   float* p = table + (long long)row0 * lanes + ln;
   float g = 0.0f;
@@ -423,6 +440,200 @@ __device__ __forceinline__ void onepole_chunk_carry(
       g = pw * g + gz[u];
     }
   }
+}
+
+// The same with aa^Lc formed by Lc float products (K1).
+__device__ __forceinline__ void onepole_chunk_carry(
+    float* __restrict__ table, int rows, int row0, int lanes, int lane0,
+    float aa, long long Lc, int nchunks) {
+  if (lane0 + (int)threadIdx.x >= lanes) return;
+  float pw = 1.0f;
+  for (long long t = 0; t < Lc; ++t) pw = aa * pw;
+  onepole_chunk_carry_pw(table, rows, row0, lanes, lane0, pw, nchunks);
+}
+
+// ------------------------------------------------- the chunked detector
+//
+// The decoupled detector between a front and a tail, as a chunked scan in
+// the shape of K1's passes B-D without a cascade (K7 and K8). A policy D
+// holds one lane's coefficients: D(vec, lanes, li, flags) reads lane li's
+// column of vec; its members aa and ar are the detector's, front(x) is the
+// gain computer's c (dB) for the input sample x, and tail(x, g) the output
+// for x and the detector's g. Every (32-lane block, chunk k) pair is a warp
+// of its own (grid (chunks, lane blocks)). The five stages, in order:
+//   B. chunk k < n-1 from rest: the release steps composed into one
+//      MinAffine (k, b, m), k = ar^Lc formed in double (pow_n);
+//   1. y1 at each chunk's start (minaffine_chunk_carry);
+//   C. chunk k < n-1 from y1_k and g = 0: its end value gz_k;
+//   2. g at each chunk's start, g_{k+1} = aa^Lc g_k + gz_k, aa^Lc formed
+//      in double (onepole_chunk_carry_pw);
+//   D. every chunk from (y1_k, g_k) with the whole step, the only pass
+//      that writes.
+// Each pass reads the input once (three reads and one write in all); the
+// carries run one thread a lane, serially over the chunks.
+// Chunk 0 starts from (0, 0), as the serial chain does, and matches it
+// bitwise; the others are exact in real arithmetic and round otherwise.
+
+// The carry table: kRows floats per chunk and lane, at
+// table[(k * kRows + row) * lanes + lane].
+struct DetectorTable {
+  static constexpr int kY1 = 0;  // MinAffine k, then y1 at the start
+  static constexpr int kG = 3;   // gz_k, then g at the start
+  static constexpr int kRows = 4;
+
+  __device__ static long long at(int k, int row, int lanes, int lane) {
+    return ((long long)k * kRows + row) * lanes + lane;
+  }
+};
+
+// The block's 32 lanes (blockIdx.y) and chunk (blockIdx.x).
+struct ChunkSpan {
+  int lane0, li, k;
+  long long t0, t1;
+
+  __device__ __forceinline__ ChunkSpan(int lanes, long long T, long long Lc)
+      : lane0(blockIdx.y * kTile),
+        li(lane_index(lanes, blockIdx.y * kTile)),
+        k(blockIdx.x),
+        t0((long long)blockIdx.x * Lc),
+        t1(t0 + Lc < T ? t0 + Lc : T) {}
+
+  __device__ __forceinline__ bool stores(int lanes) const {
+    return lane0 + (int)threadIdx.x < lanes;
+  }
+
+  template <bool kStore, class Op>
+  __device__ __forceinline__ void walk(Op& op, const float* __restrict__ x,
+                                       float* __restrict__ out, int lanes,
+                                       long long T) const {
+    const float* const xs[1] = {x};
+    run_tiles_span<1, kStore>(op, xs, 0, out, lanes, T, lane0, t0, t1);
+  }
+};
+
+// pass B's step: the release steps composed over the chunk (its k is
+// replaced by pow_n(ar, Lc) after the walk)
+template <class D>
+struct ReleaseCompose {
+  D d;
+  MinAffine f;
+
+  __device__ __forceinline__ float step(float x) {
+    f.then(d.ar, d.front(x));
+    return 0.0f;
+  }
+};
+
+// pass C's step (D's tail false) and pass D's (true)
+template <class D, bool kTail>
+struct DetectorStep {
+  D d;
+  Ballistics det;
+
+  __device__ __forceinline__ DetectorStep(const D& d_)
+      : d(d_), det(d_.aa, d_.ar) {}
+
+  __device__ __forceinline__ float step(float x) {
+    const float g = det.step(d.front(x));
+    return kTail ? d.tail(x, g) : 0.0f;
+  }
+};
+
+template <class D>
+__global__ void __launch_bounds__(kTile) detector_release_pass(
+    const float* __restrict__ x, const float* __restrict__ vec,
+    float* __restrict__ table, int lanes, long long T, long long Lc,
+    int flags) {
+  const ChunkSpan sp(lanes, T, Lc);
+  ReleaseCompose<D> op{D(vec, lanes, sp.li, flags), {}};
+  sp.walk<false>(op, x, nullptr, lanes, T);
+  if (sp.stores(lanes)) {
+    float* p = table + DetectorTable::at(sp.k, DetectorTable::kY1, lanes,
+                                         sp.li);
+    p[0] = pow_n(op.d.ar, sp.t1 - sp.t0);
+    p[lanes] = op.f.b;
+    p[2 * lanes] = op.f.m;
+  }
+}
+
+template <class D>
+__global__ void __launch_bounds__(kTile) detector_release_carry(
+    float* __restrict__ table, int lanes, int nchunks) {
+  minaffine_chunk_carry(table, DetectorTable::kRows, DetectorTable::kY1,
+                        lanes, blockIdx.x * kTile, nchunks);
+}
+
+template <class D>
+__global__ void __launch_bounds__(kTile) detector_attack_pass(
+    const float* __restrict__ x, const float* __restrict__ vec,
+    float* __restrict__ table, int lanes, long long T, long long Lc,
+    int flags) {
+  const ChunkSpan sp(lanes, T, Lc);
+  DetectorStep<D, false> op(D(vec, lanes, sp.li, flags));
+  op.det.y1 = table[DetectorTable::at(sp.k, DetectorTable::kY1, lanes, sp.li)];
+  sp.walk<false>(op, x, nullptr, lanes, T);
+  if (sp.stores(lanes))
+    table[DetectorTable::at(sp.k, DetectorTable::kG, lanes, sp.li)] =
+        op.det.g;
+}
+
+template <class D>
+__global__ void __launch_bounds__(kTile) detector_attack_carry(
+    const float* __restrict__ vec, float* __restrict__ table, int lanes,
+    long long Lc, int nchunks, int flags) {
+  const int lane0 = blockIdx.x * kTile;
+  const D d(vec, lanes, lane_index(lanes, lane0), flags);
+  onepole_chunk_carry_pw(table, DetectorTable::kRows, DetectorTable::kG,
+                         lanes, lane0, pow_n(d.aa, Lc), nchunks);
+}
+
+template <class D>
+__global__ void __launch_bounds__(kTile) detector_out_pass(
+    const float* __restrict__ x, const float* __restrict__ vec,
+    const float* __restrict__ table, float* __restrict__ out, int lanes,
+    long long T, long long Lc, int flags) {
+  const ChunkSpan sp(lanes, T, Lc);
+  DetectorStep<D, true> op(D(vec, lanes, sp.li, flags));
+  op.det.y1 = table[DetectorTable::at(sp.k, DetectorTable::kY1, lanes, sp.li)];
+  op.det.g = table[DetectorTable::at(sp.k, DetectorTable::kG, lanes, sp.li)];
+  sp.walk<true>(op, x, out, lanes, T);
+}
+
+// Whether the launch arguments are ones the chunked detector takes: chunks
+// a positive multiple of the tile, both grid dimensions in range.
+inline bool chunked_detector_args_ok(int lanes, long long T, long long Lc) {
+  return lanes > 0 && T > 0 && Lc > 0 && Lc % kTile == 0 &&
+         blocks_for(lanes) <= 65535 && (T + Lc - 1) / Lc <= 0x7fffffffLL;
+}
+
+// Launch the five stages in order on the stream, or only stage `stage`
+// (0 B, 1 carry 1, 2 C, 3 carry 2, 4 D) when it is not negative, so that
+// a tool can time them apart. table: nchunks x kRows x
+// lanes floats. Returns cudaGetLastError().
+template <class D>
+int run_chunked_detector(const float* x, const float* vec, float* out,
+                         float* table, int lanes, long long T, long long Lc,
+                         int flags, int stage, cudaStream_t stream) {
+  const int nchunks = (int)((T + Lc - 1) / Lc);
+  const int lane_blocks = blocks_for(lanes);
+  const dim3 spans(nchunks - 1, lane_blocks);
+  const bool all = stage < 0;
+  if ((all || stage == 0) && nchunks > 1)
+    detector_release_pass<D><<<spans, kTile, 0, stream>>>(x, vec, table,
+                                                          lanes, T, Lc, flags);
+  if (all || stage == 1)
+    detector_release_carry<D><<<lane_blocks, kTile, 0, stream>>>(table, lanes,
+                                                                 nchunks);
+  if ((all || stage == 2) && nchunks > 1)
+    detector_attack_pass<D><<<spans, kTile, 0, stream>>>(x, vec, table, lanes,
+                                                         T, Lc, flags);
+  if (all || stage == 3)
+    detector_attack_carry<D><<<lane_blocks, kTile, 0, stream>>>(
+        vec, table, lanes, Lc, nchunks, flags);
+  if (all || stage == 4)
+    detector_out_pass<D><<<dim3(nchunks, lane_blocks), kTile, 0, stream>>>(
+        x, vec, table, out, lanes, T, Lc, flags);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace scancore

@@ -15,7 +15,7 @@ import math
 
 import torch
 
-from st_ito_torch.ops.kernels import _build
+from st_ito_torch.ops.kernels import _build, chunked
 
 # Kernel launches since the last reset (chip_smoke.py reads it).
 launches = 0
@@ -27,27 +27,19 @@ _LN10_OVER_20 = math.log(10.0) / 20.0
 _N_TAIL = 11
 # the section count the kernel is instantiated for (the basic parametric EQ)
 KERNEL_SECTIONS = 6
-# The kernel's chunks: enough (32-lane block, chunk) warps to fill the card
-# (132 SMs x 62), chunks of at least _MIN_CHUNK samples, and a carry table
-# (2S + 4 floats per lane and chunk) of at most _TABLE_CAP bytes, past which
-# the chunks grow instead of the table.
-_TARGET_WARPS = 8192
-_MIN_CHUNK = 256
-_TABLE_CAP = 64 << 20
 
 
-def _table_rows(num_sections: int) -> int:
+def table_rows(num_sections: int) -> int:
+    """The carry table's floats per chunk and lane: the cascade state, the
+    MinAffine (k, b, m) whose first row becomes y1, then g."""
     return 2 * num_sections + 4
 
 
 def chunk_len(lanes: int, T: int, num_sections: int = KERNEL_SECTIONS) -> int:
-    """The kernel's chunk length for (lanes, T): a multiple of the 32-sample
-    tile; 1024 at the headline's 1024 lanes x 262144 (256 chunks)."""
-    want = -(-_TARGET_WARPS // -(-lanes // 32))
-    L = max(_MIN_CHUNK, -(-(-(-T // want)) // 32) * 32)
-    while lanes * -(-T // L) * _table_rows(num_sections) * 4 > _TABLE_CAP:
-        L *= 2
-    return L
+    """The kernel's chunk length for (lanes, T) (``chunked.chunk_len``): a
+    multiple of the 32-sample tile; 1024 at the headline's 1024 lanes x
+    262144 (256 chunks)."""
+    return chunked.chunk_len(lanes, T, table_rows(num_sections))
 
 
 def eqcomp_inputs(x, b, a, threshold_db, ratio, knee_db, alpha_attack,
@@ -177,34 +169,18 @@ def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
 def gate_excess(got, want32, vec, num_sections: int, with_dist: bool,
                 want64=None) -> dict:
     """How far the kernel's output ``got`` (lanes, T) lies past its two
-    accuracy rules; each value is <= 0 when the rule holds on every lane.
+    accuracy rules (``chunked.gate_excess``); each value is <= 0 when the
+    rule holds on every lane.
 
     The kernel's chunk carries round differently from the serial chain of
     the plain version, and tanh multiplies a rounding of y by up to
-    drive x output gain, so it is held (a) where a lane's distortion is
-    bypassed (or absent) to max_t |got - want32| <= 1e-4 x max(1,
-    max_t |want32|), and (b), with the float64 plain run ``want64``, on
-    every lane to max_t |got - want64| <= 4 x max_t |want32 - want64| +
-    1e-5 x max(1, max_t |want64|). "a" is -inf where no lane is bypassed."""
-    got, want32 = got.to(torch.float64), want32.to(torch.float64)
-    peak32 = torch.clamp_min(want32.abs().amax(1), 1.0)
-    err32 = (got - want32).abs().amax(1)
-    bypassed = (vec[5 * num_sections + 10] == 0) if with_dist else \
-        torch.ones(vec.shape[1], dtype=torch.bool, device=vec.device)
-    out = {"a": float((err32 - 1e-4 * peak32)[bypassed].max())
-           if bool(bypassed.any()) else -math.inf,
-           "max_err_bypassed": float(err32[bypassed].max())
-           if bool(bypassed.any()) else 0.0,
-           "max_err": float(err32.max())}
-    if want64 is not None:
-        want64 = want64.to(torch.float64)
-        e_plain = (want32 - want64).abs().amax(1)
-        e_got = (got - want64).abs().amax(1)
-        peak64 = torch.clamp_min(want64.abs().amax(1), 1.0)
-        out["b"] = float((e_got - 4.0 * e_plain - 1e-5 * peak64).max())
-        out["max_err64"] = float(e_got.max())
-        out["max_err64_plain"] = float(e_plain.max())
-    return out
+    drive x output gain, so rule (a), max_t |got - want32| <= 1e-4 x
+    max(1, max_t |want32|), is held only where a lane's distortion is
+    bypassed (or absent); rule (b), against the float64 plain run
+    ``want64``, on every lane. "a" is -inf where no lane is bypassed."""
+    bypassed = (vec[5 * num_sections + 10] == 0) if with_dist else None
+    return chunked.gate_excess(got, want32, want64=want64,
+                               rule_a_lanes=bypassed)
 
 
 def eqcomp_cuda(x_in, vec, num_sections: int, with_dist: bool,
@@ -233,7 +209,7 @@ def eqcomp_cuda(x_in, vec, num_sections: int, with_dist: bool,
         raise ValueError(f"x has {x_in.shape[0]} lanes, vec {lanes}")
     L = chunk_len(lanes, T, num_sections)
     out = torch.empty((lanes, T), dtype=torch.float32, device=x_in.device)
-    table = torch.empty((-(-T // L), _table_rows(num_sections), lanes),
+    table = torch.empty((-(-T // L), table_rows(num_sections), lanes),
                         dtype=torch.float32, device=x_in.device)
     fn = lib.eqcomp_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,

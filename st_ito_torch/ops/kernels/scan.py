@@ -7,7 +7,11 @@ Ports of ``st_ito_tpu/ops/pallas/scan.py:133 biquad_cascade_pallas``,
 ``st_ito_torch/csrc/scan.cu``; beside them here are their plain PyTorch
 versions, Python loops over T on (lanes,) tensors in the kernels' order of
 operations (K7's gain computer and gain, which carry no state, are taken
-over the whole (lanes, T) block around its loop). The wrappers
+over the whole (lanes, T) block around its loop). K7 and K8 run as chunked
+scans (``detector_chunk_len`` picks the chunk): their carries round
+differently from the serial chain, so they are held to their plain versions
+by the two rules of ``chunked.gate_excess``, with a float64 run of the
+plain version (``dtype=torch.float64``) as the witness. The wrappers
 ``biquad_cascade``, ``compressor_fused``, ``ballistics`` and
 ``linear_recurrence`` run the plain version for a CPU tensor and the kernel
 for any other: on a CUDA tensor they launch the kernel or raise.
@@ -20,7 +24,7 @@ import math
 
 import torch
 
-from st_ito_torch.ops.kernels import _build
+from st_ito_torch.ops.kernels import _build, chunked
 
 # Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
 launches = {"biquad_cascade": 0, "compressor_fused": 0, "ballistics": 0,
@@ -28,6 +32,9 @@ launches = {"biquad_cascade": 0, "compressor_fused": 0, "ballistics": 0,
 
 # the section count K6 is instantiated for (the basic parametric EQ)
 KERNEL_SECTIONS = 6
+# K7's and K8's carry table: the MinAffine (k, b, m) whose first row becomes
+# y1, then g, per chunk and lane (csrc/scan_core.cuh DetectorTable)
+DETECTOR_ROWS = 4
 
 _DB_PER_LOG = 20.0 / math.log(10.0)
 _LN10_OVER_20 = math.log(10.0) / 20.0
@@ -46,6 +53,20 @@ def _check_cuda(*tensors):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def detector_chunk_len(lanes: int, T: int) -> int:
+    """K7's and K8's chunk length for (lanes, T) (``chunked.chunk_len``):
+    512 at K8's 512 lanes x 262144 (512 chunks), 1024 at K7's 1024 lanes
+    (256 chunks)."""
+    return chunked.chunk_len(lanes, T, DETECTOR_ROWS)
+
+
+def _detector_table(lanes: int, T: int, dev):
+    """(chunk length, an uninitialised carry table for it)."""
+    L = detector_chunk_len(lanes, T)
+    return L, torch.empty((-(-T // L), DETECTOR_ROWS, lanes),
+                          dtype=torch.float32, device=dev)
 
 
 def _lead_vec(v, lead_shape, dev) -> torch.Tensor:
@@ -193,11 +214,14 @@ def compressor_fused_inputs(x, threshold_db, ratio, knee_db, alpha_attack,
     return x_in, vec.contiguous(), active is not None, lead_shape
 
 
-def compressor_fused_plain(x_in, vec, with_active: bool) -> torch.Tensor:
+def compressor_fused_plain(x_in, vec, with_active: bool,
+                           dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K7 in the kernel's order: the gain computer
     over the whole block, the decoupled ballistics one time step at a time
     over all lanes (K8's plain version), then the gain and the bypass
-    blend. Returns (lanes, T)."""
+    blend. Returns (lanes, T) in ``dtype``: float32 (the kernel's
+    arithmetic) or float64 (a witness of its rounding)."""
+    x_in, vec = x_in.to(dtype), vec.to(dtype)
     th, slope, knee, _, _, mk = (v[:, None] for v in vec[:6])
     env_db = torch.log(torch.clamp_min(x_in.abs(), 1e-8)) * _DB_PER_LOG
     over = env_db - th
@@ -205,7 +229,7 @@ def compressor_fused_plain(x_in, vec, with_active: bool) -> torch.Tensor:
     knee_region = slope * (h * h) / (2.0 * knee)
     c = torch.where(2.0 * over < -knee, torch.zeros_like(over),
                     torch.where(2.0 * over > knee, slope * over, knee_region))
-    g = ballistics_plain(c, vec[3:5])
+    g = ballistics_plain(c, vec[3:5], dtype)
     y = x_in * torch.exp(g * _LN10_OVER_20) * mk
     if with_active:
         act = vec[6][:, None]
@@ -214,7 +238,9 @@ def compressor_fused_plain(x_in, vec, with_active: bool) -> torch.Tensor:
 
 
 def compressor_fused_cuda(x_in, vec, with_active: bool) -> torch.Tensor:
-    """Launch K7 on the current stream. Returns (lanes, T)."""
+    """Launch K7 on the current stream, in chunks of
+    ``detector_chunk_len(lanes, T)`` samples. Returns (lanes, T). Its five
+    launches count as one."""
     lib = _build.load("scan")
     _check_cuda(x_in, vec)
     lanes, T = x_in.shape
@@ -222,13 +248,16 @@ def compressor_fused_cuda(x_in, vec, with_active: bool) -> torch.Tensor:
         raise ValueError(f"vec is {tuple(vec.shape)}, expected "
                          f"({6 + int(with_active)}, {lanes})")
     out = torch.empty((lanes, T), dtype=torch.float32, device=x_in.device)
+    L, table = _detector_table(lanes, T, x_in.device)
     fn = lib.compressor_fused_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
                    ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x_in.data_ptr(), vec.data_ptr(), out.data_ptr(), lanes, T,
-             int(with_active), _stream(x_in))
+    err = fn(x_in.data_ptr(), vec.data_ptr(), out.data_ptr(),
+             table.data_ptr(), lanes, T, int(with_active), L, -1,
+             _stream(x_in))
     if err != 0:
         raise RuntimeError(f"compressor kernel launch failed: CUDA error "
                            f"{err}")
@@ -264,11 +293,13 @@ def ballistics_inputs(c, alpha_attack, alpha_release):
     return c_in, vec.contiguous(), lead_shape
 
 
-def ballistics_plain(c_in, vec) -> torch.Tensor:
+def ballistics_plain(c_in, vec, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K8: the decoupled detector one time step at
-    a time over all lanes. Returns (lanes, T)."""
+    a time over all lanes. Returns (lanes, T) in ``dtype``: float32 (the
+    kernel's arithmetic) or float64 (a witness of its rounding)."""
+    c_in, vec = c_in.to(dtype), vec.to(dtype)
     aa, ar = vec[0], vec[1]
-    y1 = torch.zeros(c_in.shape[0], dtype=torch.float32, device=c_in.device)
+    y1 = torch.zeros(c_in.shape[0], dtype=dtype, device=c_in.device)
     g = torch.zeros_like(y1)
     out = []
     for ct in c_in.unbind(-1):
@@ -279,19 +310,23 @@ def ballistics_plain(c_in, vec) -> torch.Tensor:
 
 
 def ballistics_cuda(c_in, vec) -> torch.Tensor:
-    """Launch K8 on the current stream. Returns (lanes, T)."""
+    """Launch K8 on the current stream, in chunks of
+    ``detector_chunk_len(lanes, T)`` samples. Returns (lanes, T). Its five
+    launches count as one."""
     lib = _build.load("scan")
     _check_cuda(c_in, vec)
     lanes, T = c_in.shape
     if vec.shape != (2, lanes):
         raise ValueError(f"vec is {tuple(vec.shape)}, expected (2, {lanes})")
     out = torch.empty((lanes, T), dtype=torch.float32, device=c_in.device)
+    L, table = _detector_table(lanes, T, c_in.device)
     fn = lib.ballistics_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(c_in.data_ptr(), vec.data_ptr(), out.data_ptr(), lanes, T,
-             _stream(c_in))
+    err = fn(c_in.data_ptr(), vec.data_ptr(), out.data_ptr(),
+             table.data_ptr(), lanes, T, L, -1, _stream(c_in))
     if err != 0:
         raise RuntimeError(f"ballistics kernel launch failed: CUDA error "
                            f"{err}")

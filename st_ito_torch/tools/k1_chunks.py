@@ -1,33 +1,50 @@
-"""Time K1 (``csrc/eqcomp.cu``) at the headline (1024 lanes x 262144, the
-shared input of ``chip_smoke.py``'s ``k1`` phase) at several chunk lengths,
-and hold it against float32 and float64 runs of the plain version, lane
-by lane, listing the lanes farthest from rule (a) of
-``eqcomp.gate_excess``.
+"""Time the chunked scans at several chunk lengths at their headline shapes:
+K1 (``csrc/eqcomp.cu``, 1024 lanes x 262144 on the shared input of
+``chip_smoke.py``'s ``k1`` phase), K8 (512 lanes) and K7 (1024 lanes, with
+its bypass row), the last two (``scan_core.cuh run_chunked_detector``) also
+stage by stage, with CUDA events between the launches, so that the carries
+are timed apart from the passes.
 
-    python3 -m st_ito_torch.tools.k1_chunks
+    python3 -m st_ito_torch.tools.k1_chunks [--kernels k1,k7,k8]
+                                             [--parent DIR]
 
-The wrapper picks the chunk (``eqcomp.chunk_len``); here the library is
-called directly with each length. The plain runs take minutes (a Python
-loop over T). Needs a card.
+The wrappers pick the chunk (``chunked.chunk_len``); here the libraries are
+called directly with each length. For K1 the kernel is then held against
+float32 and float64 runs of the plain version lane by lane, listing the
+lanes farthest from rule (a) of ``eqcomp.gate_excess`` (the plain runs take
+minutes: a Python loop over T). For K7 and K8 each length's output is
+compared with the wrapper's (``chip_smoke.py`` holds that one to the plain
+version). ``--parent DIR`` also builds K1 from another checkout's sources
+(``DIR/st_ito_torch/csrc/eqcomp.cu`` with the headers beside it, e.g. from
+``git archive`` of an earlier commit) and holds this checkout's K1 to it
+bit for bit at B 37 x T 20011 (shared and per-candidate input) and at the
+headline; it exits non-zero if they differ. Needs a card.
 """
 
+import argparse
 import ctypes
+import subprocess
+import sys
 import time
+from pathlib import Path
 
 import torch
 
 import chip_smoke as cs
-from st_ito_torch.ops.kernels import _build, eqcomp
+from st_ito_torch.ops.kernels import _build, eqcomp, scan
 
 CHUNKS = (1024, 512, 2048, 256)
+# the stages of run_chunked_detector, by its stage argument
+STAGES = ("pass B", "carry 1", "pass C", "carry 2", "pass D")
 
 
-def launch(args, L):
+def k1_launch(args, L, lib=None):
     x, vec, S, with_dist, shared = args
     lanes, T = vec.shape[1], x.shape[-1]
     out = torch.empty((lanes, T), device=x.device)
-    table = torch.empty((-(-T // L), 2 * S + 4, lanes), device=x.device)
-    fn = _build.load("eqcomp").eqcomp_launch
+    table = torch.empty((-(-T // L), eqcomp.table_rows(S), lanes),
+                        device=x.device)
+    fn = (lib or _build.load("eqcomp")).eqcomp_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
                    ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                    ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
@@ -40,13 +57,12 @@ def launch(args, L):
     return out
 
 
-def main() -> None:
+def sweep_k1():
     dev = torch.device("cuda")
-    print(cs.card_line(), flush=True)
     args = cs.k1_inputs(cs.POP, 2, cs.T_HEAD, 2, True, dev)
     vec, S, with_dist = args[1], args[2], args[3]
     for L in CHUNKS:
-        ms = cs.cuda_ms(lambda: launch(args, L), 3)
+        ms = cs.cuda_ms(lambda: k1_launch(args, L), 3)
         print(f"K1 headline chunk {L}: {ms!r} ms", flush=True)
     got = eqcomp.eqcomp_cuda(*args)
     t0 = time.time()
@@ -68,6 +84,109 @@ def main() -> None:
     print("bypassed lanes where the float32 plain run lies past 1e-4 x peak "
           f"of the float64 one: {int(((e32 > 1e-4 * peak) & bypassed).sum())}"
           f" of {int(bypassed.sum())}", flush=True)
+
+
+def k1_against_parent(parent: str) -> bool:
+    """Build K1 from the checkout ``parent`` and compare this checkout's
+    K1 with it bit for bit; True when every set is equal."""
+    out = _build.BUILD_DIR.parent / "k1_parent"
+    out.mkdir(parents=True, exist_ok=True)
+    lib_path = out / "libeqcomp.so"
+    subprocess.run([_build._nvcc()] + _build._ARCH + _build._COMMON
+                   + ["-fmad=false", "-o", str(lib_path),
+                      str(Path(parent) / "st_ito_torch" / "csrc"
+                          / "eqcomp.cu")],
+                   check=True, capture_output=True)
+    lib = ctypes.CDLL(str(lib_path.resolve()))
+    dev = torch.device("cuda")
+    same = True
+    for label, args in (
+            ("B 37, T 20011, shared", cs.k1_inputs(37, 2, 20011, 1, True,
+                                                   dev)),
+            ("B 37, T 20011, per-candidate",
+             cs.k1_inputs(37, 2, 20011, 1, False, dev)),
+            ("headline", cs.k1_inputs(cs.POP, 2, cs.T_HEAD, 2, True, dev))):
+        L = eqcomp.chunk_len(args[1].shape[1], args[0].shape[-1])
+        equal = torch.equal(k1_launch(args, L, lib), eqcomp.eqcomp_cuda(*args))
+        print(f"K1 from {parent} against this checkout's, {label}: bitwise "
+              f"{equal}", flush=True)
+        same = same and equal
+    return same
+
+
+def detector_launch(name, args, L, stage, out, table):
+    """One launch of K8 (``name`` "k8", args (c, vec)) or K7 ("k7", args
+    (x, vec, with_active)) in chunks of L, all stages (stage -1) or one."""
+    lib = _build.load("scan")
+    x, vec = args[0], args[1]
+    lanes, T = x.shape
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    if name == "k8":
+        fn = lib.ballistics_launch
+        fn.argtypes = [P, P, P, P, I, LL, LL, I, P]
+        err = fn(x.data_ptr(), vec.data_ptr(), out.data_ptr(),
+                 table.data_ptr(), lanes, T, L, stage, stream)
+    else:
+        fn = lib.compressor_fused_launch
+        fn.argtypes = [P, P, P, P, I, LL, I, LL, I, P]
+        err = fn(x.data_ptr(), vec.data_ptr(), out.data_ptr(),
+                 table.data_ptr(), lanes, T, int(args[2]), L, stage, stream)
+    if err:
+        raise RuntimeError(f"CUDA error {err}")
+
+
+def sweep_detector(name, args, reps=5):
+    x = args[0]
+    lanes, T = x.shape
+    ref = (scan.ballistics_cuda if name == "k8"
+           else scan.compressor_fused_cuda)(*args)
+    print(f"{name.upper()} headline lanes {lanes}, T {T}: the wrapper's "
+          f"chunk {scan.detector_chunk_len(lanes, T)}", flush=True)
+    for L in CHUNKS:
+        out = torch.empty_like(x)
+        table = torch.empty((-(-T // L), scan.DETECTOR_ROWS, lanes),
+                            device=x.device)
+        ms = cs.cuda_ms(lambda: detector_launch(name, args, L, -1, out,
+                                                table), reps)
+        diff = float((out - ref).abs().max())
+        # the stages apart: an event after each launch
+        ev = [torch.cuda.Event(enable_timing=True)
+              for _ in range(len(STAGES) + 1)]
+        parts = [0.0] * len(STAGES)
+        for _ in range(reps):
+            torch.cuda.synchronize()
+            ev[0].record()
+            for s in range(len(STAGES)):
+                detector_launch(name, args, L, s, out, table)
+                ev[s + 1].record()
+            ev[-1].synchronize()
+            for s in range(len(STAGES)):
+                parts[s] += ev[s].elapsed_time(ev[s + 1]) / reps
+        stages = ", ".join(f"{n} {p!r}" for n, p in zip(STAGES, parts))
+        print(f"{name.upper()} chunk {L} ({-(-T // L)} chunks): {ms!r} ms; "
+              f"{stages} ms; max |out - wrapper's| {diff!r}", flush=True)
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--kernels", default="k1,k7,k8",
+                        help="comma-separated subset of k1,k7,k8")
+    parser.add_argument("--parent", help="a checkout whose K1 this one's "
+                        "must equal bit for bit")
+    args = parser.parse_args()
+    kernels = args.kernels.split(",")
+    dev = torch.device("cuda")
+    print(cs.card_line(), flush=True)
+    if "k8" in kernels:
+        sweep_detector("k8", cs.k8_inputs(cs.POP, cs.T_HEAD, 44, dev))
+    if "k7" in kernels:
+        sweep_detector("k7", cs.k7_inputs(cs.POP, 2, cs.T_HEAD, 48, True,
+                                          dev))
+    if "k1" in kernels:
+        sweep_k1()
+    if args.parent and not k1_against_parent(args.parent):
+        sys.exit(1)
 
 
 if __name__ == "__main__":

@@ -19,9 +19,12 @@ output's peak: measured 5.5e-5 on K6's 3.77 peak (a low, high-Q section
 amplifies the rounding) and 2.3e-5 on K8's 29.4. From a float64 run of the
 same recurrences the port stays within 1.5x of JAX's distance (K6 6.6e-5
 against JAX's 7.4e-5, K8 2.2e-5 against 1.6e-5; K7 7.1e-7 against 8.2e-7
-on a 1.9 peak, K11 2.1e-6 against 1.7e-6 on 10.6). On the card K7 is held to
-its plain version at atol 1e-4, as K1 is (the card's logf and expf need not
-round as the CPU's do); the others bit for bit."""
+on a 1.9 peak, K11 2.1e-6 against 1.7e-6 on 10.6). On the card K6 and K11
+are held to their plain versions bit for bit; K7 and K8, chunked scans whose
+carries round differently from the serial chain, by the two rules of
+``chunked.gate_excess`` against float32 and float64 runs of the plain
+versions, with the first chunk bit for bit (``test_torch_dynamics_chunked``
+holds a torch model of their passes to the same rules on the CPU)."""
 
 import numpy as np
 import pytest
@@ -37,7 +40,7 @@ from st_ito_torch.chain import basic_chain
 from st_ito_torch.chain.executor import stage_params
 from st_ito_torch.chain.responses import _eq_section_stack
 from st_ito_torch.ops.dynamics import _time_constant_alpha
-from st_ito_torch.ops.kernels import scan
+from st_ito_torch.ops.kernels import chunked, scan
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -324,36 +327,55 @@ def test_k6_kernel_matches_plain_on_card(cuda_device, shared):
     assert torch.equal(got.cpu(), want)
 
 
+def _hold_chunked(got, want32, want64, T):
+    """K7's and K8's rules on the card: the first chunk bitwise, then (a)
+    and (b) of ``chunked.gate_excess``."""
+    L = scan.detector_chunk_len(got.shape[0], T)
+    assert torch.equal(got[:, :L], want32[:, :L])
+    excess = chunked.gate_excess(got, want32, want64=want64)
+    assert excess["a"] <= 0.0 and excess["b"] <= 0.0, excess
+
+
 @pytest.mark.cuda
 def test_k8_kernel_matches_plain_on_card(cuda_device):
-    c, aa, ar = k8_case(37, 2000, 7)
-    want = scan.ballistics(*map(torch.from_numpy, (c, aa, ar)))
-    before = scan.launches["ballistics"]
-    got = scan.ballistics(*(torch.from_numpy(v).to(cuda_device)
-                            for v in (c, aa, ar)))
-    torch.cuda.synchronize()
-    assert scan.launches["ballistics"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    # 37 lanes: two 32-lane blocks, the last ragged; T 2000 in 8 chunks of
+    # 256 (the last ragged), T 200 in one
+    for T in (2000, 200):
+        c, aa, ar = k8_case(37, T, 7)
+        args = scan.ballistics_inputs(*(torch.from_numpy(v).to(cuda_device)
+                                        for v in (c, aa, ar)))[:2]
+        want32 = scan.ballistics_plain(*args)
+        want64 = scan.ballistics_plain(*args, dtype=torch.float64)
+        before = scan.launches["ballistics"]
+        got = scan.ballistics(*(torch.from_numpy(v).to(cuda_device)
+                                for v in (c, aa, ar)))
+        torch.cuda.synchronize()
+        assert scan.launches["ballistics"] == before + 1
+        _hold_chunked(got, want32, want64, T)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("masked", [True, False])
 def test_k7_kernel_matches_plain_on_card(cuda_device, masked):
-    # 74 lanes: three 32-lane blocks, the last one ragged; T ragged too
-    x, kw, act = k7_case(37, 2, 2000, 10)
+    # 74 lanes: three 32-lane blocks, the last one ragged; T 2000 in 8
+    # chunks (the last ragged) with a silent stretch from T/3, T 200 in one
+    for T in (2000, 200):
+        x, kw, act = k7_case(37, 2, T, 10)
 
-    def run(dev):
-        return scan.compressor_fused(
-            torch.from_numpy(x).to(dev),
-            **{k: torch.from_numpy(v).to(dev) for k, v in kw.items()},
-            active=torch.from_numpy(act).to(dev) if masked else None)
+        def inputs(dev):
+            return (torch.from_numpy(x).to(dev),
+                    {k: torch.from_numpy(v).to(dev) for k, v in kw.items()},
+                    torch.from_numpy(act).to(dev) if masked else None)
 
-    want = run("cpu")
-    before = scan.launches["compressor_fused"]
-    got = run(cuda_device)
-    torch.cuda.synchronize()
-    assert scan.launches["compressor_fused"] == before + 1
-    assert float((got.cpu() - want).abs().max()) <= 1e-4
+        xd, kwd, actd = inputs(cuda_device)
+        args = scan.compressor_fused_inputs(xd, **kwd, active=actd)[:3]
+        want32 = scan.compressor_fused_plain(*args)
+        want64 = scan.compressor_fused_plain(*args, dtype=torch.float64)
+        before = scan.launches["compressor_fused"]
+        got = scan.compressor_fused(xd, **kwd, active=actd)
+        torch.cuda.synchronize()
+        assert scan.launches["compressor_fused"] == before + 1
+        _hold_chunked(got.reshape(want32.shape), want32, want64, T)
 
 
 @pytest.mark.cuda
