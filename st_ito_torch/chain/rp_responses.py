@@ -122,7 +122,10 @@ FREEVERB_ROWS = (("cos1", 1), ("sin1", 1), ("combL_c", 8), ("combL_s", 8),
 def freeverb_tables(sr: float, n: int, F: int, device=None) -> dict:
     """conj(zD) tables per comb (8 per channel), one-pole z^-1 cos/sin,
     and the candidate-independent allpass cascade product per channel.
-    ``"_packed"`` holds all 38 rows as one contiguous (38, F) tensor."""
+    ``"_packed"`` holds all 38 rows as one contiguous (38, F) tensor;
+    ``"_phasor_delays"`` the delays D of its 17 phasor rows (z^-1, then the
+    combs of L and of R), from which the K3 kernel forms them
+    (``ops/kernels/mega_fft.py freeverb_factors``)."""
     w = _omega(n, F, device)
     kk = torch.arange(F, dtype=torch.int64, device=device)
 
@@ -133,10 +136,12 @@ def freeverb_tables(sr: float, n: int, F: int, device=None) -> dict:
         return torch.cos(th), torch.sin(th)
 
     rows = {"cos1": [torch.cos(w)], "sin1": [torch.sin(w)]}
+    delays = [1]
     for ch, spread in (("L", 0), ("R", _STEREO_SPREAD)):
         cc, ss = [], []
         for tune in _COMB_TUNINGS:
-            c, s = lag_cs(int(sr * (tune + spread) / 44100.0))
+            delays.append(int(sr * (tune + spread) / 44100.0))
+            c, s = lag_cs(delays[-1])
             cc.append(c)
             ss.append(s)
         rows[f"comb{ch}_c"] = cc
@@ -154,7 +159,7 @@ def freeverb_tables(sr: float, n: int, F: int, device=None) -> dict:
         rows[f"ap{ch}_r"] = [apr]
         rows[f"ap{ch}_i"] = [api]
     packed = torch.stack([r for name, _ in FREEVERB_ROWS for r in rows[name]])
-    out = {"_packed": packed}
+    out = {"_packed": packed, "_phasor_delays": tuple(delays)}
     i = 0
     for name, count in FREEVERB_ROWS:
         out[name] = packed[i:i + count]

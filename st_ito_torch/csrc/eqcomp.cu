@@ -36,8 +36,11 @@
 //   3. g_{k+1} = aa^Lc g_k + gz_k (onepole_chunk_carry);
 //   D. the whole step from (s_k, y1_k, g_k), every blend and the
 //      distortion; the only pass that writes the output.
-// The passes recompute the cascade instead of storing v and c (2 GB each
-// way at the headline). The carries round differently from the serial
+// Pass A and carry 1 are the kernels of K6's chunked linear scan
+// (scan_core.cuh linear_state_pass, linear_state_carry), here on the first
+// 2S rows of a wider table and with the carry in float. The passes
+// recompute the cascade instead of storing v and c (2 GB each way at the
+// headline). The carries round differently from the serial
 // chain, so the kernel is no longer bitwise equal to its plain version; the
 // first chunk is. The carry table holds 2S + 4 rows per chunk and lane:
 // the cascade state, then the MinAffine (k, b, m) whose first row becomes
@@ -98,17 +101,6 @@ struct EqComp {
   }
 };
 
-// pass A's step: the cascade alone (its blend does not enter the state)
-template <int S>
-struct CascadeState {
-  scancore::BiquadCascade<S> eq;
-
-  __device__ __forceinline__ float step(float xin) {
-    eq.step(xin);
-    return 0.0f;
-  }
-};
-
 // pass B's step: the release steps composed over the chunk
 template <int S>
 struct ReleaseMap {
@@ -134,56 +126,16 @@ struct Detector {
   }
 };
 
-// A block of every pass: 32 lanes (blockIdx.y) x chunk blockIdx.x.
-struct Span {
-  int lane0, li, k;
-  long long t0, t1;
-
-  __device__ __forceinline__ Span(int lanes, long long T, long long Lc)
-      : lane0(blockIdx.y * kTile),
-        li(scancore::lane_index(lanes, blockIdx.y * kTile)),
-        k(blockIdx.x),
-        t0((long long)blockIdx.x * Lc),
-        t1(t0 + Lc < T ? t0 + Lc : T) {}
-
-  __device__ __forceinline__ bool stores(int lanes) const {
-    return lane0 + (int)threadIdx.x < lanes;
-  }
-};
-
-template <int S, bool kStore, class Op>
-__device__ __forceinline__ void walk(Op& op, const Span& sp,
-                                     const float* __restrict__ x,
-                                     int shared_channels,
-                                     float* __restrict__ out, int lanes,
-                                     long long T) {
-  const float* const xs[1] = {x};
-  scancore::run_tiles_span<1, kStore>(op, xs, shared_channels, out, lanes, T,
-                                      sp.lane0, sp.t0, sp.t1);
-}
-
-template <int S>
-__global__ void __launch_bounds__(kTile) pass_a_kernel(
-    const float* __restrict__ x, int shared_channels,
-    const float* __restrict__ vec, float* __restrict__ table, int lanes,
-    long long T, long long Lc) {
-  const Span sp(lanes, T, Lc);
-  CascadeState<S> op{scancore::BiquadCascade<S>(vec, lanes, sp.li, 0)};
-  walk<S, false>(op, sp, x, shared_channels, nullptr, lanes, T);
-  if (sp.stores(lanes))
-    op.eq.store_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
-}
-
 template <int S>
 __global__ void __launch_bounds__(kTile) pass_b_kernel(
     const float* __restrict__ x, int shared_channels,
     const float* __restrict__ vec, float* __restrict__ table, int lanes,
     long long T, long long Lc) {
-  const Span sp(lanes, T, Lc);
+  const scancore::ChunkSpan sp(lanes, T, Lc);
   ReleaseMap<S> op{scancore::BiquadCascade<S>(vec, lanes, sp.li, 1),
                    scancore::Compressor(vec, lanes, sp.li, 5 * S + 1), {}};
   op.eq.load_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
-  walk<S, false>(op, sp, x, shared_channels, nullptr, lanes, T);
+  sp.walk<false>(op, x, shared_channels, nullptr, lanes, T);
   if (sp.stores(lanes)) {
     float* p = table + Table<S>::at(sp.k, Table<S>::kY1, lanes, sp.li);
     p[0] = op.f.k;
@@ -197,12 +149,12 @@ __global__ void __launch_bounds__(kTile) pass_c_kernel(
     const float* __restrict__ x, int shared_channels,
     const float* __restrict__ vec, float* __restrict__ table, int lanes,
     long long T, long long Lc) {
-  const Span sp(lanes, T, Lc);
+  const scancore::ChunkSpan sp(lanes, T, Lc);
   Detector<S> op{scancore::BiquadCascade<S>(vec, lanes, sp.li, 1),
                  scancore::Compressor(vec, lanes, sp.li, 5 * S + 1)};
   op.eq.load_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
   op.comp.det.y1 = table[Table<S>::at(sp.k, Table<S>::kY1, lanes, sp.li)];
-  walk<S, false>(op, sp, x, shared_channels, nullptr, lanes, T);
+  sp.walk<false>(op, x, shared_channels, nullptr, lanes, T);
   if (sp.stores(lanes))
     table[Table<S>::at(sp.k, Table<S>::kG, lanes, sp.li)] = op.comp.det.g;
 }
@@ -213,26 +165,12 @@ __global__ void __launch_bounds__(kTile) pass_d_kernel(
     const float* __restrict__ vec, const float* __restrict__ table,
     float* __restrict__ out, int lanes, long long T, long long Lc,
     int with_dist) {
-  const Span sp(lanes, T, Lc);
+  const scancore::ChunkSpan sp(lanes, T, Lc);
   EqComp<S> op(vec, lanes, sp.li, with_dist);
   op.eq.load_state(table + Table<S>::at(sp.k, 0, lanes, sp.li), lanes);
   op.comp.det.y1 = table[Table<S>::at(sp.k, Table<S>::kY1, lanes, sp.li)];
   op.comp.det.g = table[Table<S>::at(sp.k, Table<S>::kG, lanes, sp.li)];
-  walk<S, true>(op, sp, x, shared_channels, out, lanes, T);
-}
-
-template <int S>
-__global__ void __launch_bounds__(kTile * 2 * S) state_carry_kernel(
-    const float* __restrict__ vec, float* __restrict__ table, int lanes,
-    long long Lc, int nchunks) {
-  // thread i*32 + l builds column i of lane lane0 + l's Phi (lane 0's past
-  // the last lane)
-  const int lane0 = blockIdx.x * kTile;
-  const int l = threadIdx.x % kTile;
-  scancore::BiquadCascade<S> eq(vec, lanes, lane0 + l < lanes ? lane0 + l : 0,
-                                0);
-  scancore::linear_chunk_carry(eq, table, Table<S>::kRows, 0, lanes, lane0,
-                               Lc, nchunks);
+  sp.walk<true>(op, x, shared_channels, out, lanes, T);
 }
 
 template <int S>
@@ -259,11 +197,15 @@ int run(const float* x, int shared_channels, const float* vec, float* out,
   const int nchunks = (int)((T + Lc - 1) / Lc);
   const int lane_blocks = scancore::blocks_for(lanes);
   const dim3 spans(nchunks - 1, lane_blocks);
+  // pass A and carry 1 are the chunked linear scan's (scan_core.cuh), on
+  // the first 2S rows of this table, in float
+  using Cascade = scancore::BiquadCascade<S>;
   if (nchunks > 1)
-    pass_a_kernel<S><<<spans, kTile, 0, stream>>>(x, shared_channels, vec,
-                                                  table, lanes, T, Lc);
-  state_carry_kernel<S><<<lane_blocks, kTile * 2 * S, 0, stream>>>(
-      vec, table, lanes, Lc, nchunks);
+    scancore::linear_state_pass<Cascade><<<spans, kTile, 0, stream>>>(
+        x, shared_channels, vec, table, Table<S>::kRows, lanes, T, Lc);
+  scancore::linear_state_carry<Cascade>
+      <<<lane_blocks, kTile * Cascade::kStateRows, 0, stream>>>(
+          vec, table, Table<S>::kRows, lanes, Lc, nchunks);
   if (nchunks > 1)
     pass_b_kernel<S><<<spans, kTile, 0, stream>>>(x, shared_channels, vec,
                                                   table, lanes, T, Lc);
@@ -290,10 +232,8 @@ extern "C" int eqcomp_launch(const float* x, int shared_channels,
                              void* stream) {
   // The basic parametric EQ, the only EQ planned into this head, has 6
   // sections; other counts are instantiated when a chain needs them.
-  if (lanes <= 0 || T <= 0 || shared_channels < 0 || num_sections != 6 ||
-      chunk_len <= 0 || chunk_len % kTile != 0 ||
-      scancore::blocks_for(lanes) > 65535 ||
-      (T + chunk_len - 1) / chunk_len > 0x7fffffffLL)
+  if (shared_channels < 0 || num_sections != 6 ||
+      !scancore::chunked_args_ok(lanes, T, chunk_len))
     return cudaErrorInvalidValue;
   return run<6>(x, shared_channels, vec, out, table, lanes, T, chunk_len,
                 with_dist, static_cast<cudaStream_t>(stream));

@@ -18,18 +18,18 @@
 //
 // Design. A candidate's n complex samples (4 MB at n = 2^19) do not fit in
 // an SM's shared memory, so each transform is a four-step FFT in two
-// __global__ passes behind one C entry point, with n = n1*n2, sample
-// t = j1*n2 + j2 and bin k = k2*n1 + k1:
+// passes, with n = n1*n2, sample t = j1*n2 + j2 and bin k = k2*n1 + k1:
 //
-//   forward, pass 1 (fwd_cols): a block takes a tile of adjacent j2 columns
-//     for all j1, transforms each over j1 (length n1), multiplies by the
-//     twiddle W_n^(k1*j2) and writes M[k1][j2] to scratch;
-//   forward, pass 2 (fwd_rows): a block takes a tile of rows k1 together
-//     with their mirror rows n1-k1, transforms each over j2 (length n2) and
-//     so holds Z[k] and Z[(n-k) mod n] for every bin of its columns: the
+//   forward, pass 1: a tile of adjacent j2 columns of one candidate for all
+//     j1, transformed over j1 (length n1), times the twiddle W_n^(k1*j2),
+//     M[k1][j2] to scratch (K10's pass 1, fft_persist.cuh cols_tile, on the
+//     planar rows L and R of x);
+//   forward, pass 2 (mirror_rows_tile): a tile of R rows k1 together with
+//     their mirror rows n1-k1, transformed over j2 (length n2), so that it
+//     holds Z[k] and Z[(n-k) mod n] for every bin of its columns: the
 //     mirror of (k2, k1) is (n2-1-k2, n1-k1) for k1 >= 1 and
 //     ((n2-k2) mod n2, 0) for k1 = 0; rows 0 and n1/2 mirror themselves and
-//     share the first block. It emits (Zlo, Zrev), or applies the response
+//     share the first tile. It emits (Zlo, Zrev), or applies the response
 //     to them and emits (Ylo, Yhig);
 //   inverse, pass A (inv_rows): a block takes a tile of columns k1, gathers
 //     Y[k2*n1 + k1] over k2 from Ylo (lower half) and from Yhig at the
@@ -38,37 +38,50 @@
 //   inverse, pass B (inv_cols): a block takes a tile of columns j2 for all
 //     k1, transforms over k1 (length n1) and writes the first T samples.
 //
-// Tiles make the strided sides of each pass 32- or 64-byte runs and the
-// other side whole rows. The transforms are the shared-memory butterflies
-// of fft_core.cuh (radix 2, up to three layers per trip through shared
-// memory); the natural-order side of each is the one whose global accesses
-// must be contiguous, the bit-reversed side is walked in shared-memory order
-// (global runs at a stride do not care in which order they come). The
-// twiddle's integer product k1*j2 < n is exact, and
-// sincospif() takes it as the exact fraction 2*k1*j2/n.
+// The forward is one persistent launch over the whole population
+// (fft_persist.cuh, as K10): ticket-ordered pass-1 and pass-2 items, pass 1
+// of later candidates overlapping pass 2 of earlier ones, through a ring of
+// scratch slots that stays in L2; the twiddle from two root tables; up to
+// five butterfly layers in registers a trip through shared memory. K3's
+// epilogue needs 38 Freeverb floats per bin; read from a 40 MB table for
+// every (candidate, bin) they are 20 GB a call at n 2^19, and on the card
+// the gather cost more than the transform (PERF.md). Here only the four
+// allpass floats come from the table, read by bin from its rows (4 MB that
+// stay in L2; a copy laid out in pass 2's walk order took no less time);
+// the 17 phasors of the other 34 are formed per bin as
+// products of a row and a column factor of the four-step grid
+// (FactoredTab), 210 KB that stay in cache. Tiles of several candidates,
+// which would share a bin's values, lost more to their shorter output runs
+// or to a block an SM than they saved. The inverse runs chunk by chunk
+// through a scratch in device memory, two launches a chunk.
 //
-// The scratch holds `chunk` candidates (n float2 each); the entry points
-// walk the population chunk by chunk on the caller's stream. The chunk only
-// bounds the scratch: measured on the card, keeping a chunk's intermediate
-// inside the 50 MB L2 (8 candidates at n = 2^19) gains less than the short
-// launches lose to their last, partly filled wave of blocks (PERF.md).
+// Tiles make the strided sides of each pass 32- or 64-byte runs and the
+// other side whole rows. The natural-order side of each transform is the
+// one whose global accesses must be contiguous, the bit-reversed side is
+// walked in shared-memory order. The twiddle's integer product k1*j2 < n
+// is exact.
 //
 // Bounds at the headline (B 512, n 2^19, T 2^18): K5 and K4 move 3.2 GB
 // (0.96 ms at 3.35 TB/s) against 25.5 G float32 operations (0.38 ms): bytes.
-// K3 moves 3.3 GB against 61.7 G operations (0.92 ms): bytes, barely. The
-// kernels' own cost is the shared-memory traffic of the butterflies and the
-// scratch round trip, not either bound.
+// K3 moves 3.3 GB (the table once) against 61.7 G operations (0.92 ms):
+// bytes, barely.
 //
-// Built with -fmad=false like packed_response.cu: K3's epilogue is then K2's
-// arithmetic op for op on the same Z, so K3 equals K5 -> K2 bitwise, and the
-// butterflies' cost is in their shared-memory exchanges, not their flops.
+// Built with nvcc's contraction of a*b + c into fused multiply-adds (unlike
+// packed_response.cu): K3's epilogue is K2's math but for the phasors, each
+// a product of two factors where K2 reads one table value, the approximate
+// divide (rp_response.cuh FastMath), and the fused operations; the delay's
+// phase and denominator, which a resonance magnifies a thousandfold, round
+// as the plain version's (delay_build's unfused operations).
 //
 // C entry points return cudaGetLastError(), or cudaErrorInvalidValue for a
 // shape they do not take.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
+
 #include "fft_core.cuh"
+#include "fft_persist.cuh"
 #include "rp_response.cuh"
 
 namespace {
@@ -84,51 +97,64 @@ using fftcore::smem_bytes;
 using fftcore::Split;
 using fftcore::sw;
 using fftcore::tile_log;
+using fftpersist::Plan;
 
 // ---------------------------------------------------------------- forward
 
-__global__ void __launch_bounds__(kThreads) fwd_cols_kernel(
-    const float* __restrict__ x, float2* __restrict__ scratch,
-    const float2* __restrict__ tw, Split sp, int b0, int T, int log_cw) {
-  extern __shared__ float2 smem[];
-  float2* tw_s = smem;
-  float2* s = smem + (sp.n1 >> 1);
-  const int pitch = row_pitch(sp.n1);
-  const int cw = 1 << log_cw;
-  const int j2_0 = blockIdx.x << log_cw;
-  const int in_rows = T >> sp.log_n2;
-  const float* xl = x + (long long)(b0 + blockIdx.y) * 2 * T;
-  const float* xr = xl + T;
+// What pass 2 emits: Z itself (K5), Z plus the sum of the bin's Freeverb
+// table column (a stage timer's probe of the table loads alone), or the
+// response applied to Z (K3).
+enum Epilogue : int { kZ = 0, kTableOnly = 1, kResponse = 2 };
 
-  fftcore::load_twiddles(tw_s, tw, sp.n1 >> 1, 1);
-  const int items = sp.n1 << log_cw;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c = it & (cw - 1);
-    const int j1 = it >> log_cw;
-    float2 v = make_float2(0.0f, 0.0f);
-    if (j1 < in_rows) {
-      const long long t = ((long long)j1 << sp.log_n2) + j2_0 + c;
-      v = make_float2(xl[t], xr[t]);
-    }
-    s[c * pitch + sw(j1)] = v;
+// The four half-grid outputs, rows of pitch Fp.
+struct Outputs {
+  float *lo_r, *lo_i, *hi_r, *hi_i;
+  long long Fp;
+};
+
+// K3's factors of the Freeverb table's phasors (rp_response.cuh ArrayTab's
+// cos1/sin1 and combs): phasor d of bin k = k2*n1 + k1 is
+// e^(i 2 pi k D_d / n) = u[k2][d] * v[k1][d], (cos, sin) pairs, d = 0 the
+// z^-1 term and 1 + 8*ch + j comb j of channel ch; a row holds kPhasors
+// pairs and a pad (kFactorPitch float2, 16-byte rows), so that phasors d
+// and d+1 come in one 16-byte load. ap: the table's allpass rows (apL_r,
+// apL_i, apR_r, apR_i), indexed by bin, pitch the half grid's n/2 + 1.
+constexpr int kPhasors = 17;
+constexpr int kFactorPitch = 18;
+
+struct Factors {
+  const float4* u;
+  const float4* v;
+  const float* ap;
+};
+
+// A bin's Freeverb values for rp_response.cuh reverb_build, from the
+// factors: 17 complex products in place of 34 of the 38 floats a bin of
+// the table holds (40 MB at n 2^19 against 210 KB of factors).
+struct FactoredTab {
+  const float4* u;  // the bin's row k2 of u
+  const float4* v;  // its row k1 of v
+  float2 apL, apR;
+
+  __device__ __forceinline__ float2 phasor(int d) const {
+    const float4 a4 = __ldg(u + (d >> 1));
+    const float4 b4 = __ldg(v + (d >> 1));
+    const float2 a = (d & 1) ? make_float2(a4.z, a4.w)
+                             : make_float2(a4.x, a4.y);
+    const float2 b = (d & 1) ? make_float2(b4.z, b4.w)
+                             : make_float2(b4.x, b4.y);
+    return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
   }
-  fftcore::fft_rows_dif<false>(s, cw, pitch, sp.log_n1, tw_s);
-
-  float2* m = scratch + (long long)blockIdx.y * sp.n;
-  const float step = -2.0f / (float)sp.n;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c = it & (cw - 1);
-    const int q = it >> log_cw;
-    const int k1 = bitrev(q, sp.log_n1);
-    const int j2 = j2_0 + c;
-    float sn, cs;
-    sincospif(step * (float)(k1 * j2), &sn, &cs);
-    m[((long long)k1 << sp.log_n2) + j2] =
-        cmul(s[c * pitch + sw(q)], make_float2(cs, sn));
+  __device__ __forceinline__ float2 z1() const { return phasor(0); }
+  __device__ __forceinline__ float2 comb(int ch, int j) const {
+    return phasor(1 + 8 * ch + j);
   }
-}
+  __device__ __forceinline__ float2 allpass(int ch) const {
+    return ch ? apR : apL;
+  }
+};
 
-// Row of slot sl in the block whose primary rows start at a: slots [0, R)
+// Row of slot sl in the tile whose primary rows start at a: slots [0, R)
 // are rows a..a+R-1, slots [R, 2R) their mirrors n1-k1; row 0 mirrors
 // itself, so its mirror slot carries row n1/2 (which mirrors itself too).
 __device__ __forceinline__ int slot_row(int sl, int a, int R, int n1) {
@@ -137,77 +163,125 @@ __device__ __forceinline__ int slot_row(int sl, int a, int R, int n1) {
   return k1 == 0 ? (n1 >> 1) : n1 - k1;
 }
 
-template <bool kResp>
-__global__ void __launch_bounds__(kThreads) fwd_rows_kernel(
-    const float2* __restrict__ scratch, float* __restrict__ o_lo_r,
-    float* __restrict__ o_lo_i, float* __restrict__ o_hi_r,
-    float* __restrict__ o_hi_i, const float2* __restrict__ tw, Split sp,
-    int b0, long long Fp, int log_rows, rp::Stages st) {
-  extern __shared__ float2 smem[];
-  float2* tw_s = smem;
-  float2* s = smem + (sp.n2 >> 1);
+// Pass 2 on row tile `tile` of candidate b, whose intermediate is at
+// slot: its R = 2^(log_rows - 1) rows from tile*R and their mirrors, 2R
+// rows in shared memory. The epilogue walks the tile's half-grid bins
+// (k2 < n2/2, the even positions q of each row) with neighbouring threads
+// on neighbouring slots, a thread on the same slot throughout (kThreads is
+// a multiple of 2R), so that the row's factors and the candidate's stage
+// scalars stay put. The Nyquist bin, at q = 1 of row 0, is thread 0's
+// last item.
+template <int kEpi>
+__device__ __forceinline__ void mirror_rows_tile(
+    const Plan& p, const float2* __restrict__ slot, const Outputs& o,
+    const rp::Stages& st, const Factors& fac, float2* s, const float2* tw2,
+    int b, int tile) {
+  const Split& sp = p.sp;
+  const int slots = 1 << p.log_rows;
+  const int R = slots >> 1;
   const int pitch = row_pitch(sp.n2);
-  const int rows = 1 << log_rows;
-  const int R = rows >> 1;
-  const int a = blockIdx.y * R;
-  const bool first = (a == 0);
-  const int b = b0 + blockIdx.x;
-  const float2* m = scratch + (long long)blockIdx.x * sp.n;
+  const int a = tile * R;
+  const bool first = a == 0;
+  // the candidate's stage scalars, (n_stages, 4) and then n_stages masks,
+  // read once into shared memory (a view with B = 1)
+  __shared__ float scalars[rp::kMaxStages * (rp::kParamsPerStage + 1)];
+  const int n_prm = st.n_stages * rp::kParamsPerStage;
+  if (kEpi == kResponse && threadIdx.x < n_prm + st.n_stages) {
+    const int i = threadIdx.x;
+    scalars[i] = i < n_prm ? st.params[(long long)i * st.B + b]
+                 : (st.active != nullptr
+                        ? st.active[(long long)(i - n_prm) * st.B + b]
+                        : 1.0f);
+  }
+  rp::Stages one = st;
+  one.params = scalars;
+  one.active = st.active != nullptr ? scalars + n_prm : nullptr;
+  one.B = 1;
 
-  fftcore::load_twiddles(tw_s, tw, sp.n2 >> 1, sp.n1 >> sp.log_n2);
-  for (int it = threadIdx.x; it < (rows << sp.log_n2); it += blockDim.x) {
+#pragma unroll 8
+  for (int it = threadIdx.x; it < (slots << sp.log_n2); it += kThreads) {
     const int j = it & (sp.n2 - 1);
     const int sl = it >> sp.log_n2;
     const int k1 = slot_row(sl, a, R, sp.n1);
-    s[sl * pitch + sw(j)] = m[((long long)k1 << sp.log_n2) + j];
+    s[sl * pitch + sw(j)] = __ldcg(slot + ((long long)k1 << sp.log_n2) + j);
   }
-  fftcore::fft_rows_dif<false>(s, rows, pitch, sp.log_n2, tw_s);
+  fftcore::fft_rows_dif_wide<false, false, 5>(s, slots, pitch, sp.log_n2,
+                                              tw2);
 
-  // Bin (k2, k1) of slot sl sits at position q = bitrev(k2) of its row; the
-  // bins of the half grid, k2 < n2/2, are the even q. One more bin, the
-  // Nyquist (n2/2, 0) at q = 1 of row 0, goes to the first block's thread 0.
-  const int main_items = rows << (sp.log_n2 - 1);
-  const int items = main_items + ((first && threadIdx.x == 0) ? blockDim.x : 0);
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    int sl, q;
-    if (it < main_items) {
-      sl = it & (rows - 1);
-      q = (it >> log_rows) << 1;
-    } else {
-      sl = 0;
-      q = 1;
-    }
+  // one bin: slot sl at position q, its mirror at (msl, mq)
+  auto emit = [&](int sl, int q, int msl, int mq, int k1) {
     const int k2 = bitrev(q, sp.log_n2);
-    const int k1 = slot_row(sl, a, R, sp.n1);
-    const bool self = first && (sl == 0 || sl == R);
-    const int msl = self ? sl : (sl ^ R);
-    const int mq = (first && sl == 0)
-                       ? bitrev((sp.n2 - k2) & (sp.n2 - 1), sp.log_n2)
-                       : sp.n2 - 1 - q;
     const int k = k2 * sp.n1 + k1;
-    const long long idx = (long long)b * Fp + k;
-    if (kResp) {
-      float tab[rp::kFreeverbRows];
-      rp::load_table(st, k, tab);
-      const rp::Coeffs c = rp::rp_coeffs(st, tab, b, k);
-      const float2 zlo = s[sl * pitch + sw(q)];
-      const float2 zrev = s[msl * pitch + sw(mq)];
-      float lo_r, lo_i, hi_r, hi_i;
-      rp::rp_apply(c, k == 0 || k == (sp.n >> 1), zlo.x, zlo.y, zrev.x,
+    const float2 zlo = s[sl * pitch + sw(q)];
+    const float2 zrev = s[msl * pitch + sw(mq)];
+    float lo_r = zlo.x, lo_i = zlo.y, hi_r = zrev.x, hi_i = zrev.y;
+    if (kEpi != kZ && fac.ap != nullptr) {
+      const long long pitch_ap = (sp.n >> 1) + 1;
+      const FactoredTab tab{
+          fac.u + k2 * (kFactorPitch / 2), fac.v + k1 * (kFactorPitch / 2),
+          make_float2(fac.ap[k], fac.ap[pitch_ap + k]),
+          make_float2(fac.ap[2 * pitch_ap + k], fac.ap[3 * pitch_ap + k])};
+      if (kEpi == kTableOnly) {
+        float sum = tab.apL.x + tab.apR.x;
+#pragma unroll
+        for (int d = 0; d < kPhasors; ++d) sum = sum + tab.phasor(d).x;
+        lo_r = lo_r + sum;
+      } else {
+        const rp::Coeffs cf = rp::rp_coeffs<rp::FastMath>(one, tab, 0, k);
+        rp::rp_apply(cf, k == 0 || k == (sp.n >> 1), zlo.x, zlo.y, zrev.x,
+                     zrev.y, lo_r, lo_i, hi_r, hi_i);
+      }
+    } else if (kEpi == kResponse) {
+      const rp::Coeffs cf = rp::rp_coeffs<rp::FastMath>(
+          one, FactoredTab{nullptr, nullptr, {}, {}}, 0, k);
+      rp::rp_apply(cf, k == 0 || k == (sp.n >> 1), zlo.x, zlo.y, zrev.x,
                    zrev.y, lo_r, lo_i, hi_r, hi_i);
-      o_lo_r[idx] = lo_r;
-      o_lo_i[idx] = lo_i;
-      o_hi_r[idx] = hi_r;
-      o_hi_i[idx] = hi_i;
-    } else {
-      const float2 zlo = s[sl * pitch + sw(q)];
-      const float2 zrev = s[msl * pitch + sw(mq)];
-      o_lo_r[idx] = zlo.x;
-      o_lo_i[idx] = zlo.y;
-      o_hi_r[idx] = zrev.x;
-      o_hi_i[idx] = zrev.y;
     }
+    const long long idx = (long long)b * o.Fp + k;
+    __stcs(o.lo_r + idx, lo_r);
+    __stcs(o.lo_i + idx, lo_i);
+    __stcs(o.hi_r + idx, hi_r);
+    __stcs(o.hi_i + idx, hi_i);
+  };
+
+  const int sl = threadIdx.x & (slots - 1);
+  const int k1 = slot_row(sl, a, R, sp.n1);
+  const int msl = (first && (sl == 0 || sl == R)) ? sl : (sl ^ R);
+  const int main_items = R << sp.log_n2;  // 2R rows x n2/2 bins
+  for (int it = threadIdx.x; it < main_items; it += kThreads) {
+    const int q = (it >> p.log_rows) << 1;
+    const int mq = (first && sl == 0)
+                       ? bitrev((sp.n2 - bitrev(q, sp.log_n2)) & (sp.n2 - 1),
+                                sp.log_n2)
+                       : sp.n2 - 1 - q;
+    emit(sl, q, msl, mq, k1);
   }
+  if (first && threadIdx.x == 0)  // the Nyquist bin (n2/2, 0), its own mirror
+    emit(0, 1, 0, 1, 0);
+}
+
+// Blocks an SM the forward is compiled for: two, at most 128 registers a
+// thread, as K10.
+constexpr int kForwardMinBlocks = 2;
+
+template <int kEpi>
+__global__ void __launch_bounds__(kThreads, kForwardMinBlocks) forward_kernel(
+    const float* __restrict__ x, Outputs o, float2* __restrict__ scratch,
+    const float2* __restrict__ tw, const float2* __restrict__ roots,
+    int* __restrict__ counters, Plan p, rp::Stages st, Factors fac) {
+  extern __shared__ float2 smem[];
+  const Split& sp = p.sp;
+  float2* tw1 = smem;                 // W_n1^j, j < n1/2
+  float2* tw2 = tw1 + (sp.n1 >> 1);   // W_n2^j, j < n2/2
+  float2* s = tw2 + (sp.n2 >> 1);
+  fftcore::load_twiddles(tw1, tw, sp.n1 >> 1, 1);
+  fftcore::load_twiddles(tw2, tw, sp.n2 >> 1, sp.n1 >> sp.log_n2);
+  // x is (B, 2, T): candidate b's L and R rows at b*2T and b*2T + T
+  fftpersist::run<false, 5>(
+      p, x, x + (p.in_stride >> 1), scratch, roots, s, tw1, counters,
+      [&](int c, int r, const float2* slot) {
+        mirror_rows_tile<kEpi>(p, slot, o, st, fac, s, tw2, c, r);
+      });
 }
 
 // ---------------------------------------------------------------- inverse
@@ -315,67 +389,113 @@ int make_split(int n1, int n2, int T, int B, int chunk, long long Fp,
   return 0;
 }
 
-template <bool kResp>
-int forward(const float* x, float* o0, float* o1, float* o2, float* o3,
-            float2* scratch, const float2* tw, int B, int T, int n1, int n2,
-            long long Fp, int chunk, const rp::Stages& st, void* stream_) {
+template <int kEpi>
+int forward(const float* x, const Outputs& o, float2* scratch,
+            const float2* tw, const float2* roots, int* counters, int B,
+            int T, int n1, int n2, const rp::Stages& st, const Factors& fac,
+            bool pass1_only, cudaStream_t stream) {
   Split sp;
-  if (make_split(n1, n2, T, B, chunk, Fp, &sp) != 0)
+  if (make_split(n1, n2, T, B, 1, o.Fp, &sp) != 0)
     return cudaErrorInvalidValue;
-  const int log_cw = min(tile_log(n1), sp.log_n2);
-  const int log_rows = min(tile_log(n2), sp.log_n1);
-  if (log_rows < 1) return cudaErrorInvalidValue;  // a row and its mirror
-  const size_t smem1 = smem_bytes(n1, log_cw);
-  const size_t smem2 = smem_bytes(n2, log_rows);
-  int err = allow_smem(fwd_cols_kernel, smem1);
-  if (err == 0) err = allow_smem(fwd_rows_kernel<kResp>, smem2);
+  Plan p;
+  p.sp = sp;
+  p.log_cw = std::min(tile_log(n1), sp.log_n2);
+  // a row and its mirror at least, and whole row pairs a thread's slot
+  p.log_rows = std::min(tile_log(n2), sp.log_n1);
+  if (p.log_rows < 1 || kThreads % (1 << p.log_rows) != 0)
+    return cudaErrorInvalidValue;
+  p.B = B;
+  p.in_rows = T >> sp.log_n2;
+  p.out_len = 0;
+  p.in_stride = 2LL * T;
+  p.n_p1 = n2 >> p.log_cw;
+  p.n_p2 = n1 >> p.log_rows;
+  p.pass1_only = pass1_only ? 1 : 0;
+  if ((long long)B * (p.n_p1 + p.n_p2) > 0x7fffffffLL)
+    return cudaErrorInvalidValue;
+  auto kernel = forward_kernel<kEpi>;
+  const size_t smem =
+      ((size_t)(n1 >> 1) + (size_t)(n2 >> 1) +
+       std::max((size_t)row_pitch(n1) << p.log_cw,
+                (size_t)row_pitch(n2) << p.log_rows)) *
+      sizeof(float2);
+  int err = allow_smem(kernel, smem);
+  int dev = 0, sms = 0, per_sm = 0;
+  if (err == 0) err = cudaGetDevice(&dev);
+  if (err == 0)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == 0)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kThreads, smem);
   if (err != 0) return err;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  for (int b0 = 0; b0 < B; b0 += chunk) {
-    const int nb = min(chunk, B - b0);
-    fwd_cols_kernel<<<dim3(n2 >> log_cw, nb), kThreads, smem1, stream>>>(
-        x, scratch, tw, sp, b0, T, log_cw);
-    fwd_rows_kernel<kResp>
-        <<<dim3(nb, n1 >> log_rows), kThreads, smem2, stream>>>(
-            scratch, o0, o1, o2, o3, tw, sp, b0, Fp, log_rows, st);
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
-  return 0;
+  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + 2 * B), stream);
+  if (err != 0) return err;
+  const int grid = std::min(fftpersist::tickets(p), per_sm * sms);
+  kernel<<<grid, kThreads, smem, stream>>>(x, o, scratch, tw, roots,
+                                           counters, p, st, fac);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// K5. x (B, 2, T); the four outputs (B, Fp); scratch chunk*n float2; tw the
-// n1/2 twiddles W_n1^j as float2.
+// The scratch slots the forward kernels need (candidates of n float2 each).
+extern "C" int mega_fft_scratch_slots() { return fftpersist::kRing; }
+
+// The forward kernels' common arguments: x (B, 2, T); the four outputs
+// (B, Fp); scratch mega_fft_scratch_slots()*n float2; tw the n1/2
+// twiddles W_n1^j as float2; roots the n2 coarse roots W_n^(h*n1), h < n2,
+// then the n1 fine ones W_n^l, l < n1; counters 1 + 2B ints (zeroed here).
+
+// K5.
 extern "C" int fwd_pack_fft_launch(const float* x, float* zlo_r, float* zlo_i,
                                    float* zrev_r, float* zrev_i,
-                                   void* scratch, const void* tw, int B,
+                                   void* scratch, const void* tw,
+                                   const void* roots, int* counters, int B,
                                    int T, int n1, int n2, long long Fp,
-                                   int chunk, void* stream) {
-  if (chunk > 65535) return cudaErrorInvalidValue;
-  return forward<false>(x, zlo_r, zlo_i, zrev_r, zrev_i,
-                        static_cast<float2*>(scratch),
-                        static_cast<const float2*>(tw), B, T, n1, n2, Fp,
-                        chunk, rp::Stages{}, stream);
+                                   void* stream) {
+  return forward<kZ>(x, Outputs{zlo_r, zlo_i, zrev_r, zrev_i, Fp},
+                     static_cast<float2*>(scratch),
+                     static_cast<const float2*>(tw),
+                     static_cast<const float2*>(roots), counters, B, T, n1,
+                     n2, rp::Stages{}, Factors{}, false,
+                     static_cast<cudaStream_t>(stream));
 }
 
-// K3. As K5, with the stages of packed_response_launch; table is the
-// (38, table_pitch) Freeverb rows indexed by bin, or null.
+// K3. As K5, with the stages of packed_response_launch. For a reverb
+// stage: ap the table's four allpass rows (bin k at column k, pitch
+// n/2 + 1), u and v the factors of its phasors (Factors: n2 and n1 rows of
+// kFactorPitch float2); null otherwise. stage < 0 runs the kernel; 0 to 3 are a stage timer's probes:
+// pass 1 alone, then pass 1 with pass 2 emitting Z, Z plus the Freeverb
+// values' loads and products alone, and the whole epilogue.
 extern "C" int fwd_pack_fft_response_launch(
     const float* x, float* ylo_r, float* ylo_i, float* yhi_r, float* yhi_i,
-    void* scratch, const void* tw, int B, int T, int n1, int n2, long long Fp,
-    int chunk, unsigned int codes, int n_stages, const float* params,
-    const float* active, const float* table, long long table_pitch, float w0,
-    float sr, void* stream) {
-  if (chunk > 65535) return cudaErrorInvalidValue;
-  const rp::Stages st{codes, n_stages,    params, active, table,
-                      table_pitch, B,     n1 * n2, w0,    sr};
-  if (rp::check_stages(st) != 0) return cudaErrorInvalidValue;
-  return forward<true>(x, ylo_r, ylo_i, yhi_r, yhi_i,
-                       static_cast<float2*>(scratch),
-                       static_cast<const float2*>(tw), B, T, n1, n2, Fp,
-                       chunk, st, stream);
+    void* scratch, const void* tw, const void* roots, int* counters, int B,
+    int T, int n1, int n2, long long Fp, unsigned int codes, int n_stages,
+    const float* params, const float* active, const float* ap, const void* u,
+    const void* v, float w0, float sr, int stage, void* stream) {
+  if (stage > 3) return cudaErrorInvalidValue;
+  // check_stages asks a reverb stage for a table: the allpass rows stand in
+  const rp::Stages st{codes, n_stages,    params, active, ap,
+                      (long long)n1 * n2 / 2 + 1, B, n1 * n2, w0, sr};
+  if (rp::check_stages(st) != 0 ||
+      (ap != nullptr && (u == nullptr || v == nullptr)))
+    return cudaErrorInvalidValue;
+  const Factors fac{static_cast<const float4*>(u),
+                    static_cast<const float4*>(v), ap};
+  const Outputs o{ylo_r, ylo_i, yhi_r, yhi_i, Fp};
+  float2* s = static_cast<float2*>(scratch);
+  const float2* w = static_cast<const float2*>(tw);
+  const float2* rt = static_cast<const float2*>(roots);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (stage == 1)
+    return forward<kZ>(x, o, s, w, rt, counters, B, T, n1, n2, st, fac, false,
+                       strm);
+  if (stage == 2)
+    return forward<kTableOnly>(x, o, s, w, rt, counters, B, T, n1, n2, st,
+                               fac, false, strm);
+  return forward<kResponse>(x, o, s, w, rt, counters, B, T, n1, n2, st, fac,
+                            stage == 0, strm);
 }
 
 // K4. The four inputs (B, Fp); y (B, 2, T).

@@ -52,7 +52,7 @@ __global__ void __launch_bounds__(kThreads) packed_response_kernel(
   const bool edge = (k == 0) || (k == F - 1);
 
   for (int b = b_begin; b < b_end; ++b) {
-    const rp::Coeffs c = rp::rp_coeffs(st, tab, b, k);
+    const rp::Coeffs c = rp::rp_coeffs(st, rp::ArrayTab{tab}, b, k);
     const long long idx = (long long)b * pitch + k;
     float lo_r, lo_i, hi_r, hi_i;
     rp::rp_apply(c, edge, zr[idx], zi[idx], zrr[idx], zri[idx], lo_r, lo_i,

@@ -71,22 +71,64 @@ __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
   ci = ar * bi + ai * br;
 }
 
+// How the response math divides and takes the delay's phasor. IeeeMath
+// (K9, K2): IEEE division and cosf/sinf of the rounded phase, as the plain
+// version computes them. FastMath (K3): the approximate divide (2 ulp, no
+// call to a slow path) and one sincosf of the same rounded phase (near a
+// comb's resonance the response magnifies a change of the phase's last
+// bit a thousandfold, so the phase rounds as the plain version's does);
+// inside K3's forward, which holds its registers to 128 around five-layer
+// butterflies, IEEE division's slow-path call made the response math 2.5
+// times K2's cost on the card (PERF.md).
+struct IeeeMath {
+  __device__ __forceinline__ static float div(float a, float b) {
+    return a / b;
+  }
+  // (cos, sin) of the delay's phase w0*m + w*Df (w = w0*k, w0 = 2 pi / n)
+  __device__ __forceinline__ static void cis(float w0, float w, long long m,
+                                             int k, float Df, int n,
+                                             float& c, float& s) {
+    const float th = __fadd_rn(__fmul_rn(w0, (float)m), __fmul_rn(w, Df));
+    c = cosf(th);
+    s = sinf(th);
+  }
+};
+
+struct FastMath {
+  __device__ __forceinline__ static float div(float a, float b) {
+    return __fdividef(a, b);
+  }
+  __device__ __forceinline__ static void cis(float w0, float w, long long m,
+                                             int, float Df, int, float& c,
+                                             float& s) {
+    sincosf(__fadd_rn(__fmul_rn(w0, (float)m), __fmul_rn(w, Df)), &s, &c);
+  }
+};
+
+// The delay's response. Its phase and 1 - fb*e^(i th) are taken with
+// rounded products and sums that no build contracts into a fused
+// multiply-add (__fmul_rn, __fadd_rn): near a resonance (fb up to 0.999)
+// the response magnifies their last bit a thousandfold, so they round as
+// the plain version's do in every kernel, whatever its build's flags.
+template <class M>
 __device__ __forceinline__ Resp delay_build(const float* p, int B, float w,
                                             float w0, int k, int n, float sr) {
-  const float D = p[0] * sr;
-  const float fb = p[B] * 0.999f;
+  const float D = __fmul_rn(p[0], sr);
+  const float fb = __fmul_rn(p[B], 0.999f);
   const float mix = p[2 * B];
   const float Di = floorf(D);
   const float Df = D - Di;
   const long long m = ((long long)k * (long long)Di) & (long long)(n - 1);
-  const float th = w0 * (float)m + w * Df;
-  const float c = cosf(th);
-  const float s = sinf(th);
-  const float dr = 1.0f - fb * c;
+  float c, s;
+  M::cis(w0, w, m, k, Df, n, c, s);
+  const float dr = 1.0f - __fmul_rn(fb, c);
   const float di = fb * s;
-  const float idd = 1.0f / (dr * dr + di * di);
-  const float hwr = (c * dr - s * di) * idd;
-  const float hwi = -(c * di + s * dr) * idd;
+  const float idd =
+      M::div(1.0f, __fadd_rn(__fmul_rn(dr, dr), __fmul_rn(di, di)));
+  const float hwr = __fmul_rn(__fsub_rn(__fmul_rn(c, dr), __fmul_rn(s, di)),
+                              idd);
+  const float hwi =
+      -__fmul_rn(__fadd_rn(__fmul_rn(c, di), __fmul_rn(s, dr)), idd);
   Resp r;
   r.mono = false;
   r.v[0] = (1.0f - mix) + mix * hwr;
@@ -120,18 +162,38 @@ __device__ __forceinline__ Resp widener_build(const float* p) {
   return r;
 }
 
+// The Freeverb values of one bin, from the (kFreeverbRows, table_pitch)
+// table of chain/rp_responses.py FREEVERB_ROWS held in registers: cos1,
+// sin1, combL_c[8], combL_s[8], combR_c[8], combR_s[8], apL_r, apL_i,
+// apR_r, apR_i. (K3 gives reverb_build another source of the same values,
+// mega_fft.cu FactoredTab.)
+struct ArrayTab {
+  const float* t;
+
+  __device__ __forceinline__ float2 z1() const {
+    return make_float2(t[0], t[1]);
+  }
+  // conj(zD) of comb j of channel ch (0 L, 1 R) as (cos, sin)
+  __device__ __forceinline__ float2 comb(int ch, int j) const {
+    return make_float2(t[2 + 16 * ch + j], t[10 + 16 * ch + j]);
+  }
+  __device__ __forceinline__ float2 allpass(int ch) const {
+    return make_float2(t[34 + 2 * ch], t[35 + 2 * ch]);
+  }
+};
+
 // sum of the 8 damped combs 1 / (conj(zD) - g/A), times the allpass product
-__device__ __forceinline__ void freeverb_channel(const float* cc,
-                                                 const float* ss, float apr,
-                                                 float api, float gAr,
-                                                 float gAi, float& hr,
-                                                 float& hi) {
+template <class M, class Tab>
+__device__ __forceinline__ void freeverb_channel(const Tab& tab, int ch,
+                                                 float gAr, float gAi,
+                                                 float& hr, float& hi) {
   float sr_ = 0.0f, si_ = 0.0f;
 #pragma unroll
   for (int j = 0; j < 8; ++j) {
-    const float wr = cc[j] - gAr;
-    const float wi = ss[j] - gAi;
-    const float idd = 1.0f / (wr * wr + wi * wi);
+    const float2 cs = tab.comb(ch, j);
+    const float wr = cs.x - gAr;
+    const float wi = cs.y - gAi;
+    const float idd = M::div(1.0f, wr * wr + wi * wi);
     const float r = wr * idd;
     const float i = -wi * idd;
     if (j == 0) {
@@ -142,28 +204,29 @@ __device__ __forceinline__ void freeverb_channel(const float* cc,
       si_ = si_ + i;
     }
   }
-  cmul(sr_, si_, apr, api, hr, hi);
+  const float2 ap = tab.allpass(ch);
+  cmul(sr_, si_, ap.x, ap.y, hr, hi);
 }
 
-// tab rows: cos1, sin1, combL_c[8], combL_s[8], combR_c[8], combR_s[8],
-// apL_r, apL_i, apR_r, apR_i (chain/rp_responses.py FREEVERB_ROWS)
+template <class M, class Tab>
 __device__ __forceinline__ Resp reverb_build(const float* p, int B,
-                                             const float* tab) {
+                                             const Tab& tab) {
   const float fb = p[0] * 0.28f + 0.7f;
   const float d = p[B] * 0.4f;
   const float g = fb * (1.0f - d);
   const float wet = p[2 * B];
   const float width = p[3 * B];
 
-  const float Ar = 1.0f - d * tab[0];
-  const float Ai = d * tab[1];
-  const float q = g / (Ar * Ar + Ai * Ai);
+  const float2 z1 = tab.z1();
+  const float Ar = 1.0f - d * z1.x;
+  const float Ai = d * z1.y;
+  const float q = M::div(g, Ar * Ar + Ai * Ai);
   const float gAr = q * Ar;
   const float gAi = -q * Ai;
 
   float HLr, HLi, HRr, HRi;
-  freeverb_channel(tab + 2, tab + 10, tab[34], tab[35], gAr, gAi, HLr, HLi);
-  freeverb_channel(tab + 18, tab + 26, tab[36], tab[37], gAr, gAi, HRr, HRi);
+  freeverb_channel<M>(tab, 0, gAr, gAi, HLr, HLi);
+  freeverb_channel<M>(tab, 1, gAr, gAi, HRr, HRi);
 
   const float gain_in = 0.015f;
   const float wet1 = 0.5f * wet * 3.0f * (1.0f + width) * gain_in;
@@ -243,9 +306,12 @@ struct Coeffs {
 };
 
 // Candidate b, bin k: every stage's response, bypass-blended and composed,
-// as packed coefficients. Kept apart from rp_apply() so that a kernel loads
-// the spectra only after this, the long part, is done with its registers.
-__device__ __forceinline__ Coeffs rp_coeffs(const Stages& st, const float* tab,
+// as packed coefficients, the reverb's bin values from tab (ArrayTab or
+// another source of them), divisions and the delay's phasor as M takes
+// them. Kept apart from rp_apply() so that a kernel loads the spectra only
+// after this, the long part, is done with its registers.
+template <class M = IeeeMath, class Tab>
+__device__ __forceinline__ Coeffs rp_coeffs(const Stages& st, const Tab& tab,
                                             int b, int k) {
   const float w = st.w0 * (float)k;
   Resp h;
@@ -254,13 +320,13 @@ __device__ __forceinline__ Coeffs rp_coeffs(const Stages& st, const float* tab,
     const float* p = st.params + (long long)s * kParamsPerStage * st.B + b;
     Resp h2;
     if (code == kDelay) {
-      h2 = delay_build(p, st.B, w, st.w0, k, st.n, st.sr);
+      h2 = delay_build<M>(p, st.B, w, st.w0, k, st.n, st.sr);
     } else if (code == kGain) {
       h2 = gain_build(p);
     } else if (code == kWidener) {
       h2 = widener_build(p);
     } else {
-      h2 = reverb_build(p, st.B, tab);
+      h2 = reverb_build<M>(p, st.B, tab);
     }
     if (st.active != nullptr) bypass(h2, st.active[(long long)s * st.B + b]);
     h = (s == 0) ? h2 : compose(h, h2);

@@ -16,8 +16,8 @@
 // The recurrences and the tile loop are scan_core.cuh's, which K1
 // (eqcomp.cu) runs too; K7's compressor is K1's after its cascade. The plain
 // PyTorch versions (st_ito_torch/ops/kernels/scan.py) do the same
-// operations in the same order; built with -fmad=false, K6 and K11 match
-// them bitwise, and so does the first chunk of K7 and K8.
+// operations in the same order; built with -fmad=false, K11 matches its
+// plain version bitwise, and so does the first chunk of K6, K7 and K8.
 //
 // Bound: bytes. K6 at the CLI's headline (1024 lanes x 262144 samples)
 // writes 1.07 GB and reads the 2 MB shared input (0.32 ms at the H100 SXM's
@@ -26,15 +26,19 @@
 // 1024 lanes x 262144 reads and writes 1.07 GB each (0.64 ms). K8 at the
 // style chain's 512 lanes reads 0.54 GB and writes 0.54 GB (0.32 ms). K11
 // at 1024 lanes reads two sequences and writes one, 3.22 GB (0.96 ms).
-// K6 and K11 are latency-bound instead: one thread carries one lane over
-// all of T with its state in registers, so the headline has 1024 threads
-// in flight. K7 and K8 run as chunked scans (scan_core.cuh
-// run_chunked_detector: three passes over chunks of Lc samples, each
-// (32-lane block, chunk) pair a warp, and two serial carries per lane), so
-// that 256 or 512 chunks fill the card; they read their input three times
-// and write once, and their carries round differently from the serial
-// chain after the first chunk. The carry table is the caller's: 4 floats
-// per chunk and lane.
+// K11 is latency-bound instead: one thread carries one lane over all of T
+// with its state in registers, so 1024 lanes are 1024 threads in flight.
+// K6, K7 and K8 run as chunked scans (each (32-lane block, chunk of Lc
+// samples) pair a warp, so that 256 or 512 chunks fill the card, and
+// serial carries per lane between the chunks), whose carries round
+// differently from the serial chain after the first chunk. K6 is
+// scan_core.cuh run_chunked_linear: pass A (the cascade from rest over
+// each chunk), one carry of the 2S-value state through Phi = A^Lc, formed
+// and applied in double, and pass D (the cascade from the carried state,
+// then the bypass blend); it reads its input twice and writes once. K7
+// and K8 are run_chunked_detector: three passes, two carries; they read
+// their input three times and write once. The carry tables are the
+// caller's: 2S floats per chunk and lane for K6, 4 for K7 and K8.
 //
 // C entry points, each returning cudaGetLastError():
 //   biquad_cascade_launch(...), compressor_fused_launch(...),
@@ -47,18 +51,6 @@
 namespace {
 
 using scancore::kTile;
-
-template <int S>
-__global__ void __launch_bounds__(kTile) biquad_cascade_kernel(
-    const float* __restrict__ x, int shared_channels,
-    const float* __restrict__ vec, float* __restrict__ out, int lanes,
-    long long T, int with_active) {
-  const int lane0 = blockIdx.x * kTile;
-  scancore::BiquadCascade<S> op(vec, lanes,
-                                scancore::lane_index(lanes, lane0),
-                                with_active);
-  scancore::run_tiles(op, x, shared_channels, out, lanes, T, lane0);
-}
 
 // K8's detector policy (scan_core.cuh run_chunked_detector): vec rows,
 // each (lanes,): aa, ar; the input is c itself and the output g.
@@ -111,18 +103,24 @@ __global__ void __launch_bounds__(kTile) linear_recurrence_kernel(
 
 }  // namespace
 
+// K6 takes a carry table of ceil(T / chunk_len) * 2S * lanes floats;
+// chunk_len a positive multiple of 32. stage < 0 runs the whole scan, and
+// 0 to 2 only that stage of it (a tool times them apart).
 extern "C" int biquad_cascade_launch(const float* x, int shared_channels,
-                                     const float* vec, float* out, int lanes,
-                                     long long T, int num_sections,
-                                     int with_active, void* stream) {
+                                     const float* vec, float* out,
+                                     float* table, int lanes, long long T,
+                                     int num_sections, int with_active,
+                                     long long chunk_len, int stage,
+                                     void* stream) {
   // The basic parametric EQ, the only EQ any chain plans into this kernel,
   // has 6 sections; other counts are instantiated when a chain needs them.
-  if (lanes <= 0 || T <= 0 || shared_channels < 0 || num_sections != 6)
+  if (shared_channels < 0 || num_sections != 6 ||
+      !scancore::chunked_args_ok(lanes, T, chunk_len))
     return cudaErrorInvalidValue;
-  biquad_cascade_kernel<6><<<scancore::blocks_for(lanes), kTile, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      x, shared_channels, vec, out, lanes, T, with_active);
-  return static_cast<int>(cudaGetLastError());
+  return scancore::run_chunked_linear<scancore::BiquadCascade<6>,
+                                      scancore::BiquadCascade<6, double>>(
+      x, shared_channels, vec, out, table, lanes, T, chunk_len, with_active,
+      stage, static_cast<cudaStream_t>(stream));
 }
 
 // K8 and K7 take a carry table of ceil(T / chunk_len) * 4 * lanes floats;
@@ -132,7 +130,7 @@ extern "C" int ballistics_launch(const float* c, const float* vec, float* out,
                                  float* table, int lanes, long long T,
                                  long long chunk_len, int stage,
                                  void* stream) {
-  if (!scancore::chunked_detector_args_ok(lanes, T, chunk_len))
+  if (!scancore::chunked_args_ok(lanes, T, chunk_len))
     return cudaErrorInvalidValue;
   return scancore::run_chunked_detector<BallisticsDetector>(
       c, vec, out, table, lanes, T, chunk_len, 0, stage,
@@ -144,7 +142,7 @@ extern "C" int compressor_fused_launch(const float* x, const float* vec,
                                        long long T, int with_active,
                                        long long chunk_len, int stage,
                                        void* stream) {
-  if (!scancore::chunked_detector_args_ok(lanes, T, chunk_len))
+  if (!scancore::chunked_args_ok(lanes, T, chunk_len))
     return cudaErrorInvalidValue;
   return scancore::run_chunked_detector<CompressorDetector>(
       x, vec, out, table, lanes, T, chunk_len, with_active, stage,

@@ -16,15 +16,17 @@
 // input sample (or, with two input sequences, one pair) to one output
 // sample with step().
 //
-// The chunked scans (K1, eqcomp.cu; K7 and K8, scan.cu) split T into chunks
-// of Lc samples, each walked by its own warp with run_tiles_span from a
-// given state, and pass the state between chunks with small serial carries
-// per lane: linear_chunk_carry (a linear state, e.g. the cascade's 2S
-// values, through Phi = A^Lc), minaffine_chunk_carry (the release stage of
-// the ballistics, through the chunk's composed min-affine map, MinAffine)
-// and onepole_chunk_carry (the attack stage, through aa^Lc). K7 and K8 run
-// the detector's passes and carries as written once at the end of this
-// file (run_chunked_detector); K1 keeps its own, with its cascade.
+// The chunked scans (K1, eqcomp.cu; K6, K7 and K8, scan.cu) split T into
+// chunks of Lc samples, each walked by its own warp with run_tiles_span
+// from a given state, and pass the state between chunks with small serial
+// carries per lane: linear_chunk_carry (a linear state, e.g. the cascade's
+// 2S values, through Phi = A^Lc), minaffine_chunk_carry (the release stage
+// of the ballistics, through the chunk's composed min-affine map,
+// MinAffine) and onepole_chunk_carry (the attack stage, through aa^Lc).
+// K6 runs a linear state's passes and carry as written once at the end of
+// this file (run_chunked_linear), K7 and K8 the detector's
+// (run_chunked_detector); K1 runs the linear scan's pass A and carry, then
+// passes of its own, with its cascade.
 
 #pragma once
 
@@ -38,14 +40,16 @@ constexpr int kTile = 32;
 // per sample y = b0*v + s1; s1' = b1*v - a1*y + s2; s2' = b2*v - a2*y;
 // v = y, then with a bypass mask act*v + (1-act)*x.
 // vec rows, each (lanes,): 5 per section (b0, b1, b2, a1, a2), then act
-// when with_active.
-template <int S>
+// when with_active. F is the type of the arithmetic: float in every pass;
+// double only where K6's chunk carry forms Phi (linear_chunk_carry).
+template <int S, class F = float>
 struct BiquadCascade {
+  using Value = F;
   // the state as rows of a carry table: row 2s is s1 of section s, row
   // 2s + 1 its s2
   static constexpr int kStateRows = 2 * S;
-  float b0[S], b1[S], b2[S], a1[S], a2[S], s1[S], s2[S];
-  float act;
+  F b0[S], b1[S], b2[S], a1[S], a2[S], s1[S], s2[S];
+  F act;
   int with_active;
 
   __device__ __forceinline__ BiquadCascade(const float* __restrict__ vec,
@@ -59,22 +63,22 @@ struct BiquadCascade {
       b2[s] = vec[(5 * s + 2) * L + li];
       a1[s] = vec[(5 * s + 3) * L + li];
       a2[s] = vec[(5 * s + 4) * L + li];
-      s1[s] = 0.0f;
-      s2[s] = 0.0f;
+      s1[s] = F(0);
+      s2[s] = F(0);
     }
-    act = with_active ? vec[5 * S * L + li] : 1.0f;
+    act = with_active ? F(vec[5 * S * L + li]) : F(1);
   }
 
-  __device__ __forceinline__ float step(float xin) {
-    float v = xin;
+  __device__ __forceinline__ F step(F xin) {
+    F v = xin;
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      const float y = b0[s] * v + s1[s];
+      const F y = b0[s] * v + s1[s];
       s1[s] = b1[s] * v - a1[s] * y + s2[s];
       s2[s] = b2[s] * v - a2[s] * y;
       v = y;
     }
-    if (with_active) v = act * v + (1.0f - act) * xin;
+    if (with_active) v = act * v + (F(1) - act) * xin;
     return v;
   }
 
@@ -100,13 +104,13 @@ struct BiquadCascade {
   __device__ __forceinline__ void set_unit_state(int i) {
 #pragma unroll
     for (int s = 0; s < S; ++s) {
-      s1[s] = (2 * s == i) ? 1.0f : 0.0f;
-      s2[s] = (2 * s + 1 == i) ? 1.0f : 0.0f;
+      s1[s] = (2 * s == i) ? F(1) : F(0);
+      s2[s] = (2 * s + 1 == i) ? F(1) : F(0);
     }
   }
 
-  __device__ __forceinline__ float state(int r) const {
-    float v = 0.0f;
+  __device__ __forceinline__ F state(int r) const {
+    F v = F(0);
 #pragma unroll
     for (int s = 0; s < S; ++s) {
       if (2 * s == r) v = s1[s];
@@ -328,29 +332,33 @@ __device__ __forceinline__ float pow_n(float x, long long n) {
 // f_k the chunk's end state from rest (rows row0 .. row0 + R - 1 of the
 // table on entry). A block is 32 lanes x R threads (thread i*32 + l: row i,
 // lane lane0 + l). Column i of Phi is the unit state e_i stepped Lc times
-// with input 0 by the op's own step(), so it rounds as the op does.
+// with input 0 by the op's own step(), so it rounds as the op does, and
+// the products and sums of the chain are taken in the op's type
+// (Op::Value): float for K1, double for K6 (run_chunked_linear). Each
+// chunk's starting state is stored rounded to float.
 template <class Op>
 __device__ __forceinline__ void linear_chunk_carry(
     Op& op, float* __restrict__ table, int rows, int row0, int lanes,
     int lane0, long long Lc, int nchunks) {
+  using F = typename Op::Value;
   constexpr int R = Op::kStateRows;
   static_assert(R <= 32, "at most 32 state rows");
-  __shared__ float phi[R][R][kTile + 1];
-  __shared__ float sv[R][kTile];
+  __shared__ F phi[R][R][kTile + 1];
+  __shared__ F sv[R][kTile];
   const int i = threadIdx.x / kTile;
   const int l = threadIdx.x % kTile;
   if (nchunks > 1) {
     op.set_unit_state(i);
-    for (long long t = 0; t < Lc; ++t) op.step(0.0f);
+    for (long long t = 0; t < Lc; ++t) op.step(F(0));
 #pragma unroll
     for (int r = 0; r < R; ++r) phi[r][i][l] = op.state(r);
   }
   __syncthreads();
-  float row[R];
+  F row[R];
 #pragma unroll
-  for (int j = 0; j < R; ++j) row[j] = nchunks > 1 ? phi[i][j][l] : 0.0f;
-  float s = 0.0f;
-  sv[i][l] = 0.0f;
+  for (int j = 0; j < R; ++j) row[j] = nchunks > 1 ? phi[i][j][l] : F(0);
+  F s = F(0);
+  sv[i][l] = F(0);
   __syncthreads();
 
   const bool ok = lane0 + l < lanes;
@@ -368,12 +376,12 @@ __device__ __forceinline__ void linear_chunk_carry(
     for (int u = 0; u < kBatch; ++u) {
       const int k = k0 + u;
       if (k >= nchunks) break;
-      if (ok) p[k * stride] = s;
+      if (ok) p[k * stride] = (float)s;
       if (k == nchunks - 1) break;
-      float acc = 0.0f;
+      F acc = F(0);
 #pragma unroll
       for (int j = 0; j < R; ++j) acc = acc + row[j] * sv[j][l];
-      acc = acc + f[u];
+      acc = acc + F(f[u]);
       __syncthreads();
       sv[i][l] = s = acc;
       __syncthreads();
@@ -502,12 +510,16 @@ struct ChunkSpan {
     return lane0 + (int)threadIdx.x < lanes;
   }
 
+  // the chunk's samples of rows of T, or of the shared (C, T) input when
+  // shared_channels = C > 0
   template <bool kStore, class Op>
   __device__ __forceinline__ void walk(Op& op, const float* __restrict__ x,
+                                       int shared_channels,
                                        float* __restrict__ out, int lanes,
                                        long long T) const {
     const float* const xs[1] = {x};
-    run_tiles_span<1, kStore>(op, xs, 0, out, lanes, T, lane0, t0, t1);
+    run_tiles_span<1, kStore>(op, xs, shared_channels, out, lanes, T, lane0,
+                              t0, t1);
   }
 };
 
@@ -546,7 +558,7 @@ __global__ void __launch_bounds__(kTile) detector_release_pass(
     int flags) {
   const ChunkSpan sp(lanes, T, Lc);
   ReleaseCompose<D> op{D(vec, lanes, sp.li, flags), {}};
-  sp.walk<false>(op, x, nullptr, lanes, T);
+  sp.walk<false>(op, x, 0, nullptr, lanes, T);
   if (sp.stores(lanes)) {
     float* p = table + DetectorTable::at(sp.k, DetectorTable::kY1, lanes,
                                          sp.li);
@@ -571,7 +583,7 @@ __global__ void __launch_bounds__(kTile) detector_attack_pass(
   const ChunkSpan sp(lanes, T, Lc);
   DetectorStep<D, false> op(D(vec, lanes, sp.li, flags));
   op.det.y1 = table[DetectorTable::at(sp.k, DetectorTable::kY1, lanes, sp.li)];
-  sp.walk<false>(op, x, nullptr, lanes, T);
+  sp.walk<false>(op, x, 0, nullptr, lanes, T);
   if (sp.stores(lanes))
     table[DetectorTable::at(sp.k, DetectorTable::kG, lanes, sp.li)] =
         op.det.g;
@@ -596,12 +608,13 @@ __global__ void __launch_bounds__(kTile) detector_out_pass(
   DetectorStep<D, true> op(D(vec, lanes, sp.li, flags));
   op.det.y1 = table[DetectorTable::at(sp.k, DetectorTable::kY1, lanes, sp.li)];
   op.det.g = table[DetectorTable::at(sp.k, DetectorTable::kG, lanes, sp.li)];
-  sp.walk<true>(op, x, out, lanes, T);
+  sp.walk<true>(op, x, 0, out, lanes, T);
 }
 
-// Whether the launch arguments are ones the chunked detector takes: chunks
-// a positive multiple of the tile, both grid dimensions in range.
-inline bool chunked_detector_args_ok(int lanes, long long T, long long Lc) {
+// Whether the launch arguments are ones the chunked scans take (K1, K6, K7,
+// K8): chunks a positive multiple of the tile, both grid dimensions in
+// range.
+inline bool chunked_args_ok(int lanes, long long T, long long Lc) {
   return lanes > 0 && T > 0 && Lc > 0 && Lc % kTile == 0 &&
          blocks_for(lanes) <= 65535 && (T + Lc - 1) / Lc <= 0x7fffffffLL;
 }
@@ -633,6 +646,92 @@ int run_chunked_detector(const float* x, const float* vec, float* out,
   if (all || stage == 4)
     detector_out_pass<D><<<dim3(nchunks, lane_blocks), kTile, 0, stream>>>(
         x, vec, table, out, lanes, T, Lc, flags);
+  return static_cast<int>(cudaGetLastError());
+}
+
+
+// ------------------------------------------------- the chunked linear scan
+//
+// An op whose state is linear (its step with input 0 is s -> A s; K6: the
+// cascade's 2S values) as a chunked scan in the shape of K1's pass A, first
+// carry and pass D. Op(vec, lanes, li, flags) reads lane li's column of
+// vec; Op::kStateRows rows of state go through a carry table of `rows`
+// floats per chunk and lane (the state in rows 0 .. kStateRows - 1, at
+// table[(k * rows + row) * lanes + lane]). Every (32-lane block, chunk)
+// pair of a pass is a warp of its own (grid (chunks, lane blocks)). The
+// three stages, in order:
+//   A. chunk k < n-1 from rest: its end state f_k (the op with flags 0);
+//   1. s_{k+1} = Phi s_k + f_k, Phi = A^Lc, in CarryOp's type
+//      (linear_chunk_carry; K1 float, K6 double);
+//   D. every chunk from s_k with the op's whole step (flags as given), the
+//      only pass that writes.
+// A population-shared (C, T) input (shared_channels = C > 0) is read in
+// place by both passes. Chunk 0 starts from rest, as the serial chain
+// does, and matches it bitwise.
+
+template <class Op>
+__global__ void __launch_bounds__(kTile) linear_state_pass(
+    const float* __restrict__ x, int shared_channels,
+    const float* __restrict__ vec, float* __restrict__ table, int rows,
+    int lanes, long long T, long long Lc) {
+  const ChunkSpan sp(lanes, T, Lc);
+  Op op(vec, lanes, sp.li, 0);
+  sp.walk<false>(op, x, shared_channels, nullptr, lanes, T);
+  if (sp.stores(lanes))
+    op.store_state(table + ((long long)sp.k * rows) * lanes + sp.li, lanes);
+}
+
+template <class CarryOp>
+__global__ void __launch_bounds__(kTile * CarryOp::kStateRows)
+    linear_state_carry(const float* __restrict__ vec,
+                       float* __restrict__ table, int rows, int lanes,
+                       long long Lc, int nchunks) {
+  // thread i*32 + l builds column i of lane lane0 + l's Phi (lane 0's past
+  // the last lane)
+  const int lane0 = blockIdx.x * kTile;
+  const int l = threadIdx.x % kTile;
+  CarryOp op(vec, lanes, lane0 + l < lanes ? lane0 + l : 0, 0);
+  linear_chunk_carry(op, table, rows, 0, lanes, lane0, Lc, nchunks);
+}
+
+template <class Op>
+__global__ void __launch_bounds__(kTile) linear_state_out_pass(
+    const float* __restrict__ x, int shared_channels,
+    const float* __restrict__ vec, const float* __restrict__ table,
+    float* __restrict__ out, int rows, int lanes, long long T, long long Lc,
+    int flags) {
+  const ChunkSpan sp(lanes, T, Lc);
+  Op op(vec, lanes, sp.li, flags);
+  op.load_state(table + ((long long)sp.k * rows) * lanes + sp.li, lanes);
+  sp.walk<true>(op, x, shared_channels, out, lanes, T);
+}
+
+// Launch the three stages in order on the stream, or only stage `stage`
+// (0 A, 1 the carry, 2 D) when it is not negative, so that a tool can time
+// them apart. table: nchunks x Op::kStateRows x lanes floats. The
+// arguments as chunked_args_ok() takes them. Returns
+// cudaGetLastError().
+template <class Op, class CarryOp>
+int run_chunked_linear(const float* x, int shared_channels, const float* vec,
+                       float* out, float* table, int lanes, long long T,
+                       long long Lc, int flags, int stage,
+                       cudaStream_t stream) {
+  static_assert(Op::kStateRows == CarryOp::kStateRows, "one state");
+  constexpr int rows = Op::kStateRows;
+  const int nchunks = (int)((T + Lc - 1) / Lc);
+  const int lane_blocks = blocks_for(lanes);
+  const bool all = stage < 0;
+  if ((all || stage == 0) && nchunks > 1)
+    linear_state_pass<Op><<<dim3(nchunks - 1, lane_blocks), kTile, 0,
+                            stream>>>(x, shared_channels, vec, table, rows,
+                                      lanes, T, Lc);
+  if (all || stage == 1)
+    linear_state_carry<CarryOp><<<lane_blocks, kTile * rows, 0, stream>>>(
+        vec, table, rows, lanes, Lc, nchunks);
+  if (all || stage == 2)
+    linear_state_out_pass<Op><<<dim3(nchunks, lane_blocks), kTile, 0,
+                                stream>>>(x, shared_channels, vec, table,
+                                          out, rows, lanes, T, Lc, flags);
   return static_cast<int>(cudaGetLastError());
 }
 

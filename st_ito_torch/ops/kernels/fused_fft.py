@@ -25,30 +25,13 @@ import math
 import torch
 
 from st_ito_torch.ops.kernels import _build
-# the same n = n1*n2 split, size limit, twiddle table and scratch cache as
-# K5, K3 and K4
-from st_ito_torch.ops.kernels.mega_fft import _MAX_N, _radix, _scratch, \
-    _twiddles
+# the same n = n1*n2 split, size limit, twiddle and root tables and scratch
+# cache as K5, K3 and K4
+from st_ito_torch.ops.kernels.mega_fft import _MAX_N, _radix, _roots, \
+    _scratch, _twiddles
 
 # Kernel launches since the last reset (chip_smoke.py reads it).
 launches = 0
-
-_ROOTS: dict = {}
-
-
-def _roots(n: int, dev) -> torch.Tensor:
-    """The n-th roots the kernel's twiddle W_n^(k1*j2) is made of, as
-    (n2 + n1, 2) float32 computed in float64: W_n^(h*n1) for h < n2, then
-    W_n^l for l < n1 (k1*j2 = h*n1 + l); built once per (n, device)."""
-    key = (n, dev)
-    if key not in _ROOTS:
-        n1, n2 = _radix(n)
-        e = torch.cat([torch.arange(n2, dtype=torch.float64) * n1,
-                       torch.arange(n1, dtype=torch.float64)])
-        ang = (-2.0 * math.pi / n) * e
-        _ROOTS[key] = torch.stack([torch.cos(ang), torch.sin(ang)], -1).to(
-            device=dev, dtype=torch.float32).contiguous()
-    return _ROOTS[key]
 
 
 def scratch_slots() -> int:

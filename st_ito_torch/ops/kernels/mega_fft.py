@@ -20,7 +20,10 @@ the plain versions write zeros) and K4 never reads it into a sum. Pitched
 rows are 16-byte aligned, which rows of the odd F = n/2 + 1 are not.
 
 The CUDA kernels are ``st_ito_torch/csrc/mega_fft.cu`` (float32 butterfly
-FFTs, ``csrc/fft_core.cuh``). Beside each wrapper stands its plain PyTorch
+FFTs, ``csrc/fft_core.cuh``; K5 and K3 one persistent launch each on the
+scheduler of ``csrc/fft_persist.cuh``; K3 forms the Freeverb table's
+phasors from row and column factors, ``freeverb_factors``, and reads only
+the table's allpass rows). Beside each wrapper stands its plain PyTorch
 version (``torch.fft`` with the flip and reassembly glue of ``ops/lti.py``),
 which the CPU tests use and the card never runs on the main path: a
 wrapper takes the plain version only for a CPU tensor, and on any other
@@ -44,10 +47,10 @@ from st_ito_torch.utils import phase_timer
 launches = {"fwd_pack_fft": 0, "fwd_pack_fft_response": 0,
             "inv_unpack_fft": 0}
 
-# Candidates per pass over the scratch (n complex64 each: 256 MB at the
-# headline n = 2^19). It bounds the scratch, nothing else: on the card small
-# chunks that keep the intermediate in the L2 cache lose more to their short
-# launches' partly filled last wave than they gain (PERF.md).
+# K4's candidates per pass over its scratch (n complex64 each: 256 MB at
+# the headline n = 2^19). It bounds the scratch, nothing else: on the card
+# small chunks that keep the intermediate in the L2 cache lose more to their
+# short launches' partly filled last wave than they gain (PERF.md).
 CHUNK = 64
 # the kernels form the twiddle index k1*j2 < n exactly in float32
 _MAX_N = 1 << 24
@@ -150,10 +153,62 @@ def _twiddles(n1: int, dev) -> torch.Tensor:
     return _TWIDDLES[key]
 
 
+_ROOTS: dict = {}
+
+
+def _roots(n: int, dev) -> torch.Tensor:
+    """The n-th roots the persistent kernels' twiddle W_n^(k1*j2) is made
+    of, as (n2 + n1, 2) float32 computed in float64: W_n^(h*n1) for h < n2,
+    then W_n^l for l < n1 (k1*j2 = h*n1 + l); built once per (n, device)."""
+    key = (n, dev)
+    if key not in _ROOTS:
+        n1, n2 = _radix(n)
+        e = torch.cat([torch.arange(n2, dtype=torch.float64) * n1,
+                       torch.arange(n1, dtype=torch.float64)])
+        ang = (-2.0 * math.pi / n) * e
+        _ROOTS[key] = torch.stack([torch.cos(ang), torch.sin(ang)], -1).to(
+            device=dev, dtype=torch.float32).contiguous()
+    return _ROOTS[key]
+
+
+# the Freeverb table's allpass rows (chain/rp_responses.py FREEVERB_ROWS)
+ALLPASS_ROWS = slice(34, 38)
+# a factor row's phasors and its pad (csrc/mega_fft.cu kFactorPitch)
+FACTOR_PITCH = 18
+_FACTORS: dict = {}
+
+
+def freeverb_factors(delays, n: int, dev):
+    """(u, v): the factors of the Freeverb table's phasors over the
+    four-step grid. The phasor of delay D at bin k = k2*n1 + k1 is
+    e^(i 2 pi k D / n) = e^(i 2 pi (k2 D mod n2) / n2) e^(i 2 pi (k1 D mod
+    n) / n): u (n2, FACTOR_PITCH, 2) and v (n1, FACTOR_PITCH, 2) float32
+    (cos, sin), row k holding the factor of each delay (the table's 17
+    phasors: z^-1, then the combs of L and of R) and a zero pad, formed in
+    float64 from the exact integer phases. Built once per (delays, n,
+    device)."""
+    key = (tuple(delays), n, dev)
+    if key not in _FACTORS:
+        n1, n2 = _radix(n)
+        D = torch.tensor(delays, dtype=torch.int64)[None, :]
+
+        def phasors(k, m):
+            ang = (2.0 * math.pi / m) * ((k[:, None] * D) % m).double()
+            out = torch.zeros((len(k), FACTOR_PITCH, 2), dtype=torch.float64)
+            out[:, :D.shape[1]] = torch.stack([torch.cos(ang),
+                                               torch.sin(ang)], -1)
+            return out.to(device=dev, dtype=torch.float32).contiguous()
+
+        _FACTORS[key] = (phasors(torch.arange(n2), n2),
+                         phasors(torch.arange(n1), n))
+    return _FACTORS[key]
+
+
 def _scratch(n: int, chunk: int, dev) -> torch.Tensor:
-    """The four-step intermediate of one chunk of candidates, (chunk, n, 2)
-    float32, allocated once per (n, chunk, device) and shared by the three
-    kernels: each call's passes run in order on one stream."""
+    """The four-step intermediate of `chunk` candidates, (chunk, n, 2)
+    float32, allocated once per (n, chunk, device) and shared by the
+    kernels that take as many (K4's chunk; the ring of K5, K3 and K10):
+    each call's passes run in order on one stream."""
     key = (n, chunk, dev)
     if key not in _SCRATCH:
         _SCRATCH[key] = torch.empty((chunk, n, 2), dtype=torch.float32,
@@ -168,8 +223,8 @@ def _device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _common_args(n: int, B: int, dev):
-    """(scratch, twiddles, n1, n2, Fp, chunk) of one launch."""
+def _inverse_args(n: int, B: int, dev):
+    """(scratch, twiddles, n1, n2, Fp, chunk) of one K4 launch."""
     if n > _MAX_N:
         raise ValueError(f"the mega_fft kernels take n <= {_MAX_N}, got {n}")
     n1, n2 = _radix(n)
@@ -186,59 +241,86 @@ def _check_x(x: torch.Tensor, n: int) -> None:
     _check_nT(n, x.shape[-1])
 
 
-_FWD_ARGS = ([ctypes.c_void_p] * 7
-             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int])
+def scratch_slots() -> int:
+    """The candidates the forward kernels' scratch ring holds (builds the
+    kernels)."""
+    fn = _build.load("mega_fft").mega_fft_scratch_slots
+    fn.restype = ctypes.c_int
+    return fn()
+
+
+def _forward_args(x: torch.Tensor, n: int):
+    """(dev, the four outputs, the counters, the persistent forward's
+    common arguments) of one launch. The caller holds the counters until it
+    has launched: freed earlier, their memory could go to a tensor made in
+    between (the stage parameters), which the kernel's zeroing of its
+    counters would then overwrite."""
+    dev = _device(x)
+    _check_x(x, n)
+    if n > _MAX_N:
+        raise ValueError(f"the mega_fft kernels take n <= {_MAX_N}, got {n}")
+    B, _, T = x.shape
+    n1, n2 = _radix(n)
+    Rp, _ = half_grid(n)
+    outs = [torch.empty((B, Rp, n1), dtype=torch.float32, device=dev)
+            for _ in range(4)]
+    counters = torch.empty(1 + 2 * B, dtype=torch.int32, device=dev)
+    ptrs = (x.data_ptr(), *(o.data_ptr() for o in outs),
+            _scratch(n, scratch_slots(), dev).data_ptr(),
+            _twiddles(n1, dev).data_ptr(), _roots(n, dev).data_ptr(),
+            counters.data_ptr(), B, T, n1, n2, Rp * n1)
+    return dev, outs, counters, ptrs
+
+
+_FWD_ARGS = [ctypes.c_void_p] * 9 + [ctypes.c_int] * 4 + [ctypes.c_longlong]
 
 
 def fwd_pack_fft_cuda(x: torch.Tensor, n: int):
     """Launch K5 on the current stream."""
     lib = _build.load("mega_fft")
-    dev = _device(x)
-    _check_x(x, n)
-    B, _, T = x.shape
-    scratch, tw, n1, n2, Fp, chunk = _common_args(n, B, dev)
-    outs = [torch.empty((B, Fp // n1, n1), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+    dev, outs, counters, ptrs = _forward_args(x, n)
     fn = lib.fwd_pack_fft_launch
     fn.argtypes = _FWD_ARGS + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
-             tw.data_ptr(), B, T, n1, n2, Fp, chunk,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fwd_pack_fft_launch failed: CUDA error {err}")
     launches["fwd_pack_fft"] += 1
     return tuple(outs)
 
 
-def fwd_pack_fft_response_cuda(x: torch.Tensor, stages, n: int, tables):
-    """Launch K3 on the current stream."""
+def fwd_pack_fft_response_cuda(x: torch.Tensor, stages, n: int, tables,
+                               stage: int = -1):
+    """Launch K3 on the current stream. ``stage`` >= 0 launches one of the
+    kernel's timing probes instead (``tools/k3_stages.py``): 0 pass 1
+    alone, 1 to 3 pass 1 and pass 2 emitting Z, Z plus the Freeverb
+    values' loads and products, and the whole epilogue."""
     lib = _build.load("mega_fft")
-    dev = _device(x)
-    _check_x(x, n)
-    B, _, T = x.shape
-    F = n // 2 + 1
-    scratch, tw, n1, n2, Fp, chunk = _common_args(n, B, dev)
+    dev, outs, counters, ptrs = _forward_args(x, n)
+    B, F = x.shape[0], n // 2 + 1
     codes, n_stages, prm, act, table, sr = _pr.stage_args(stages, B, F,
                                                           tables, dev)
-    outs = [torch.empty((B, Fp // n1, n1), dtype=torch.float32, device=dev)
-            for _ in range(4)]
+    ap = u = v = None
+    if table is not None:
+        ap = table[ALLPASS_ROWS]  # rows of the contiguous (38, F) table
+        u, v = freeverb_factors(tables["reverb"]["_phasor_delays"], n, dev)
     fn = lib.fwd_pack_fft_response_launch
     fn.argtypes = _FWD_ARGS + [
-        ctypes.c_uint, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_longlong, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p]
+        ctypes.c_uint, ctypes.c_int] + [ctypes.c_void_p] * 5 + [
+        ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
-    err = fn(x.data_ptr(), *(o.data_ptr() for o in outs), scratch.data_ptr(),
-             tw.data_ptr(), B, T, n1, n2, Fp, chunk, codes, n_stages,
-             prm.data_ptr(), _pr.data_ptr(act), _pr.data_ptr(table), F,
-             2.0 * math.pi / n, sr,
-             torch.cuda.current_stream(dev).cuda_stream)
+    err = fn(*ptrs, codes, n_stages, prm.data_ptr(), _pr.data_ptr(act),
+             *(_pr.data_ptr(t) for t in (ap, u, v)), 2.0 * math.pi / n, sr,
+             stage, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError("fwd_pack_fft_response_launch failed: CUDA error "
                            f"{err}")
     launches["fwd_pack_fft_response"] += 1
     return tuple(outs)
+
+
+_INV_ARGS = ([ctypes.c_void_p] * 7
+             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int])
 
 
 def inv_unpack_fft_cuda(YloR, YloI, YhigR, YhigI, n: int, T: int):
@@ -253,10 +335,10 @@ def inv_unpack_fft_cuda(YloR, YloI, YhigR, YhigI, n: int, T: int):
                 or not v.is_contiguous() or tuple(v.shape) != shape):
             raise ValueError("inv_unpack_fft takes four contiguous float32 "
                              f"{shape} tensors on one CUDA device")
-    scratch, tw, n1, n2, Fp, chunk = _common_args(n, B, dev)
+    scratch, tw, n1, n2, Fp, chunk = _inverse_args(n, B, dev)
     y = torch.empty((B, 2, T), dtype=torch.float32, device=dev)
     fn = lib.inv_unpack_fft_launch
-    fn.argtypes = _FWD_ARGS + [ctypes.c_void_p]
+    fn.argtypes = _INV_ARGS + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(YloR.data_ptr(), YloI.data_ptr(), YhigR.data_ptr(),
              YhigI.data_ptr(), y.data_ptr(), scratch.data_ptr(),

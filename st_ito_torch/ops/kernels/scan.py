@@ -7,11 +7,12 @@ Ports of ``st_ito_tpu/ops/pallas/scan.py:133 biquad_cascade_pallas``,
 ``st_ito_torch/csrc/scan.cu``; beside them here are their plain PyTorch
 versions, Python loops over T on (lanes,) tensors in the kernels' order of
 operations (K7's gain computer and gain, which carry no state, are taken
-over the whole (lanes, T) block around its loop). K7 and K8 run as chunked
-scans (``detector_chunk_len`` picks the chunk): their carries round
-differently from the serial chain, so they are held to their plain versions
-by the two rules of ``chunked.gate_excess``, with a float64 run of the
-plain version (``dtype=torch.float64``) as the witness. The wrappers
+over the whole (lanes, T) block around its loop). K6, K7 and K8 run as
+chunked scans (``cascade_chunk_len`` and ``detector_chunk_len`` pick the
+chunk): their carries round differently from the serial chain, so they are
+held to their plain versions by the two rules of ``chunked.gate_excess``,
+with a float64 run of the plain version (``dtype=torch.float64``) as the
+witness. The wrappers
 ``biquad_cascade``, ``compressor_fused``, ``ballistics`` and
 ``linear_recurrence`` run the plain version for a CPU tensor and the kernel
 for any other: on a CUDA tensor they launch the kernel or raise.
@@ -32,6 +33,9 @@ launches = {"biquad_cascade": 0, "compressor_fused": 0, "ballistics": 0,
 
 # the section count K6 is instantiated for (the basic parametric EQ)
 KERNEL_SECTIONS = 6
+# K6's carry table: the cascade's state, 2 values per section, per chunk
+# and lane (csrc/scan_core.cuh run_chunked_linear)
+CASCADE_ROWS = 2 * KERNEL_SECTIONS
 # K7's and K8's carry table: the MinAffine (k, b, m) whose first row becomes
 # y1, then g, per chunk and lane (csrc/scan_core.cuh DetectorTable)
 DETECTOR_ROWS = 4
@@ -53,6 +57,12 @@ def _check_cuda(*tensors):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def cascade_chunk_len(lanes: int, T: int) -> int:
+    """K6's chunk length for (lanes, T) (``chunked.chunk_len``): 1024 at
+    the CLI's 1024 lanes x 262144 (256 chunks)."""
+    return chunked.chunk_len(lanes, T, CASCADE_ROWS)
 
 
 def detector_chunk_len(lanes: int, T: int) -> int:
@@ -115,16 +125,20 @@ def biquad_cascade_inputs(x, b, a, active=None, shared_lead_shape=None):
 
 
 def biquad_cascade_plain(x_in, vec, num_sections: int, with_active: bool,
-                         shared_channels: int) -> torch.Tensor:
+                         shared_channels: int,
+                         dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K6: the same operations in the same order,
-    one time step at a time over all lanes. Returns (lanes, T)."""
+    one time step at a time over all lanes. Returns (lanes, T) in
+    ``dtype``: float32 (the kernel's arithmetic) or float64 (a witness of
+    its rounding)."""
     S = num_sections
     lanes = vec.shape[1]
+    x_in, vec = x_in.to(dtype), vec.to(dtype)
     if shared_channels:
         x_in = x_in[torch.arange(lanes, device=x_in.device) % shared_channels]
     co = [[vec[5 * s + j] for j in range(5)] for s in range(S)]
     act = vec[5 * S] if with_active else None
-    st = [[torch.zeros(lanes, dtype=torch.float32, device=x_in.device)
+    st = [[torch.zeros(lanes, dtype=dtype, device=x_in.device)
            for _ in range(2)] for _ in range(S)]
     cols = []
     for xin in x_in.unbind(-1):
@@ -143,7 +157,9 @@ def biquad_cascade_plain(x_in, vec, num_sections: int, with_active: bool,
 
 def biquad_cascade_cuda(x_in, vec, num_sections: int, with_active: bool,
                         shared_channels: int) -> torch.Tensor:
-    """Launch K6 on the current stream. Returns (lanes, T)."""
+    """Launch K6 on the current stream, in chunks of
+    ``cascade_chunk_len(lanes, T)`` samples. Returns (lanes, T). Its three
+    launches count as one."""
     lib = _build.load("scan")
     _check_cuda(x_in, vec)
     lanes = vec.shape[1]
@@ -157,13 +173,18 @@ def biquad_cascade_cuda(x_in, vec, num_sections: int, with_active: bool,
     if shared_channels == 0 and x_in.shape[0] != lanes:
         raise ValueError(f"x has {x_in.shape[0]} lanes, vec {lanes}")
     out = torch.empty((lanes, T), dtype=torch.float32, device=x_in.device)
+    L = cascade_chunk_len(lanes, T)
+    table = torch.empty((-(-T // L), CASCADE_ROWS, lanes),
+                        dtype=torch.float32, device=x_in.device)
     fn = lib.biquad_cascade_launch
     fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
-                   ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+                   ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     err = fn(x_in.data_ptr(), shared_channels, vec.data_ptr(), out.data_ptr(),
-             lanes, T, num_sections, int(with_active), _stream(x_in))
+             table.data_ptr(), lanes, T, num_sections, int(with_active), L,
+             -1, _stream(x_in))
     if err != 0:
         raise RuntimeError(f"biquad cascade kernel launch failed: CUDA error "
                            f"{err}")
@@ -172,8 +193,9 @@ def biquad_cascade_cuda(x_in, vec, num_sections: int, with_active: bool,
 
 
 def biquad_cascade(x, b, a, active=None, shared_lead_shape=None):
-    """Exact serial biquad cascade over the last axis, parallel over the
-    leading dims. x: (..., T), or the population-shared (C, T) input with
+    """The biquad cascade over the last axis, parallel over the leading
+    dims (on the card a chunked scan, held to the serial chain by
+    ``chunked.gate_excess``). x: (..., T), or the population-shared (C, T) input with
     ``shared_lead_shape=(B, C)``; b, a: (..., S, 3) with a0 = 1, broadcast
     against the leading dims; ``active``: optional float bypass mask
     broadcastable to them (1.0 = filter on), blended at write time.

@@ -5,11 +5,12 @@ kernel with the entry point of the two-pass design (a source given by
 
     python3 -m st_ito_torch.tools.k10_sweep [--parent DIR]
 
-Each variant is a copy of ``fused_fft.cu`` under ``build/k10_sweep/`` with
-other constants: the butterfly layers a step in both directions
-(``kMaxLayers``; the larger steps are compiled out), the lag
-between a chunk's two passes, the depth of the scratch ring, and plain
-loads of the input in place of the streaming hint. All are built at once
+Each variant is a copy of ``fused_fft.cu`` and the headers beside it
+under ``build/k10_sweep/NAME/`` with other constants: the butterfly layers
+a step in both directions (``kMaxLayers``; the larger steps are compiled
+out), the lag between a chunk's two passes and the depth of the scratch
+ring (``fft_persist.cuh``, which K5 and K3 share), and plain loads of the
+input in place of the streaming hint. All are built at once
 by nvcc with the port's flags; each is checked against ``torch.fft`` and
 timed forward (B 512, in_len 2^18 -> 2^19 bins) and inverse (2^19 ->
 out_len 2^18), 5 launches after a warm-up, with CUDA events. Needs a card.
@@ -35,27 +36,35 @@ N, B, T = 2 ** 19, 512, 2 ** 18
 
 
 def write_variants(out: Path) -> dict:
-    src = (_build.CSRC / "fused_fft.cu").read_text()
     variants = {}
     for cap, lag, ring, streaming in VARIANTS:
         name = f"cap{cap}_lag{lag}_ring{ring}_cs{streaming}"
-        s = src.replace("constexpr int kLag = 3;", f"constexpr int kLag = {lag};")
-        s = s.replace("constexpr int kRing = 9;", f"constexpr int kRing = {ring};")
-        s = s.replace("constexpr int kMaxLayers = kInverse ? 4 : 5;",
-                      f"constexpr int kMaxLayers = {cap};")
-        if not streaming:
-            s = s.replace("make_float2(__ldcs(zr + t), __ldcs(zi + t))",
-                          "make_float2(zr[t], zi[t])")
-        (out / f"{name}.cu").write_text(s)
-        variants[name] = out / f"{name}.cu"
+        d = out / name
+        d.mkdir(parents=True, exist_ok=True)
+        for header in _build.CSRC.glob("*.cuh"):
+            text = header.read_text()
+            if header.name == "fft_persist.cuh":
+                text = text.replace("constexpr int kLag = 3;",
+                                    f"constexpr int kLag = {lag};")
+                text = text.replace("constexpr int kRing = 9;",
+                                    f"constexpr int kRing = {ring};")
+                if not streaming:
+                    text = text.replace(
+                        "make_float2(__ldcs(zr + t), __ldcs(zi + t))",
+                        "make_float2(zr[t], zi[t])")
+            (d / header.name).write_text(text)
+        s = (_build.CSRC / "fused_fft.cu").read_text().replace(
+            "constexpr int kMaxLayers = kInverse ? 4 : 5;",
+            f"constexpr int kMaxLayers = {cap};")
+        (d / "fused_fft.cu").write_text(s)
+        variants[name] = d / "fused_fft.cu"
     return variants
 
 
 def build(sources: dict, out: Path) -> None:
     procs = {name: subprocess.Popen(
         [_build._nvcc()] + _build._ARCH + _build._COMMON
-        + ["-fmad=false", "-I", str(_build.CSRC), "-o",
-           str(out / f"lib{name}.so"), str(path)],
+        + ["-fmad=false", "-o", str(out / f"lib{name}.so"), str(path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         for name, path in sources.items()}
     for name, proc in procs.items():

@@ -1,18 +1,19 @@
 """Time the chunked scans at several chunk lengths at their headline shapes:
 K1 (``csrc/eqcomp.cu``, 1024 lanes x 262144 on the shared input of
-``chip_smoke.py``'s ``k1`` phase), K8 (512 lanes) and K7 (1024 lanes, with
-its bypass row), the last two (``scan_core.cuh run_chunked_detector``) also
-stage by stage, with CUDA events between the launches, so that the carries
-are timed apart from the passes.
+``chip_smoke.py``'s ``k1`` phase), K6 (the same lanes on the shared input
+of its ``scan`` phase), K8 (512 lanes) and K7 (1024 lanes, with its bypass
+row), the last three (``scan_core.cuh run_chunked_linear`` and
+``run_chunked_detector``) also stage by stage, with CUDA events between the
+launches, so that the carries are timed apart from the passes.
 
-    python3 -m st_ito_torch.tools.k1_chunks [--kernels k1,k7,k8]
+    python3 -m st_ito_torch.tools.k1_chunks [--kernels k1,k6,k7,k8]
                                              [--parent DIR]
 
 The wrappers pick the chunk (``chunked.chunk_len``); here the libraries are
 called directly with each length. For K1 the kernel is then held against
 float32 and float64 runs of the plain version lane by lane, listing the
 lanes farthest from rule (a) of ``eqcomp.gate_excess`` (the plain runs take
-minutes: a Python loop over T). For K7 and K8 each length's output is
+minutes: a Python loop over T). For K6, K7 and K8 each length's output is
 compared with the wrapper's (``chip_smoke.py`` holds that one to the plain
 version). ``--parent DIR`` also builds K1 from another checkout's sources
 (``DIR/st_ito_torch/csrc/eqcomp.cu`` with the headers beside it, e.g. from
@@ -34,8 +35,11 @@ import chip_smoke as cs
 from st_ito_torch.ops.kernels import _build, eqcomp, scan
 
 CHUNKS = (1024, 512, 2048, 256)
-# the stages of run_chunked_detector, by its stage argument
-STAGES = ("pass B", "carry 1", "pass C", "carry 2", "pass D")
+# the stages of run_chunked_linear (K6) and run_chunked_detector (K7, K8),
+# by their stage argument
+STAGES = {"k6": ("pass A", "carry", "pass D"),
+          "k7": ("pass B", "carry 1", "pass C", "carry 2", "pass D")}
+STAGES["k8"] = STAGES["k7"]
 
 
 def k1_launch(args, L, lib=None):
@@ -114,15 +118,22 @@ def k1_against_parent(parent: str) -> bool:
     return same
 
 
-def detector_launch(name, args, L, stage, out, table):
-    """One launch of K8 (``name`` "k8", args (c, vec)) or K7 ("k7", args
-    (x, vec, with_active)) in chunks of L, all stages (stage -1) or one."""
+def scan_launch(name, args, L, stage, out, table):
+    """One launch of K6 (``name`` "k6", args (x, vec, S, with_active,
+    shared_channels)), K8 ("k8", args (c, vec)) or K7 ("k7", args (x, vec,
+    with_active)) in chunks of L, all stages (stage -1) or one."""
     lib = _build.load("scan")
     x, vec = args[0], args[1]
-    lanes, T = x.shape
+    lanes, T = vec.shape[1], x.shape[-1]
     stream = torch.cuda.current_stream(x.device).cuda_stream
     P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "k8":
+    if name == "k6":
+        fn = lib.biquad_cascade_launch
+        fn.argtypes = [P, I, P, P, P, I, LL, I, I, LL, I, P]
+        err = fn(x.data_ptr(), args[4], vec.data_ptr(), out.data_ptr(),
+                 table.data_ptr(), lanes, T, args[2], int(args[3]), L, stage,
+                 stream)
+    elif name == "k8":
         fn = lib.ballistics_launch
         fn.argtypes = [P, P, P, P, I, LL, LL, I, P]
         err = fn(x.data_ptr(), vec.data_ptr(), out.data_ptr(),
@@ -136,53 +147,60 @@ def detector_launch(name, args, L, stage, out, table):
         raise RuntimeError(f"CUDA error {err}")
 
 
-def sweep_detector(name, args, reps=5):
-    x = args[0]
-    lanes, T = x.shape
-    ref = (scan.ballistics_cuda if name == "k8"
-           else scan.compressor_fused_cuda)(*args)
+def sweep_scan(name, args, reps=5):
+    """K6, K7 or K8 at each of CHUNKS, whole and stage by stage."""
+    x, vec = args[0], args[1]
+    lanes, T = vec.shape[1], x.shape[-1]
+    if name == "k6":
+        ref = scan.biquad_cascade_cuda(*args)
+        want, rows = scan.cascade_chunk_len(lanes, T), scan.CASCADE_ROWS
+    else:
+        ref = (scan.ballistics_cuda if name == "k8"
+               else scan.compressor_fused_cuda)(*args)
+        want, rows = scan.detector_chunk_len(lanes, T), scan.DETECTOR_ROWS
     print(f"{name.upper()} headline lanes {lanes}, T {T}: the wrapper's "
-          f"chunk {scan.detector_chunk_len(lanes, T)}", flush=True)
+          f"chunk {want}", flush=True)
+    stages = STAGES[name]
     for L in CHUNKS:
-        out = torch.empty_like(x)
-        table = torch.empty((-(-T // L), scan.DETECTOR_ROWS, lanes),
-                            device=x.device)
-        ms = cs.cuda_ms(lambda: detector_launch(name, args, L, -1, out,
-                                                table), reps)
+        out = torch.empty_like(ref)
+        table = torch.empty((-(-T // L), rows, lanes), device=x.device)
+        ms = cs.cuda_ms(lambda: scan_launch(name, args, L, -1, out, table),
+                        reps)
         diff = float((out - ref).abs().max())
         # the stages apart: an event after each launch
         ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(STAGES) + 1)]
-        parts = [0.0] * len(STAGES)
+              for _ in range(len(stages) + 1)]
+        parts = [0.0] * len(stages)
         for _ in range(reps):
             torch.cuda.synchronize()
             ev[0].record()
-            for s in range(len(STAGES)):
-                detector_launch(name, args, L, s, out, table)
+            for s in range(len(stages)):
+                scan_launch(name, args, L, s, out, table)
                 ev[s + 1].record()
             ev[-1].synchronize()
-            for s in range(len(STAGES)):
+            for s in range(len(stages)):
                 parts[s] += ev[s].elapsed_time(ev[s + 1]) / reps
-        stages = ", ".join(f"{n} {p!r}" for n, p in zip(STAGES, parts))
+        times = ", ".join(f"{n} {p!r}" for n, p in zip(stages, parts))
         print(f"{name.upper()} chunk {L} ({-(-T // L)} chunks): {ms!r} ms; "
-              f"{stages} ms; max |out - wrapper's| {diff!r}", flush=True)
+              f"{times} ms; max |out - wrapper's| {diff!r}", flush=True)
 
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernels", default="k1,k7,k8",
-                        help="comma-separated subset of k1,k7,k8")
+    parser.add_argument("--kernels", default="k1,k6,k7,k8",
+                        help="comma-separated subset of k1,k6,k7,k8")
     parser.add_argument("--parent", help="a checkout whose K1 this one's "
                         "must equal bit for bit")
     args = parser.parse_args()
     kernels = args.kernels.split(",")
     dev = torch.device("cuda")
     print(cs.card_line(), flush=True)
+    if "k6" in kernels:
+        sweep_scan("k6", cs.k6_inputs(cs.POP, 2, cs.T_HEAD, 42, True, dev))
     if "k8" in kernels:
-        sweep_detector("k8", cs.k8_inputs(cs.POP, cs.T_HEAD, 44, dev))
+        sweep_scan("k8", cs.k8_inputs(cs.POP, cs.T_HEAD, 44, dev))
     if "k7" in kernels:
-        sweep_detector("k7", cs.k7_inputs(cs.POP, 2, cs.T_HEAD, 48, True,
-                                          dev))
+        sweep_scan("k7", cs.k7_inputs(cs.POP, 2, cs.T_HEAD, 48, True, dev))
     if "k1" in kernels:
         sweep_k1()
     if args.parent and not k1_against_parent(args.parent):

@@ -20,6 +20,8 @@ from st_ito_tpu.ops.pallas.packed_response import (
     packed_response_apply_rp_padded as jax_k2,
 )
 
+import chip_smoke as cs
+from st_ito_torch.chain import rp_responses as rp
 from st_ito_torch.ops.kernels import mega_fft as mf
 from st_ito_torch.ops.kernels import packed_response as k9
 
@@ -239,7 +241,8 @@ def _card_case(n, T, dev):
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,T", SIZES)
 def test_fft_kernels_match_plain_on_card(cuda_device, monkeypatch, n, T):
-    # 37 candidates in scratch chunks of 8: four full ones and a ragged one
+    # 37 candidates: K4 in scratch chunks of 8, four full ones and a ragged
+    # one; K5 and K3 through their ring of 9 slots four times over
     monkeypatch.setattr(mf, "CHUNK", 8)
     _, x, stages, xd, stages_d = _card_case(n, T, cuda_device)
     before = dict(mf.launches)
@@ -272,3 +275,55 @@ def test_k2_kernel_matches_plain_on_card(cuda_device, n, T):
     torch.cuda.synchronize()
     assert k9.launches_padded == before + 1
     _assert_rel(_valid([g.cpu() for g in got], n), _valid(want, n), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,T", SIZES)
+def test_k3_kernel_matches_k5_k2_on_card(cuda_device, n, T):
+    """K3 within 1e-4 x max|want| of K5 -> K2 on the card (it forms the
+    Freeverb phasors from factors and divides approximately, so no longer
+    bitwise)."""
+    _, _, _, xd, stages_d = _card_case(n, T, cuda_device)
+    tables = k9.rp_tables(["delay", "reverb"], SR, n, cuda_device)
+    want = k9.packed_response_apply_rp_padded(*mf.fwd_pack_fft(xd, n),
+                                              stages_d, tables, n)
+    got = mf.fwd_pack_fft_response(xd, stages_d, n, SR)
+    torch.cuda.synchronize()
+    _assert_rel(_valid([g.cpu() for g in got], n),
+                _valid([w.cpu() for w in want], n), 1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,T", SIZES)
+def test_k3_kernel_holds_on_comb_resonances_on_card(cuda_device, n, T):
+    """At the delay's resonances K3 (the approximate divide, the factored
+    phasors) stays within 1e-4 x max|want| of its plain version and of
+    K5 -> K2."""
+    Bc = 37
+    x = torch.from_numpy(_x(n, T, 13, Bx=Bc))
+    stages = cs.resonant_stage_case(Bc, np.random.default_rng(14), "cpu")
+    stages_d = _t_stages(stages, cuda_device)
+    xd = x.to(cuda_device)
+    got = mf.fwd_pack_fft_response(xd, stages_d, n, SR)
+    want = mf.fwd_pack_fft_response(x, stages, n, SR)
+    split = k9.packed_response_apply_rp_padded(
+        *mf.fwd_pack_fft(xd, n), stages_d,
+        k9.rp_tables(["delay", "reverb"], SR, n, cuda_device), n)
+    torch.cuda.synchronize()
+    got = _valid([g.cpu() for g in got], n)
+    _assert_rel(got, _valid(want, n), 1e-4)
+    _assert_rel(got, _valid([s.cpu() for s in split], n), 1e-4)
+
+
+def test_resonant_stages_sit_on_resonances():
+    """The whole delays are exact, so some bins of each candidate have
+    k D = 0 mod n and the plain response peaks near 1 / (1 - 0.999) there."""
+    n = SIZES[0][0]
+    stages = cs.resonant_stage_case(37, np.random.default_rng(14), "cpu")
+    D = stages[0][1]["delay_seconds"] * SR
+    assert len(cs.RESONANT_D) >= 10 and torch.equal(D, torch.round(D))
+    tables = k9.rp_tables(["delay"], SR, n, "cpu")
+    kind, (hr, hi) = rp.delay_build(
+        {k: v[:, None] for k, v in stages[0][1].items()}, tables["delay"])
+    mag = torch.sqrt(hr * hr + hi * hi)
+    assert float(mag.amax(1).min()) > 900.0

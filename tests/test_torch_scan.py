@@ -19,12 +19,13 @@ output's peak: measured 5.5e-5 on K6's 3.77 peak (a low, high-Q section
 amplifies the rounding) and 2.3e-5 on K8's 29.4. From a float64 run of the
 same recurrences the port stays within 1.5x of JAX's distance (K6 6.6e-5
 against JAX's 7.4e-5, K8 2.2e-5 against 1.6e-5; K7 7.1e-7 against 8.2e-7
-on a 1.9 peak, K11 2.1e-6 against 1.7e-6 on 10.6). On the card K6 and K11
-are held to their plain versions bit for bit; K7 and K8, chunked scans whose
+on a 1.9 peak, K11 2.1e-6 against 1.7e-6 on 10.6). On the card K11 is
+held to its plain version bit for bit; K6, K7 and K8, chunked scans whose
 carries round differently from the serial chain, by the two rules of
 ``chunked.gate_excess`` against float32 and float64 runs of the plain
-versions, with the first chunk bit for bit (``test_torch_dynamics_chunked``
-holds a torch model of their passes to the same rules on the CPU)."""
+versions, with the first chunk bit for bit (``test_torch_biquad_chunked``
+and ``test_torch_dynamics_chunked`` hold torch models of their passes to
+the same rules on the CPU)."""
 
 import numpy as np
 import pytest
@@ -309,14 +310,18 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("shared", [True, False])
 def test_k6_kernel_matches_plain_on_card(cuda_device, shared):
-    # 74 lanes: three 32-lane blocks, the last one ragged; T ragged too
+    # 74 lanes: three 32-lane blocks, the last one ragged; T 2000 in 8
+    # chunks of 256 (the last ragged). K6 is a chunked scan: the first
+    # chunk bitwise, then the two rules of chunked.gate_excess, (a) on every
+    # lane where the float32 plain run lies within 1e-4 x peak of float64
     B, C, T = 37, 2, 2000
     x, b, a, act = k6_case(B, C, T, 6, shared)
     lead = (B, C) if shared else None
-    want = scan.biquad_cascade(torch.from_numpy(x), torch.from_numpy(b),
-                               torch.from_numpy(a),
-                               active=torch.from_numpy(act),
-                               shared_lead_shape=lead)
+    args = scan.biquad_cascade_inputs(
+        torch.from_numpy(x), torch.from_numpy(b), torch.from_numpy(a),
+        active=torch.from_numpy(act), shared_lead_shape=lead)[:5]
+    want32 = scan.biquad_cascade_plain(*args)
+    want64 = scan.biquad_cascade_plain(*args, dtype=torch.float64)
     before = scan.launches["biquad_cascade"]
     got = scan.biquad_cascade(*(torch.from_numpy(v).to(cuda_device)
                                 for v in (x, b, a)),
@@ -324,7 +329,11 @@ def test_k6_kernel_matches_plain_on_card(cuda_device, shared):
                               shared_lead_shape=lead)
     torch.cuda.synchronize()
     assert scan.launches["biquad_cascade"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    got = got.cpu().reshape(want32.shape)
+    L = scan.cascade_chunk_len(B * C, T)
+    assert torch.equal(got[:, :L], want32[:, :L])
+    excess = chunked.gate_excess(got, want32, want64=want64)
+    assert excess["b"] <= 0.0 and excess["a_miss_plain_near"] == 0, excess
 
 
 def _hold_chunked(got, want32, want64, T):
