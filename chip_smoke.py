@@ -20,11 +20,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    ragged candidate chunk) and at the main path's B=512; then its time;
 5. ``fft``: K5, K4, K2 and K3 (the packed FFT pair, the pitched response
    kernel and the forward FFT with the response as its epilogue) each
-   against its plain version (torch.fft plus glue), B=37 at n=2^14 (n1=n2=128) and n=2^15 (n1=256, n2=128)
-   with T=n/2 and T<n/2, K4 with NaN written into every bin it must not
-   read; K3 also against K5 -> K2, and on the delay's comb resonances
-   (whole delays, the top feedback, fully wet) at n=2^14, B=37 and n=2^19,
-   B=64; then at the headline n=2^19, B=512 in full; the groups K3 -> K4,
+   against its plain version (torch.fft plus glue), B=37 at n=2^14
+   (n1=n2=128) and n=2^15 (n1=256, n2=128) with T=n/2 and T<n/2, K4 with
+   NaN written into every bin it must not read, and K4 alone so at B=1, 2,
+   9 and 10 (its scheduler below the lag between a candidate's passes, and
+   its ring of 9 slots filled and taken again); K3 also against K5 -> K2;
+   K3, K2 and K9 on the delay's comb resonances (whole delays, the top
+   feedback, fully wet) at n=2^14, B=37 and n=2^19, B=64; then at the
+   headline n=2^19, B=512 in full; the groups K3 -> K4,
    K5 -> K2 -> K4 and K10 -> K9 -> K10 against the mx path there; K10 (the
    planar complex DFT of the fused path) against its plain version
    (torch.fft) at B=37, forward with a guard band and inverse with an
@@ -82,9 +85,9 @@ counts such lanes (at K6's headline also where the kernel lies at most
 ``chunked.A_EXCUSE`` = 1.25x as far from float64 as that run does);
 K11 atol 1e-4 (it is expected to match bitwise: the log
 says whether it does); every other kernel 1e-4 x max|want|
-per output array on the valid bins (K9 and K2 match bitwise; an FFT cannot
-match cuFFT bitwise); the groups atol 5e-5, rtol 1e-4 against the mx path
-on a peak-normalised input.
+per output array on the valid bins (K9 and K2, which divide approximately
+as K3 does, and the FFTs, which cannot match cuFFT bitwise); the groups
+atol 5e-5, rtol 1e-4 against the mx path on a peak-normalised input.
 
 ``--record PATH`` also writes the full record, compiler reports included,
 as JSON. ``--phases`` runs a subset (a development aid: a partial run
@@ -607,11 +610,12 @@ def fft_check(B, n, T, seed, dev, label, recs, timed=False):
         torch.cuda.empty_cache()
 
 
-def k3_resonance_check(B, n, T, seed, dev, label):
-    """K3 at the delay's comb resonances (``resonant_stage_case``), where
-    the response magnifies its rounding a thousandfold: within 1e-4 x
-    max|want| of its plain version and of K5 -> K2. Returns K3's error
-    against its plain version relative to max|want|."""
+def resonance_check(B, n, T, seed, dev, label):
+    """K3, K2 and K9 at the delay's comb resonances
+    (``resonant_stage_case``), where the response magnifies its rounding a
+    thousandfold: each within 1e-4 x max|want| of its plain version, K3
+    also of K5 -> K2. Returns each kernel's error against its plain version
+    relative to max|want|."""
     from st_ito_torch.ops.kernels import mega_fft as mf
     from st_ito_torch.ops.kernels import packed_response as k9
 
@@ -621,15 +625,41 @@ def k3_resonance_check(B, n, T, seed, dev, label):
     stages = resonant_stage_case(B, rng, dev)
     tables = k9.rp_tables(["delay", "reverb"], SR, n, dev)
     F = n // 2 + 1
+    rels = {}
     got = mf.fwd_pack_fft_response_cuda(x, stages, n, tables)
-    err, rel = rel_err(got, mf.fwd_pack_fft_response_plain(x, stages, n,
-                                                           tables), F)
-    hold("K3", f"{label}, on comb resonances", err, rel)
+    err, rels["k3"] = rel_err(got, mf.fwd_pack_fft_response_plain(
+        x, stages, n, tables), F)
+    hold("K3", f"{label}, on comb resonances", err, rels["k3"])
+    Z = mf.fwd_pack_fft_plain(x, n)
     split = k9.packed_response_padded_cuda(*mf.fwd_pack_fft_cuda(x, n),
                                            stages, tables, n)
     hold("K3 against K2(K5)", f"{label}, on comb resonances",
          *rel_err(got, split, F))
-    return rel
+    del got, split
+    err, rels["k2"] = rel_err(
+        k9.packed_response_padded_cuda(*Z, stages, tables, n),
+        k9.packed_response_padded_plain(*Z, stages, tables, n), F)
+    hold("K2", f"{label}, on comb resonances", err, rels["k2"])
+    Z = [z.reshape(B, -1)[:, :F].contiguous() for z in Z]
+    err, rels["k9"] = rel_err(k9.packed_response_cuda(*Z, stages, tables),
+                              k9.packed_response_plain(*Z, stages, tables))
+    hold("K9", f"{label}, on comb resonances", err, rels["k9"])
+    return rels
+
+
+def k4_check(B, n, T, seed, dev, label):
+    """K4 alone against its plain version (1e-4 x max|want|) with NaN in
+    every bin it must not read; returns max |kernel - plain|."""
+    from st_ito_torch.ops.kernels import mega_fft as mf
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    Y = [torch.randn((B,) + mf.half_grid(n), generator=g, device=dev)
+         for _ in range(4)]
+    want = mf.inv_unpack_fft_plain(*Y, n, T)
+    got = mf.inv_unpack_fft_cuda(*poison(Y, n), n, T)
+    err, rel = rel_err([got], [want])
+    hold("K4", label + ", NaN in the masked bins", err, rel)
+    return err
 
 
 def k10_check(B, n, in_len, sign, out_len, seed, dev, label):
@@ -701,25 +731,31 @@ def phase_k10(dev, rec):
 
 
 def phase_fft(dev, recs):
-    from st_ito_torch.ops.kernels import mega_fft as mf
-
     # n 2^14 splits 128 x 128, n 2^15 splits 256 x 128; T = n/2 and a
-    # T < n/2 that is a multiple of n2 = 128; B 37, so that K3's chunks of
-    # its shape's candidates end on a ragged one, and K4's scratch chunk cut
-    # to 8 candidates for these checks, so that its walk over chunks runs
-    # and ends on a ragged one too (the headline's 512 are 8 full chunks)
-    chunk, mf.CHUNK = mf.CHUNK, 8
-    for i, (n, T) in enumerate(((2 ** 14, 2 ** 13), (2 ** 14, 33 * 128),
-                                (2 ** 15, 2 ** 14), (2 ** 15, 37 * 128))):
+    # T < n/2 that is a multiple of n2 = 128; B 37, so that the persistent
+    # kernels' ring of 9 one-candidate slots is taken four times over
+    sizes = ((2 ** 14, 2 ** 13), (2 ** 14, 33 * 128), (2 ** 15, 2 ** 14),
+             (2 ** 15, 37 * 128))
+    for i, (n, T) in enumerate(sizes):
         fft_check(37, n, T, 20 + i, dev, f"n {n}, T {T}, B 37", recs)
-    mf.CHUNK = chunk
+    # K4's scheduler at the populations that test it: 1 and 2 (fewer
+    # candidates than the lag between a candidate's two passes), 9 and 10
+    # (the ring of 9 slots filled, then taken again)
+    for i, (n, T) in enumerate(sizes):
+        for B in (1, 2, 9, 10):
+            recs["k4"]["max_abs_err"] = max(
+                recs["k4"].get("max_abs_err", 0.0),
+                k4_check(B, n, T, 70 + 4 * i + B, dev,
+                         f"n {n}, T {T}, B {B}"))
     # the delay fully wet at its top feedback, bins on its resonances (the
     # response there reaches about 1e6: the error is kept relative, apart
     # from max_abs_err)
-    recs["k3"]["resonance_rel_err"] = max(
-        k3_resonance_check(B, n, T, 40 + i, dev, f"n {n}, T {T}, B {B}")
-        for i, (B, n, T) in enumerate(((37, 2 ** 14, 2 ** 13),
-                                       (64, 2 ** 19, T_HEAD))))
+    for i, (B, n, T) in enumerate(((37, 2 ** 14, 2 ** 13),
+                                   (64, 2 ** 19, T_HEAD))):
+        rels = resonance_check(B, n, T, 40 + i, dev, f"n {n}, T {T}, B {B}")
+        for name, rel in rels.items():
+            recs[name]["resonance_rel_err"] = max(
+                recs[name].get("resonance_rel_err", 0.0), rel)
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     fft_check(POP, 2 ** 19, T_HEAD, 30, dev,
@@ -1439,8 +1475,8 @@ def main() -> int:
             "library_ms": rec.get("library_ms")})
         # extra keys: the plain version's shape where it is not the
         # headline's, a chunked scan's chunk length (K6's carry table
-        # traffic), K3's relative error on the comb resonances, and K10's
-        # two calls (the entry is their mean)
+        # traffic), K3's, K2's and K9's relative error on the comb
+        # resonances, and K10's two calls (the entry is their mean)
         for extra in ("plain_shape", "chunk", "carry_table_bytes",
                       "resonance_rel_err", "ms_fwd", "ms_inv",
                       "plain_ms_fwd", "plain_ms_inv", "library_ms_fwd",

@@ -5,22 +5,18 @@
 // A block holds `rows` independent power-of-two transforms of one length in
 // shared memory, one per row of row_pitch(len) float2 elements. Element i of
 // a row sits at offset sw(i) = i + i/16: one pad element after every 16
-// keeps a thread's 2, 4 or 8 neighbouring elements (the last layers) in
-// other banks than the next thread's, and kPad more between rows staggers
-// the rows over the banks for the tile loads and stores that walk across
-// them. All threads of the block
-// share the work of every step; steps are separated by __syncthreads(). Two
-// forms, so that whichever side of a pass must be in natural order (the side
-// whose global accesses are contiguous) is:
-//
-//   fft_rows_dif: natural order in, bit-reversed order out;
-//   fft_rows_dit: bit-reversed order in, natural order out.
-//
-// Both are radix-2 butterflies, taken up to three layers at a time: a
-// thread loads the 2, 4 or 8 elements that those layers combine among
-// themselves, runs the layers in registers and stores them back in place.
-// A 512-point transform is then 3 trips through shared memory instead of 9,
-// a 1024-point one 4 instead of 10, with as many barriers.
+// keeps a thread's neighbouring elements (the last layers) in other banks
+// than the next thread's, and kPad more between rows staggers the rows over
+// the banks for the tile loads and stores that walk across them. All
+// threads of the block share the work of every step; steps are separated by
+// __syncthreads(). The transform (fft_rows_dif_wide) is decimation in
+// frequency, natural order in and bit-reversed order out, so each pass
+// loads its contiguous global side in natural order and walks the
+// bit-reversed side in shared-memory order: radix-2 butterflies, taken up
+// to five layers at a time (a thread loads the 2 to 32 elements that those
+// layers combine among themselves, runs the layers in registers and stores
+// them back in place), so a 512- or 1024-point transform is 2 trips through
+// shared memory, with as many barriers.
 //
 // Twiddles come from a table of W_L^j = exp(-2 pi i j / L), j < L/2, made in
 // float64 on the host (L the longer of the two lengths of the four-step
@@ -28,10 +24,9 @@
 // memory. The inverse transform conjugates them. No fast-math intrinsics.
 //
 // The four-step split of n = n1*n2 (n1 >= n2, both powers of two) that both
-// files use: a pass of length-n1 transforms over tiles of 2^log_cw adjacent
-// columns, a pass of length-n2 transforms over tiles of whole rows, each
-// tile sized by tile_log() to fit kTileBytes of shared memory beside the
-// twiddles.
+// files use: a pass of transforms over tiles of 2^log_cw adjacent columns,
+// a pass over tiles of whole rows, each tile sized by tile_log() to fit
+// kTileBytes of shared memory beside the twiddles.
 
 #pragma once
 
@@ -70,12 +65,6 @@ __device__ __forceinline__ float2 twiddle(const float2* tw_s, int idx) {
   float2 w = tw_s[idx];
   if (kInverse) w.y = -w.y;
   return w;
-}
-
-// Layers to fuse in the next step when `left` remain: threes, but never a
-// lone last layer after them (4 = 2 + 2).
-__device__ __forceinline__ int step_layers(int left) {
-  return (left >= 3 && left != 4) ? 3 : (left < 2 ? left : 2);
 }
 
 // One decimation-in-frequency step: the L layers whose half sizes are
@@ -122,91 +111,12 @@ __device__ __forceinline__ void dif_step(float2* s, int rows, int pitch,
   }
 }
 
-// One decimation-in-time step: the L layers whose half sizes are 2^lh,
-// 2^(lh+1), ..., 2^(lh+L-1). A thread's R elements sit at stride 2^lh in
-// one block of 2^(lh+L).
-template <int L, bool kInverse>
-__device__ __forceinline__ void dit_step(float2* s, int rows, int pitch,
-                                         int log_len, int lh,
-                                         const float2* tw_s) {
-  constexpr int R = 1 << L;
-  const int log_per_row = log_len - L;
-  const int total = rows << log_per_row;
-  for (int t = threadIdx.x; t < total; t += blockDim.x) {
-    const int r = t >> log_per_row;
-    const int u = t & ((1 << log_per_row) - 1);
-    const int j = u & ((1 << lh) - 1);
-    float2* p = s + r * pitch;
-    const int e = ((u >> lh) << (lh + L)) | j;
-    float2 v[R];
-#pragma unroll
-    for (int m = 0; m < R; ++m) v[m] = p[sw(e + (m << lh))];
-#pragma unroll
-    for (int l = 0; l < L; ++l) {
-      const int dist = 1 << l;
-      const int tw_shift = log_len - 1 - lh - l;
-#pragma unroll
-      for (int m = 0; m < R; ++m) {
-        if ((m & dist) != 0) continue;
-        const int pos = ((m & (dist - 1)) << lh) + j;
-        const float2 a = v[m];
-        const float2 b =
-            cmul(v[m + dist], twiddle<kInverse>(tw_s, pos << tw_shift));
-        v[m] = make_float2(a.x + b.x, a.y + b.y);
-        v[m + dist] = make_float2(a.x - b.x, a.y - b.y);
-      }
-    }
-#pragma unroll
-    for (int m = 0; m < R; ++m) p[sw(e + (m << lh))] = v[m];
-  }
-}
-
-// Decimation in frequency. Begins and ends with a barrier, so the caller
-// may fill the tile right before and read it right after.
-template <bool kInverse>
-__device__ void fft_rows_dif(float2* s, int rows, int pitch, int log_len,
-                             const float2* tw_s) {
-  int lh = log_len - 1;
-  while (lh >= 0) {
-    const int L = step_layers(lh + 1);
-    __syncthreads();
-    if (L == 3) {
-      dif_step<3, kInverse>(s, rows, pitch, log_len, lh, tw_s);
-    } else if (L == 2) {
-      dif_step<2, kInverse>(s, rows, pitch, log_len, lh, tw_s);
-    } else {
-      dif_step<1, kInverse>(s, rows, pitch, log_len, lh, tw_s);
-    }
-    lh -= L;
-  }
-  __syncthreads();
-}
-
-// Decimation in time. Barriers as above.
-template <bool kInverse>
-__device__ void fft_rows_dit(float2* s, int rows, int pitch, int log_len,
-                             const float2* tw_s) {
-  int lh = 0;
-  while (lh < log_len) {
-    const int L = step_layers(log_len - lh);
-    __syncthreads();
-    if (L == 3) {
-      dit_step<3, kInverse>(s, rows, pitch, log_len, lh, tw_s);
-    } else if (L == 2) {
-      dit_step<2, kInverse>(s, rows, pitch, log_len, lh, tw_s);
-    } else {
-      dit_step<1, kInverse>(s, rows, pitch, log_len, lh, tw_s);
-    }
-    lh += L;
-  }
-  __syncthreads();
-}
-
-// Decimation in frequency in steps of up to kMaxL layers (at most 5: 32
+// Decimation in frequency in steps of up to kMaxL layers (3 to 5; 5 is 32
 // elements a thread in registers): with 5, 2 trips through shared memory
-// for a 512- or 1024-point transform instead of 3 or 4. With kHalf the
-// last layer is pruned to the outputs at even positions (dif_step).
-// Barriers as above.
+// for a 512- or 1024-point transform, with 3, 3 or 4. With kHalf the last
+// layer is pruned to the outputs at even positions (dif_step). Begins and
+// ends with a barrier, so the caller may fill the tile right before and
+// read it right after.
 __device__ __forceinline__ int wide_step_layers(int left, int cap) {
   return left <= cap ? left : min(cap, left - left / 2);
 }
@@ -268,12 +178,6 @@ inline int tile_log(int len) {
          (((size_t)row_pitch(len) * sizeof(float2)) << lg) > kTileBytes)
     --lg;
   return lg;
-}
-
-// the dynamic shared memory of a block: len/2 twiddles and 2^log_rows rows
-inline size_t smem_bytes(int len, int log_rows) {
-  return ((size_t)(len >> 1) + ((size_t)row_pitch(len) << log_rows)) *
-         sizeof(float2);
 }
 
 template <typename K>

@@ -1,7 +1,9 @@
-// The persistent four-step FFT launch shared by K10 (fused_fft.cu) and the
-// forward kernels K5 and K3 (mega_fft.cu): a ticket scheduler over the two
-// passes of the split n = n1*n2 (fft_core.cuh), a ring of scratch slots
-// between them, and pass 1, which is the same in all three.
+// The persistent four-step FFT launch shared by K10 (fused_fft.cu) and
+// K5, K3 and K4 (mega_fft.cu): a ticket scheduler over the two passes of
+// the split n = n1*n2 (fft_core.cuh), a ring of scratch slots between
+// them, and pass 1, the same in all four but for where its input comes
+// from (K10, K5 and K3 read planar rows, cols_tile; K4 gathers the half
+// grids and then runs cols_finish).
 //
 // One launch walks the whole population, one candidate a chunk. Its blocks
 // take work items in ticket order from a counter: the pass-1 items of
@@ -111,9 +113,41 @@ __device__ __forceinline__ void decode(const Plan& p, int t, bool& first,
   }
 }
 
+// The rest of pass 1 on column tile `tile` once its columns are in shared
+// memory (j1 at position sw(j1) of row c): the column transforms over j1
+// (length n1), the twiddle, M[k1][j2] out to the slot m.
+template <bool kInverse, int kMaxL>
+__device__ __forceinline__ void cols_finish(const Plan& p,
+                                            float2* __restrict__ m,
+                                            const float2* __restrict__ roots,
+                                            float2* s, const float2* tw1,
+                                            int tile) {
+  const Split& sp = p.sp;
+  const int pitch = row_pitch(sp.n1);
+  const int cw = 1 << p.log_cw;
+  const int j2_0 = tile << p.log_cw;
+  const int items = sp.n1 << p.log_cw;
+  fftcore::fft_rows_dif_wide<kInverse, false, kMaxL>(s, cw, pitch,
+                                                    sp.log_n1, tw1);
+
+  // W_n^(k1*j2) = W_n^(h*n1) * W_n^l with k1*j2 = h*n1 + l: roots holds
+  // the n2 coarse roots, then the n1 fine ones
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int c = it & (cw - 1);
+    const int q = it >> p.log_cw;
+    const int k1 = bitrev(q, sp.log_n1);
+    const int j2 = j2_0 + c;
+    const int e = k1 * j2;
+    float2 w = cmul(__ldg(roots + (e >> sp.log_n1)),
+                    __ldg(roots + sp.n2 + (e & (sp.n1 - 1))));
+    if (kInverse) w.y = -w.y;
+    m[((long long)k1 << sp.log_n2) + j2] = cmul(s[c * pitch + sw(q)], w);
+  }
+}
+
 // Pass 1 on column tile `tile` of candidate b (rows zr, zi at b*in_stride)
-// into its scratch slot m: the column transforms over j1 (length n1), the
-// twiddle, M[k1][j2] out.
+// into its scratch slot m: the tile's columns j2 over all j1 (the rows
+// j1 >= in_rows are the zero pad), then cols_finish.
 template <bool kInverse, int kMaxL>
 __device__ __forceinline__ void cols_tile(
     const Plan& p, const float* __restrict__ zr, const float* __restrict__ zi,
@@ -136,37 +170,18 @@ __device__ __forceinline__ void cols_tile(
     }
     s[c * pitch + sw(j1)] = v;
   }
-  fftcore::fft_rows_dif_wide<kInverse, false, kMaxL>(s, cw, pitch,
-                                                    sp.log_n1, tw1);
-
-  // W_n^(k1*j2) = W_n^(h*n1) * W_n^l with k1*j2 = h*n1 + l: roots holds
-  // the n2 coarse roots, then the n1 fine ones
-  for (int it = threadIdx.x; it < items; it += kThreads) {
-    const int c = it & (cw - 1);
-    const int q = it >> p.log_cw;
-    const int k1 = bitrev(q, sp.log_n1);
-    const int j2 = j2_0 + c;
-    const int e = k1 * j2;
-    float2 w = cmul(__ldg(roots + (e >> sp.log_n1)),
-                    __ldg(roots + sp.n2 + (e & (sp.n1 - 1))));
-    if (kInverse) w.y = -w.y;
-    m[((long long)k1 << sp.log_n2) + j2] = cmul(s[c * pitch + sw(q)], w);
-  }
+  cols_finish<kInverse, kMaxL>(p, m, roots, s, tw1, tile);
 }
 
 // The persistent loop of one block: tickets in order until none is left.
-// A pass-1 item r of chunk (candidate) c is its column tile r, written to
-// the chunk's slot; a pass-2 item is rows(c, r, slot), the caller's. s is
-// the block's tile in shared memory, tw1 the n1/2 twiddles there. Waits
-// are skipped for pass1_only.
-template <bool kInverse, int kMaxL, class Rows>
+// A pass-1 item r of chunk (candidate) c is cols(c, r, slot), which writes
+// the chunk's slot (cols_tile); a pass-2 item is rows(c, r, slot), which
+// reads it. Waits are skipped for pass1_only.
+template <class Cols, class Rows>
 __device__ __forceinline__ void run(const Plan& p,
-                                    const float* __restrict__ zr,
-                                    const float* __restrict__ zi,
                                     float2* __restrict__ scratch,
-                                    const float2* __restrict__ roots,
-                                    float2* s, const float2* tw1,
-                                    int* __restrict__ counters, Rows rows) {
+                                    int* __restrict__ counters, Cols cols,
+                                    Rows rows) {
   __shared__ int ticket;
   int* next = counters;
   int* p1_done = counters + 1;
@@ -192,7 +207,7 @@ __device__ __forceinline__ void run(const Plan& p,
     float2* slot = scratch + (long long)(c % kRing) * p.sp.n;
     if (first) {
       if (c >= kRing && !p.pass1_only) wait_for(p2_done + c - kRing, p.n_p2);
-      cols_tile<kInverse, kMaxL>(p, zr, zi, slot, roots, s, tw1, c, r);
+      cols(c, r, slot);
       signal(p1_done + c);
     } else {
       wait_for(p1_done + c, p.n_p1);

@@ -120,8 +120,12 @@ __global__ void __launch_bounds__(kThreads, 2) fft_fused_kernel(
   fftcore::load_twiddles(tw1, tw, sp.n1 >> 1, 1);
   fftcore::load_twiddles(tw2, tw, sp.n2 >> 1, sp.n1 >> sp.log_n2);
 
-  fftpersist::run<kInverse, kMaxLayers<kInverse>>(
-      p, zr, zi, scratch, roots, s, tw1, counters,
+  fftpersist::run(
+      p, scratch, counters,
+      [&](int c, int r, float2* slot) {
+        fftpersist::cols_tile<kInverse, kMaxLayers<kInverse>>(
+            p, zr, zi, slot, roots, s, tw1, c, r);
+      },
       [&](int c, int r, const float2* slot) {
         rows_tile<kInverse, kHalf>(p, slot, yr, yi, s, tw2, c, r);
       });

@@ -31,14 +31,17 @@
 //     ((n2-k2) mod n2, 0) for k1 = 0; rows 0 and n1/2 mirror themselves and
 //     share the first tile. It emits (Zlo, Zrev), or applies the response
 //     to them and emits (Ylo, Yhig);
-//   inverse, pass A (inv_rows): a block takes a tile of columns k1, gathers
-//     Y[k2*n1 + k1] over k2 from Ylo (lower half) and from Yhig at the
-//     mirror bin (upper half), transforms over k2 (length n2), multiplies
-//     by W_n^-(k1*j2) and writes A[k1][j2] to scratch;
-//   inverse, pass B (inv_cols): a block takes a tile of columns j2 for all
-//     k1, transforms over k1 (length n1) and writes the first T samples.
+//   inverse, pass 1 (inv_cols_tile): the same split with
+//     the spectrum as input, bin u = j1*n2 + j2: a tile of adjacent j2
+//     columns gathers Y[u] over j1 from Ylo (u <= n/2) and from Yhig at the
+//     mirror bin (above), transforms over j1 (length n1), multiplies by
+//     W_n^-(k1*j2) and writes M[k1][j2] to scratch (K10's inverse pass 1
+//     but for the gather);
+//   inverse, pass 2 (inv_rows_tile): a tile of rows k1 transformed over j2
+//     (length n2) writes sample v = k2*n1 + k1 of the first T, (L, R) =
+//     (re, im)/n, in runs of the tile's rows.
 //
-// The forward is one persistent launch over the whole population
+// Each transform is one persistent launch over the whole population
 // (fft_persist.cuh, as K10): ticket-ordered pass-1 and pass-2 items, pass 1
 // of later candidates overlapping pass 2 of earlier ones, through a ring of
 // scratch slots that stays in L2; the twiddle from two root tables; up to
@@ -52,8 +55,13 @@
 // products of a row and a column factor of the four-step grid
 // (FactoredTab), 210 KB that stay in cache. Tiles of several candidates,
 // which would share a bin's values, lost more to their shorter output runs
-// or to a block an SM than they saved. The inverse runs chunk by chunk
-// through a scratch in device memory, two launches a chunk.
+// or to a block an SM than they saved. K4 reads each valid bin once with
+// the streaming hint, and where T <= n/2 (the headline) its pass 2 forms
+// only the samples below n/2 in its last layer and writes the T samples
+// with streaming stores; it replaced two launches a chunk of 64 candidates
+// through a 256 MB scratch in device memory. Split the other way (pass 1
+// over k2 for tiles of bins k1, rows j2 out), it took longer than the
+// chunked kernel it replaced (PERF.md).
 //
 // Tiles make the strided sides of each pass 32- or 64-byte runs and the
 // other side whole rows. The natural-order side of each transform is the
@@ -93,7 +101,6 @@ using fftcore::ilog2;
 using fftcore::kMaxLogN;
 using fftcore::kThreads;
 using fftcore::row_pitch;
-using fftcore::smem_bytes;
 using fftcore::Split;
 using fftcore::sw;
 using fftcore::tile_log;
@@ -268,7 +275,7 @@ template <int kEpi>
 __global__ void __launch_bounds__(kThreads, kForwardMinBlocks) forward_kernel(
     const float* __restrict__ x, Outputs o, float2* __restrict__ scratch,
     const float2* __restrict__ tw, const float2* __restrict__ roots,
-    int* __restrict__ counters, Plan p, rp::Stages st, Factors fac) {
+    rp::Stages st, Factors fac, int* __restrict__ counters, Plan p) {
   extern __shared__ float2 smem[];
   const Split& sp = p.sp;
   float2* tw1 = smem;                 // W_n1^j, j < n1/2
@@ -277,8 +284,12 @@ __global__ void __launch_bounds__(kThreads, kForwardMinBlocks) forward_kernel(
   fftcore::load_twiddles(tw1, tw, sp.n1 >> 1, 1);
   fftcore::load_twiddles(tw2, tw, sp.n2 >> 1, sp.n1 >> sp.log_n2);
   // x is (B, 2, T): candidate b's L and R rows at b*2T and b*2T + T
-  fftpersist::run<false, 5>(
-      p, x, x + (p.in_stride >> 1), scratch, roots, s, tw1, counters,
+  fftpersist::run(
+      p, scratch, counters,
+      [&](int c, int r, float2* slot) {
+        fftpersist::cols_tile<false, 5>(p, x, x + (p.in_stride >> 1), slot,
+                                        roots, s, tw1, c, r);
+      },
       [&](int c, int r, const float2* slot) {
         mirror_rows_tile<kEpi>(p, slot, o, st, fac, s, tw2, c, r);
       });
@@ -286,102 +297,124 @@ __global__ void __launch_bounds__(kThreads, kForwardMinBlocks) forward_kernel(
 
 // ---------------------------------------------------------------- inverse
 
-__global__ void __launch_bounds__(kThreads) inv_rows_kernel(
-    const float* __restrict__ ylo_r, const float* __restrict__ ylo_i,
-    const float* __restrict__ yhi_r, const float* __restrict__ yhi_i,
-    float2* __restrict__ scratch, const float2* __restrict__ tw, Split sp,
-    int b0, long long Fp, int log_cw) {
-  extern __shared__ float2 smem[];
-  float2* tw_s = smem;
-  float2* s = smem + (sp.n2 >> 1);
-  const int pitch = row_pitch(sp.n2);
-  const int cw = 1 << log_cw;
-  const int a = blockIdx.y << log_cw;
-  const long long base = (long long)(b0 + blockIdx.x) * Fp;
-  const int half = sp.n2 >> 1;
+// K4's inputs, (B, Fp) half grids, and its output y (B, 2, T).
+struct Inverse {
+  const float *lo_r, *lo_i, *hi_r, *hi_i;
+  long long Fp;
+  float* y;
+  int T;
+};
 
-  fftcore::load_twiddles(tw_s, tw, half, sp.n1 >> sp.log_n2);
-  // Y[k2*n1 + k1] into position q = bitrev(k2) of column k1's row: from Ylo
-  // in the lower half, from Yhig at the mirror bin in the upper half
-  for (int it = threadIdx.x; it < (sp.n2 << log_cw); it += blockDim.x) {
-    const int i = it & (cw - 1);
-    const int q = it >> log_cw;
-    const int k2 = bitrev(q, sp.log_n2);
-    const int k1 = a + i;
-    bool lo;
-    int k;
-    if (k1 != 0) {
-      lo = k2 < half;
-      k = lo ? k2 * sp.n1 + k1 : (sp.n2 - 1 - k2) * sp.n1 + (sp.n1 - k1);
-    } else {
-      lo = k2 <= half;
-      k = lo ? k2 * sp.n1 : (sp.n2 - k2) * sp.n1;
-    }
-    s[i * pitch + sw(q)] = lo ? make_float2(ylo_r[base + k], ylo_i[base + k])
-                          : make_float2(yhi_r[base + k], yhi_i[base + k]);
+// Butterfly layers a step in K4's two passes (five spilled registers and
+// took longer, PERF.md), and its blocks an SM (two: at most 128 registers a
+// thread, as K10).
+constexpr int kInverseLayers = 4;
+constexpr int kInverseMinBlocks = 2;
+
+// Pass 1 on column tile `tile` of candidate b into its slot m: the tile's
+// columns j2 gather bin u = j1*n2 + j2 of Y over all j1, from Ylo where
+// u <= n/2 and from Yhig at the mirror bin n - u above (Yhig[m] =
+// Y[n - m]), so that only the valid bins are read (with the streaming
+// hint); then fft_persist.cuh cols_finish, inverse.
+__device__ __forceinline__ void inv_cols_tile(
+    const Plan& p, const Inverse& io, float2* __restrict__ m,
+    const float2* __restrict__ roots, float2* s, const float2* tw1, int b,
+    int tile) {
+  const Split& sp = p.sp;
+  const int pitch = row_pitch(sp.n1);
+  const int cw = 1 << p.log_cw;
+  const int j2_0 = tile << p.log_cw;
+  const long long base = (long long)b * io.Fp;
+  const int half = sp.n >> 1;
+  const int items = sp.n1 << p.log_cw;
+#pragma unroll 8
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int c = it & (cw - 1);
+    const int j1 = it >> p.log_cw;
+    const int u = (j1 << sp.log_n2) + j2_0 + c;
+    const bool lo = u <= half;
+    const long long i = base + (lo ? u : sp.n - u);
+    s[c * pitch + sw(j1)] = make_float2(__ldcs((lo ? io.lo_r : io.hi_r) + i),
+                                        __ldcs((lo ? io.lo_i : io.hi_i) + i));
   }
-  fftcore::fft_rows_dit<true>(s, cw, pitch, sp.log_n2, tw_s);
+  fftpersist::cols_finish<true, kInverseLayers>(p, m, roots, s, tw1, tile);
+}
 
-  float2* m = scratch + (long long)blockIdx.x * sp.n;
-  const float step = 2.0f / (float)sp.n;
-  for (int it = threadIdx.x; it < (cw << sp.log_n2); it += blockDim.x) {
-    const int j2 = it & (sp.n2 - 1);
-    const int i = it >> sp.log_n2;
-    const int k1 = a + i;
-    float sn, cs;
-    sincospif(step * (float)(k1 * j2), &sn, &cs);
-    m[((long long)k1 << sp.log_n2) + j2] =
-        cmul(s[i * pitch + sw(j2)], make_float2(cs, sn));
+// Pass 2 on row tile `tile` of candidate b from its slot m: the tile's
+// 2^log_rows rows k1 transform over j2 (length n2) and write sample
+// v = k2*n1 + k1 for v < T only, (L, R) = (re, im)/n. With kHalf
+// (T <= n/2) the last layer forms only the samples below n/2.
+template <bool kHalf>
+__device__ __forceinline__ void inv_rows_tile(const Plan& p,
+                                              const float2* __restrict__ m,
+                                              const Inverse& io, float2* s,
+                                              const float2* tw2, int b,
+                                              int tile) {
+  const Split& sp = p.sp;
+  const int pitch = row_pitch(sp.n2);
+  const int rows = 1 << p.log_rows;
+  const int a = tile << p.log_rows;
+  const int items = rows << sp.log_n2;
+#pragma unroll 8
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int j = it & (sp.n2 - 1);
+    const int r = it >> sp.log_n2;
+    s[r * pitch + sw(j)] = __ldcg(m + ((long long)(a + r) << sp.log_n2) + j);
+  }
+  fftcore::fft_rows_dif_wide<true, kHalf, kInverseLayers>(s, rows, pitch,
+                                                          sp.log_n2, tw2);
+
+  // sample (k2, a + r) sits at position q = bitrev(k2) of row r;
+  // neighbouring threads take neighbouring rows, so each k2 is one run of
+  // `rows` floats in L and in R
+  const float scale = 1.0f / (float)sp.n;
+  float* yl = io.y + (long long)b * 2 * io.T;
+  float* yr = yl + io.T;
+  for (int it = threadIdx.x; it < items; it += kThreads) {
+    const int r = it & (rows - 1);
+    const int q = it >> p.log_rows;
+    if (kHalf && (q & 1)) continue;  // samples from n/2 on: not formed
+    const int v = bitrev(q, sp.log_n2) * sp.n1 + a + r;
+    if (v < io.T) {
+      const float2 val = s[r * pitch + sw(q)];
+      __stcs(yl + v, val.x * scale);
+      __stcs(yr + v, val.y * scale);
+    }
   }
 }
 
-__global__ void __launch_bounds__(kThreads) inv_cols_kernel(
-    const float2* __restrict__ scratch, float* __restrict__ y,
-    const float2* __restrict__ tw, Split sp, int b0, int T, int log_cw) {
+template <bool kHalf>
+__global__ void __launch_bounds__(kThreads, kInverseMinBlocks)
+    inverse_kernel(Inverse io, float2* __restrict__ scratch,
+                   const float2* __restrict__ tw,
+                   const float2* __restrict__ roots,
+                   int* __restrict__ counters, Plan p) {
   extern __shared__ float2 smem[];
-  float2* tw_s = smem;
-  float2* s = smem + (sp.n1 >> 1);
-  const int pitch = row_pitch(sp.n1);
-  const int cw = 1 << log_cw;
-  const int j2_0 = blockIdx.x << log_cw;
-  const int out_rows = T >> sp.log_n2;
-  const float2* m = scratch + (long long)blockIdx.y * sp.n;
-  float* yl = y + (long long)(b0 + blockIdx.y) * 2 * T;
-  float* yr = yl + T;
-
-  fftcore::load_twiddles(tw_s, tw, sp.n1 >> 1, 1);
-  const int items = sp.n1 << log_cw;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c = it & (cw - 1);
-    const int k1 = it >> log_cw;
-    s[c * pitch + sw(k1)] = m[((long long)k1 << sp.log_n2) + j2_0 + c];
-  }
-  fftcore::fft_rows_dif<true>(s, cw, pitch, sp.log_n1, tw_s);
-
-  const float scale = 1.0f / (float)sp.n;
-  for (int it = threadIdx.x; it < items; it += blockDim.x) {
-    const int c = it & (cw - 1);
-    const int q = it >> log_cw;
-    const int j1 = bitrev(q, sp.log_n1);
-    if (j1 < out_rows) {
-      const float2 v = s[c * pitch + sw(q)];
-      const long long t = ((long long)j1 << sp.log_n2) + j2_0 + c;
-      yl[t] = v.x * scale;
-      yr[t] = v.y * scale;
-    }
-  }
+  const Split& sp = p.sp;
+  float2* tw1 = smem;                 // W_n1^j, j < n1/2
+  float2* tw2 = tw1 + (sp.n1 >> 1);   // W_n2^j, j < n2/2
+  float2* s = tw2 + (sp.n2 >> 1);
+  fftcore::load_twiddles(tw1, tw, sp.n1 >> 1, 1);
+  fftcore::load_twiddles(tw2, tw, sp.n2 >> 1, sp.n1 >> sp.log_n2);
+  fftpersist::run(
+      p, scratch, counters,
+      [&](int c, int r, float2* slot) {
+        inv_cols_tile(p, io, slot, roots, s, tw1, c, r);
+      },
+      [&](int c, int r, const float2* slot) {
+        inv_rows_tile<kHalf>(p, slot, io, s, tw2, c, r);
+      });
 }
 
 // ------------------------------------------------------------------- host
 
 // 0 and the split, or cudaErrorInvalidValue
-int make_split(int n1, int n2, int T, int B, int chunk, long long Fp,
-               Split* sp) {
+int make_split(int n1, int n2, int T, int B, long long Fp, Split* sp) {
   if (n1 < 2 || n2 < 2 || (n1 & (n1 - 1)) != 0 || (n2 & (n2 - 1)) != 0 ||
       n2 > n1)
     return cudaErrorInvalidValue;
   const int log_n1 = ilog2(n1), log_n2 = ilog2(n2);
-  if (log_n1 + log_n2 > kMaxLogN || B < 1 || chunk < 1 || T < 1 ||
+  if (log_n1 + log_n2 > kMaxLogN || B < 1 || T < 1 ||
       T > (n1 << log_n2) || (T & (n2 - 1)) != 0 ||
       Fp < ((long long)n1 << log_n2) / 2 + 1)
     return cudaErrorInvalidValue;
@@ -389,36 +422,40 @@ int make_split(int n1, int n2, int T, int B, int chunk, long long Fp,
   return 0;
 }
 
-template <int kEpi>
-int forward(const float* x, const Outputs& o, float2* scratch,
-            const float2* tw, const float2* roots, int* counters, int B,
-            int T, int n1, int n2, const rp::Stages& st, const Factors& fac,
-            bool pass1_only, cudaStream_t stream) {
-  Split sp;
-  if (make_split(n1, n2, T, B, 1, o.Fp, &sp) != 0)
-    return cudaErrorInvalidValue;
-  Plan p;
+// The plan of a persistent launch over B candidates, K10's: pass-1 tiles
+// of 2^log_cw columns (transforms of length n1), pass-2 tiles of
+// 2^log_rows rows (length n2); the planar-input fields are left 0.
+Plan plan_for(const Split& sp, int B, bool pass1_only) {
+  Plan p{};
   p.sp = sp;
-  p.log_cw = std::min(tile_log(n1), sp.log_n2);
-  // a row and its mirror at least, and whole row pairs a thread's slot
-  p.log_rows = std::min(tile_log(n2), sp.log_n1);
-  if (p.log_rows < 1 || kThreads % (1 << p.log_rows) != 0)
-    return cudaErrorInvalidValue;
+  p.log_cw = std::min(tile_log(sp.n1), sp.log_n2);
+  p.log_rows = std::min(tile_log(sp.n2), sp.log_n1);
   p.B = B;
-  p.in_rows = T >> sp.log_n2;
-  p.out_len = 0;
-  p.in_stride = 2LL * T;
-  p.n_p1 = n2 >> p.log_cw;
-  p.n_p2 = n1 >> p.log_rows;
+  p.n_p1 = sp.n2 >> p.log_cw;
+  p.n_p2 = sp.n1 >> p.log_rows;
   p.pass1_only = pass1_only ? 1 : 0;
-  if ((long long)B * (p.n_p1 + p.n_p2) > 0x7fffffffLL)
+  return p;
+}
+
+// the dynamic shared memory of a persistent block: the n1/2 and n2/2
+// twiddles and the larger of the two passes' tiles
+size_t plan_smem(const Plan& p) {
+  const Split& sp = p.sp;
+  return ((size_t)(sp.n1 >> 1) + (size_t)(sp.n2 >> 1) +
+          std::max((size_t)row_pitch(sp.n1) << p.log_cw,
+                   (size_t)row_pitch(sp.n2) << p.log_rows)) *
+         sizeof(float2);
+}
+
+// One persistent launch of `kernel` over plan p: as many blocks as fit the
+// card at once (at most one a ticket), plan_smem(p) bytes of shared memory
+// each, its 1 + 2B counters zeroed first.
+template <class Kernel, class... Args>
+int launch_persistent(Kernel kernel, const Plan& p, int* counters,
+                      cudaStream_t stream, Args... args) {
+  if ((long long)p.B * (p.n_p1 + p.n_p2) > 0x7fffffffLL)
     return cudaErrorInvalidValue;
-  auto kernel = forward_kernel<kEpi>;
-  const size_t smem =
-      ((size_t)(n1 >> 1) + (size_t)(n2 >> 1) +
-       std::max((size_t)row_pitch(n1) << p.log_cw,
-                (size_t)row_pitch(n2) << p.log_rows)) *
-      sizeof(float2);
+  const size_t smem = plan_smem(p);
   int err = allow_smem(kernel, smem);
   int dev = 0, sms = 0, per_sm = 0;
   if (err == 0) err = cudaGetDevice(&dev);
@@ -429,12 +466,28 @@ int forward(const float* x, const Outputs& o, float2* scratch,
                                                         kThreads, smem);
   if (err != 0) return err;
   if (per_sm < 1) return cudaErrorInvalidConfiguration;
-  err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + 2 * B), stream);
+  err = cudaMemsetAsync(counters, 0, sizeof(int) * (1 + 2 * p.B), stream);
   if (err != 0) return err;
   const int grid = std::min(fftpersist::tickets(p), per_sm * sms);
-  kernel<<<grid, kThreads, smem, stream>>>(x, o, scratch, tw, roots,
-                                           counters, p, st, fac);
+  kernel<<<grid, kThreads, smem, stream>>>(args..., counters, p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int kEpi>
+int forward(const float* x, const Outputs& o, float2* scratch,
+            const float2* tw, const float2* roots, int* counters, int B,
+            int T, int n1, int n2, const rp::Stages& st, const Factors& fac,
+            bool pass1_only, cudaStream_t stream) {
+  Split sp;
+  if (make_split(n1, n2, T, B, o.Fp, &sp) != 0) return cudaErrorInvalidValue;
+  Plan p = plan_for(sp, B, pass1_only);
+  // a row and its mirror at least, and whole row pairs a thread's slot
+  if (p.log_rows < 1 || kThreads % (1 << p.log_rows) != 0)
+    return cudaErrorInvalidValue;
+  p.in_rows = T >> sp.log_n2;
+  p.in_stride = 2LL * T;
+  return launch_persistent(forward_kernel<kEpi>, p, counters, stream, x, o,
+                           scratch, tw, roots, st, fac);
 }
 
 }  // namespace
@@ -498,33 +551,28 @@ extern "C" int fwd_pack_fft_response_launch(
                             stage == 0, strm);
 }
 
-// K4. The four inputs (B, Fp); y (B, 2, T).
+// K4. The four inputs (B, Fp); y (B, 2, T); scratch, tw, roots and
+// counters as the forward kernels'. stage < 0 runs the kernel; 0 is a
+// stage timer's probe: pass 1 of every candidate alone.
 extern "C" int inv_unpack_fft_launch(const float* ylo_r, const float* ylo_i,
                                      const float* yhi_r, const float* yhi_i,
-                                     float* y, void* scratch_, const void* tw_,
-                                     int B, int T, int n1, int n2,
-                                     long long Fp, int chunk, void* stream_) {
+                                     float* y, void* scratch, const void* tw,
+                                     const void* roots, int* counters, int B,
+                                     int T, int n1, int n2, long long Fp,
+                                     int stage, void* stream) {
   Split sp;
-  if (chunk > 65535 || make_split(n1, n2, T, B, chunk, Fp, &sp) != 0)
+  if (stage > 0 || make_split(n1, n2, T, B, Fp, &sp) != 0)
     return cudaErrorInvalidValue;
-  float2* scratch = static_cast<float2*>(scratch_);
-  const float2* tw = static_cast<const float2*>(tw_);
-  const int log_cols = min(tile_log(n2), sp.log_n1);
-  const int log_cw = min(tile_log(n1), sp.log_n2);
-  const size_t smem_a = smem_bytes(n2, log_cols);
-  const size_t smem_b = smem_bytes(n1, log_cw);
-  int err = allow_smem(inv_rows_kernel, smem_a);
-  if (err == 0) err = allow_smem(inv_cols_kernel, smem_b);
-  if (err != 0) return err;
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_);
-  for (int b0 = 0; b0 < B; b0 += chunk) {
-    const int nb = min(chunk, B - b0);
-    inv_rows_kernel<<<dim3(nb, n1 >> log_cols), kThreads, smem_a, stream>>>(
-        ylo_r, ylo_i, yhi_r, yhi_i, scratch, tw, sp, b0, Fp, log_cols);
-    inv_cols_kernel<<<dim3(n2 >> log_cw, nb), kThreads, smem_b, stream>>>(
-        scratch, y, tw, sp, b0, T, log_cw);
-    err = static_cast<int>(cudaGetLastError());
-    if (err != 0) return err;
-  }
-  return 0;
+  // the half grids and y are K4's own (Inverse), not planar rows
+  const Plan p = plan_for(sp, B, stage == 0);
+  const Inverse io{ylo_r, ylo_i, yhi_r, yhi_i, Fp, y, T};
+  float2* s = static_cast<float2*>(scratch);
+  const float2* w = static_cast<const float2*>(tw);
+  const float2* rt = static_cast<const float2*>(roots);
+  cudaStream_t strm = static_cast<cudaStream_t>(stream);
+  if (2LL * T <= sp.n)
+    return launch_persistent(inverse_kernel<true>, p, counters, strm, io, s,
+                             w, rt);
+  return launch_persistent(inverse_kernel<false>, p, counters, strm, io, s,
+                           w, rt);
 }

@@ -1,10 +1,12 @@
 // The per-bin response math of the fused LTI stages, shared by the three
 // kernels that apply it: K9 and K2 (packed_response.cu) and K3's epilogue
-// (mega_fft.cu). One copy, so the three agree op for op.
+// (mega_fft.cu). One copy, so the three compute the same operations in the
+// same order (K3 takes the Freeverb phasors from another source).
 //
 // For one (candidate b, bin k) of the half grid k in [0, n/2] rp_coeffs()
-// evaluates every stage's response from the candidate's scalars and the
-// bin's frequency terms (delay, gain, stereo widener, Freeverb: the
+// evaluates every stage's response from the candidate's Terms (what the
+// stage takes from its scalars alone, stage_terms()) and the bin's
+// frequency terms (delay, gain, stereo widener, Freeverb: the
 // real-pair math of st_ito_torch/chain/rp_responses.py), blends it toward
 // identity where the stage is bypassed and composes the stages; rp_apply()
 // then applies
@@ -71,15 +73,16 @@ __device__ __forceinline__ void cmul(float ar, float ai, float br, float bi,
   ci = ar * bi + ai * br;
 }
 
-// How the response math divides and takes the delay's phasor. IeeeMath
-// (K9, K2): IEEE division and cosf/sinf of the rounded phase, as the plain
-// version computes them. FastMath (K3): the approximate divide (2 ulp, no
-// call to a slow path) and one sincosf of the same rounded phase (near a
-// comb's resonance the response magnifies a change of the phase's last
-// bit a thousandfold, so the phase rounds as the plain version's does);
-// inside K3's forward, which holds its registers to 128 around five-layer
-// butterflies, IEEE division's slow-path call made the response math 2.5
-// times K2's cost on the card (PERF.md).
+// How the response math divides and takes the delay's phasor. IeeeMath:
+// IEEE division and cosf/sinf of the rounded phase, as the plain version
+// computes them (a stage timer's probe of K9 and K2). FastMath (K3, K9,
+// K2): the approximate divide (2 ulp, no call to a slow path) and one
+// sincosf of the same rounded phase (near a comb's resonance the response
+// magnifies a change of the phase's last bit a thousandfold, so the phase
+// rounds as the plain version's does); inside K3's forward, which holds its
+// registers to 128 around five-layer butterflies, IEEE division's
+// slow-path call made the response math 2.5 times K2's cost on the card,
+// and in K2 it took 0.6 ms of 3.7 (PERF.md).
 struct IeeeMath {
   __device__ __forceinline__ static float div(float a, float b) {
     return a / b;
@@ -105,19 +108,33 @@ struct FastMath {
   }
 };
 
+// What a stage's response takes from its candidate and no bin changes
+// (stage_terms): the delay's Di = floor(D), Df = D - Di, fb and mix (D =
+// delay_seconds * sr); the reverb's g, d, wet and width; the gain's linear
+// gain; the widener's a - b and b.
+struct Terms {
+  float v[4];
+};
+
+__device__ __forceinline__ Terms delay_terms(const float* p, int B,
+                                             float sr) {
+  const float D = __fmul_rn(p[0], sr);
+  const float fb = __fmul_rn(p[B], 0.999f);
+  const float mix = p[2 * B];
+  const float Di = floorf(D);
+  const float Df = D - Di;
+  return Terms{{Di, Df, fb, mix}};
+}
+
 // The delay's response. Its phase and 1 - fb*e^(i th) are taken with
 // rounded products and sums that no build contracts into a fused
 // multiply-add (__fmul_rn, __fadd_rn): near a resonance (fb up to 0.999)
 // the response magnifies their last bit a thousandfold, so they round as
 // the plain version's do in every kernel, whatever its build's flags.
 template <class M>
-__device__ __forceinline__ Resp delay_build(const float* p, int B, float w,
-                                            float w0, int k, int n, float sr) {
-  const float D = __fmul_rn(p[0], sr);
-  const float fb = __fmul_rn(p[B], 0.999f);
-  const float mix = p[2 * B];
-  const float Di = floorf(D);
-  const float Df = D - Di;
+__device__ __forceinline__ Resp delay_build(const Terms& t, float w,
+                                            float w0, int k, int n) {
+  const float Di = t.v[0], Df = t.v[1], fb = t.v[2], mix = t.v[3];
   const long long m = ((long long)k * (long long)Di) & (long long)(n - 1);
   float c, s;
   M::cis(w0, w, m, k, Df, n, c, s);
@@ -136,28 +153,36 @@ __device__ __forceinline__ Resp delay_build(const float* p, int B, float w,
   return r;
 }
 
-__device__ __forceinline__ Resp gain_build(const float* p) {
+__device__ __forceinline__ Terms gain_terms(const float* p) {
+  return Terms{{powf(10.0f, p[0] / 20.0f)}};
+}
+
+__device__ __forceinline__ Resp gain_build(const Terms& t) {
   Resp r;
   r.mono = false;
-  r.v[0] = powf(10.0f, p[0] / 20.0f);
+  r.v[0] = t.v[0];
   r.v[1] = 0.0f;
   return r;
 }
 
-__device__ __forceinline__ Resp widener_build(const float* p) {
+__device__ __forceinline__ Terms widener_terms(const float* p) {
   const float width = p[0];
   const float sqrt2 = 1.4142135623730951f;
   const float mg = sqrtf(fminf(fmaxf(1.0f - width, 0.0f), 1.0f)) * sqrt2;
   const float sg = sqrtf(fminf(fmaxf(width, 0.0f), 1.0f)) * sqrt2;
   const float a = (mg + sg) / 2.0f;
   const float b = (mg - sg) / 2.0f;
+  return Terms{{a - b, b}};
+}
+
+__device__ __forceinline__ Resp widener_build(const Terms& t) {
   Resp r;
   r.mono = true;
-  r.v[0] = a - b;
+  r.v[0] = t.v[0];
   r.v[1] = 0.0f;
-  r.v[2] = b;
+  r.v[2] = t.v[1];
   r.v[3] = 0.0f;
-  r.v[4] = b;
+  r.v[4] = t.v[1];
   r.v[5] = 0.0f;
   return r;
 }
@@ -208,14 +233,21 @@ __device__ __forceinline__ void freeverb_channel(const Tab& tab, int ch,
   cmul(sr_, si_, ap.x, ap.y, hr, hi);
 }
 
-template <class M, class Tab>
-__device__ __forceinline__ Resp reverb_build(const float* p, int B,
-                                             const Tab& tab) {
+__device__ __forceinline__ Terms reverb_terms(const float* p, int B) {
   const float fb = p[0] * 0.28f + 0.7f;
   const float d = p[B] * 0.4f;
   const float g = fb * (1.0f - d);
   const float wet = p[2 * B];
   const float width = p[3 * B];
+  return Terms{{g, d, wet, width}};
+}
+
+// (wet1 and wet2 are formed after the combs, as the plain version forms
+// them: formed before, they stay live across the combs' registers)
+template <class M, class Tab>
+__device__ __forceinline__ Resp reverb_build(const Terms& t,
+                                             const Tab& tab) {
+  const float g = t.v[0], d = t.v[1], wet = t.v[2], width = t.v[3];
 
   const float2 z1 = tab.z1();
   const float Ar = 1.0f - d * z1.x;
@@ -305,33 +337,35 @@ struct Coeffs {
   float Pr, Pi, Qr, Qi, Pcr, Pci, Qcr, Qci;
 };
 
-// Candidate b, bin k: every stage's response, bypass-blended and composed,
-// as packed coefficients, the reverb's bin values from tab (ArrayTab or
-// another source of them), divisions and the delay's phasor as M takes
-// them. Kept apart from rp_apply() so that a kernel loads the spectra only
-// after this, the long part, is done with its registers.
-template <class M = IeeeMath, class Tab>
-__device__ __forceinline__ Coeffs rp_coeffs(const Stages& st, const Tab& tab,
-                                            int b, int k) {
-  const float w = st.w0 * (float)k;
-  Resp h;
-  for (int s = 0; s < st.n_stages; ++s) {
-    const int code = (st.codes >> (4 * s)) & 0xF;
-    const float* p = st.params + (long long)s * kParamsPerStage * st.B + b;
-    Resp h2;
-    if (code == kDelay) {
-      h2 = delay_build<M>(p, st.B, w, st.w0, k, st.n, st.sr);
-    } else if (code == kGain) {
-      h2 = gain_build(p);
-    } else if (code == kWidener) {
-      h2 = widener_build(p);
-    } else {
-      h2 = reverb_build<M>(p, st.B, tab);
-    }
-    if (st.active != nullptr) bypass(h2, st.active[(long long)s * st.B + b]);
-    h = (s == 0) ? h2 : compose(h, h2);
-  }
+// The code of stage s.
+__device__ __forceinline__ int stage_code(const Stages& st, int s) {
+  return (st.codes >> (4 * s)) & 0xF;
+}
 
+// The Terms of stage s of candidate b.
+__device__ __forceinline__ Terms stage_terms(const Stages& st, int s, int b) {
+  const int code = stage_code(st, s);
+  const float* p = st.params + (long long)s * kParamsPerStage * st.B + b;
+  if (code == kDelay) return delay_terms(p, st.B, st.sr);
+  if (code == kGain) return gain_terms(p);
+  if (code == kWidener) return widener_terms(p);
+  return reverb_terms(p, st.B);
+}
+
+// Stage `code`'s response at bin k (w = w0*k) from its Terms.
+template <class M, class Tab>
+__device__ __forceinline__ Resp stage_build(const Stages& st, int code,
+                                            const Terms& t, const Tab& tab,
+                                            float w, int k) {
+  if (code == kDelay) return delay_build<M>(t, w, st.w0, k, st.n);
+  if (code == kGain) return gain_build(t);
+  if (code == kWidener) return widener_build(t);
+  return reverb_build<M>(t, tab);
+}
+
+// The packed coefficients of a composed response
+// (rp_responses.rp_packed_coeffs).
+__device__ __forceinline__ Coeffs packed(const Resp& h) {
   Coeffs c;
   if (!h.mono) {
     c.Pr = h.v[0];
@@ -357,6 +391,55 @@ __device__ __forceinline__ Coeffs rp_coeffs(const Stages& st, const Tab& tab,
     c.Qci = 0.5f * (A2i - A2r);
   }
   return c;
+}
+
+// Candidate b, bin k: every stage's response, bypass-blended and composed,
+// as packed coefficients, the reverb's bin values from tab (ArrayTab or
+// another source of them), divisions and the delay's phasor as M takes
+// them. Each stage's Terms are formed in place, right before its response
+// (K3, which takes a candidate's scalars from shared memory for each of its
+// bins). Kept apart from rp_apply() so that a kernel loads the spectra only
+// after this, the long part, is done with its registers.
+template <class M, class Tab>
+__device__ __forceinline__ Coeffs rp_coeffs(const Stages& st, const Tab& tab,
+                                            int b, int k) {
+  const float w = st.w0 * (float)k;
+  Resp h;
+  for (int s = 0; s < st.n_stages; ++s) {
+    const int code = stage_code(st, s);
+    const float* p = st.params + (long long)s * kParamsPerStage * st.B + b;
+    Resp h2;
+    if (code == kDelay) {
+      h2 = delay_build<M>(delay_terms(p, st.B, st.sr), w, st.w0, k, st.n);
+    } else if (code == kGain) {
+      h2 = gain_build(gain_terms(p));
+    } else if (code == kWidener) {
+      h2 = widener_build(widener_terms(p));
+    } else {
+      h2 = reverb_build<M>(reverb_terms(p, st.B), tab);
+    }
+    if (st.active != nullptr) bypass(h2, st.active[(long long)s * st.B + b]);
+    h = (s == 0) ? h2 : compose(h, h2);
+  }
+  return packed(h);
+}
+
+// rp_coeffs with each stage's Terms and bypass weight computed beforehand
+// (K9 and K2, which compute a candidate's once for all of a block's bins):
+// stage s's are terms[s] and active[s].
+template <class M, class Tab>
+__device__ __forceinline__ Coeffs rp_coeffs_staged(const Stages& st,
+                                                   const Terms* terms,
+                                                   const float* active,
+                                                   const Tab& tab, int k) {
+  const float w = st.w0 * (float)k;
+  Resp h;
+  for (int s = 0; s < st.n_stages; ++s) {
+    Resp h2 = stage_build<M>(st, stage_code(st, s), terms[s], tab, w, k);
+    if (st.active != nullptr) bypass(h2, active[s]);
+    h = (s == 0) ? h2 : compose(h, h2);
+  }
+  return packed(h);
 }
 
 // Z[k] = (a_r, a_i), Zrev[k] = (c_r, c_i) in; Ylo[k] and Yhig[k] out. edge:

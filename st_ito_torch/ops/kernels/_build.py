@@ -28,20 +28,21 @@ _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
 _COMMON = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
            "-Xptxas", "-v"]
 
-# name -> (source, extra nvcc flags). All but mega_fft build with
-# -fmad=false. For K11 and K9/K2 the arithmetic is then the plain PyTorch
-# version's op for op (which never contracts a*b + c into one rounding),
-# and so is each step of the chunked scans K1, K6, K7 and K8, whose first
-# chunks match bitwise; with nvcc's default contraction K1 drifted past its
-# 1e-4 tolerance (PERF.md). The FFT kernels cannot match cuFFT bitwise
-# either way. K10 keeps the flag; K5, K3 and K4 (mega_fft) take nvcc's
-# contraction, which made K3 3% faster on the card (PERF.md): K3's epilogue
-# writes the delay's phase and denominator, where the response magnifies a
-# rounding a thousandfold, with unfused rounded operations
-# (rp_response.cuh delay_build).
+# name -> (source, extra nvcc flags). eqcomp, fused_fft and scan build
+# with -fmad=false: K11 then does the plain PyTorch version's arithmetic op
+# for op (which never contracts a*b + c into one rounding), and so does
+# each step of the chunked scans K1, K6, K7 and K8, whose first chunks
+# match bitwise; with nvcc's default contraction K1 drifted past its 1e-4
+# tolerance (PERF.md). The FFT kernels cannot match cuFFT bitwise either
+# way. K10 keeps the flag; K5, K3 and K4 (mega_fft) and K9 and K2
+# (packed_response) take nvcc's contraction, which made K3 3% and K2 9%
+# faster on the card (PERF.md): the response math writes the delay's phase
+# and denominator, where a comb resonance magnifies a rounding a
+# thousandfold, with unfused rounded operations (rp_response.cuh
+# delay_build).
 KERNELS = {
     "eqcomp": ("eqcomp.cu", ["-fmad=false"]),
-    "packed_response": ("packed_response.cu", ["-fmad=false"]),
+    "packed_response": ("packed_response.cu", []),
     "mega_fft": ("mega_fft.cu", []),
     "fused_fft": ("fused_fft.cu", ["-fmad=false"]),
     "scan": ("scan.cu", ["-fmad=false"]),

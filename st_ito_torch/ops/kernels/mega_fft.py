@@ -20,8 +20,8 @@ the plain versions write zeros) and K4 never reads it into a sum. Pitched
 rows are 16-byte aligned, which rows of the odd F = n/2 + 1 are not.
 
 The CUDA kernels are ``st_ito_torch/csrc/mega_fft.cu`` (float32 butterfly
-FFTs, ``csrc/fft_core.cuh``; K5 and K3 one persistent launch each on the
-scheduler of ``csrc/fft_persist.cuh``; K3 forms the Freeverb table's
+FFTs, ``csrc/fft_core.cuh``; K5, K3 and K4 one persistent launch each on
+the scheduler of ``csrc/fft_persist.cuh``; K3 forms the Freeverb table's
 phasors from row and column factors, ``freeverb_factors``, and reads only
 the table's allpass rows). Beside each wrapper stands its plain PyTorch
 version (``torch.fft`` with the flip and reassembly glue of ``ops/lti.py``),
@@ -47,11 +47,6 @@ from st_ito_torch.utils import phase_timer
 launches = {"fwd_pack_fft": 0, "fwd_pack_fft_response": 0,
             "inv_unpack_fft": 0}
 
-# K4's candidates per pass over its scratch (n complex64 each: 256 MB at
-# the headline n = 2^19). It bounds the scratch, nothing else: on the card
-# small chunks that keep the intermediate in the L2 cache lose more to their
-# short launches' partly filled last wave than they gain (PERF.md).
-CHUNK = 64
 # the kernels form the twiddle index k1*j2 < n exactly in float32
 _MAX_N = 1 << 24
 
@@ -204,14 +199,14 @@ def freeverb_factors(delays, n: int, dev):
     return _FACTORS[key]
 
 
-def _scratch(n: int, chunk: int, dev) -> torch.Tensor:
-    """The four-step intermediate of `chunk` candidates, (chunk, n, 2)
-    float32, allocated once per (n, chunk, device) and shared by the
-    kernels that take as many (K4's chunk; the ring of K5, K3 and K10):
-    each call's passes run in order on one stream."""
-    key = (n, chunk, dev)
+def _scratch(n: int, slots: int, dev) -> torch.Tensor:
+    """The persistent kernels' ring of `slots` one-candidate scratch slots,
+    (slots, n, 2) float32, allocated once per (n, slots, device) and shared
+    by K5, K3 and K4 (and K10's of the same shape): each call's passes run
+    in order on one stream."""
+    key = (n, slots, dev)
     if key not in _SCRATCH:
-        _SCRATCH[key] = torch.empty((chunk, n, 2), dtype=torch.float32,
+        _SCRATCH[key] = torch.empty((slots, n, 2), dtype=torch.float32,
                                     device=dev)
     return _SCRATCH[key]
 
@@ -223,16 +218,6 @@ def _device(t: torch.Tensor) -> torch.device:
     return t.device
 
 
-def _inverse_args(n: int, B: int, dev):
-    """(scratch, twiddles, n1, n2, Fp, chunk) of one K4 launch."""
-    if n > _MAX_N:
-        raise ValueError(f"the mega_fft kernels take n <= {_MAX_N}, got {n}")
-    n1, n2 = _radix(n)
-    Rp, _ = half_grid(n)
-    chunk = min(CHUNK, B)
-    return _scratch(n, chunk, dev), _twiddles(n1, dev), n1, n2, Rp * n1, chunk
-
-
 def _check_x(x: torch.Tensor, n: int) -> None:
     if (x.ndim != 3 or x.shape[1] != 2 or x.dtype != torch.float32
             or not x.is_contiguous()):
@@ -242,8 +227,8 @@ def _check_x(x: torch.Tensor, n: int) -> None:
 
 
 def scratch_slots() -> int:
-    """The candidates the forward kernels' scratch ring holds (builds the
-    kernels)."""
+    """The candidates the persistent kernels' scratch ring holds (builds
+    the kernels)."""
     fn = _build.load("mega_fft").mega_fft_scratch_slots
     fn.restype = ctypes.c_int
     return fn()
@@ -319,15 +304,20 @@ def fwd_pack_fft_response_cuda(x: torch.Tensor, stages, n: int, tables,
     return tuple(outs)
 
 
-_INV_ARGS = ([ctypes.c_void_p] * 7
-             + [ctypes.c_int] * 4 + [ctypes.c_longlong, ctypes.c_int])
+_INV_ARGS = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 4
+             + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p])
 
 
-def inv_unpack_fft_cuda(YloR, YloI, YhigR, YhigI, n: int, T: int):
-    """Launch K4 on the current stream."""
+def inv_unpack_fft_cuda(YloR, YloI, YhigR, YhigI, n: int, T: int,
+                        stage: int = -1):
+    """Launch K4 on the current stream: one persistent launch through the
+    scratch ring. ``stage`` 0 launches its timing probe instead
+    (``tools/k4_stages.py``): pass 1 of every candidate alone."""
     lib = _build.load("mega_fft")
     dev = _device(YloR)
     _check_nT(n, T)
+    if n > _MAX_N:
+        raise ValueError(f"the mega_fft kernels take n <= {_MAX_N}, got {n}")
     B = YloR.shape[0]
     shape = (B,) + half_grid(n)
     for v in (YloR, YloI, YhigR, YhigI):
@@ -335,14 +325,18 @@ def inv_unpack_fft_cuda(YloR, YloI, YhigR, YhigI, n: int, T: int):
                 or not v.is_contiguous() or tuple(v.shape) != shape):
             raise ValueError("inv_unpack_fft takes four contiguous float32 "
                              f"{shape} tensors on one CUDA device")
-    scratch, tw, n1, n2, Fp, chunk = _inverse_args(n, B, dev)
+    n1, n2 = _radix(n)
     y = torch.empty((B, 2, T), dtype=torch.float32, device=dev)
+    # held until the launch is made (_forward_args says why)
+    counters = torch.empty(1 + 2 * B, dtype=torch.int32, device=dev)
     fn = lib.inv_unpack_fft_launch
-    fn.argtypes = _INV_ARGS + [ctypes.c_void_p]
+    fn.argtypes = _INV_ARGS
     fn.restype = ctypes.c_int
     err = fn(YloR.data_ptr(), YloI.data_ptr(), YhigR.data_ptr(),
-             YhigI.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-             tw.data_ptr(), B, T, n1, n2, Fp, chunk,
+             YhigI.data_ptr(), y.data_ptr(),
+             _scratch(n, scratch_slots(), dev).data_ptr(),
+             _twiddles(n1, dev).data_ptr(), _roots(n, dev).data_ptr(),
+             counters.data_ptr(), B, T, n1, n2, shape[1] * n1, stage,
              torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"inv_unpack_fft_launch failed: CUDA error {err}")

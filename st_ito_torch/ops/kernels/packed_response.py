@@ -146,9 +146,13 @@ def data_ptr(t):
     return None if t is None else t.data_ptr()
 
 
-def _launch(entry: str, Z, shape, stages, tables, F: int, pitch):
+def _launch(entry: str, Z, shape, stages, tables, F: int, pitch,
+            stage: int = -1):
     """Check the four spectra, allocate the outputs and launch ``entry``;
-    ``pitch`` is None for K9's flat rows, Fp for K2's."""
+    ``pitch`` is None for K9's flat rows, Fp for K2's. ``stage`` >= 0
+    launches one of the kernel's timing probes instead
+    (``tools/k4_stages.py``): 0 the loads and stores alone (Y = Z), 1 the
+    response with IEEE division, 2 with the approximate one."""
     lib = _build.load("packed_response")
     B = shape[0]
     n = 2 * (F - 1)
@@ -170,23 +174,26 @@ def _launch(entry: str, Z, shape, stages, tables, F: int, pitch):
                    + [ctypes.c_uint, ctypes.c_int, ctypes.c_void_p,
                       ctypes.c_void_p, ctypes.c_void_p]
                    + [ctypes.c_int] * (3 if pitch is None else 4)
-                   + [ctypes.c_float, ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_float, ctypes.c_float, ctypes.c_int,
+                      ctypes.c_void_p])
     fn.restype = ctypes.c_int
     dims = (B, F, n) if pitch is None else (B, F, pitch, n)
     err = fn(*(z.data_ptr() for z in Z), *(o.data_ptr() for o in outs),
              codes, n_stages, prm.data_ptr(), data_ptr(act), data_ptr(table), *dims,
-             2.0 * math.pi / n, sr, torch.cuda.current_stream(dev).cuda_stream)
+             2.0 * math.pi / n, sr, stage,
+             torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{entry} failed: CUDA error {err}")
     return tuple(outs)
 
 
-def packed_response_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables):
-    """Launch K9 on the current stream."""
+def packed_response_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables,
+                         stage: int = -1):
+    """Launch K9 on the current stream (``stage``: ``_launch``)."""
     global launches
     B, F = ZrL.shape
     outs = _launch("packed_response_launch", (ZrL, ZiL, ZrR, ZiR), (B, F),
-                   stages, tables, F, None)
+                   stages, tables, F, None, stage)
     launches += 1
     return outs
 
@@ -223,13 +230,14 @@ def packed_response_padded_plain(ZrL, ZiL, ZrR, ZiR, stages, tables, n: int):
     return tuple(outs)
 
 
-def packed_response_padded_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables, n: int):
-    """Launch K2 on the current stream. The bins past F of the outputs are
-    left as allocated."""
+def packed_response_padded_cuda(ZrL, ZiL, ZrR, ZiR, stages, tables, n: int,
+                                stage: int = -1):
+    """Launch K2 on the current stream (``stage``: ``_launch``). The bins
+    past F of the outputs are left as allocated."""
     global launches_padded
     B, Rp, n1 = ZrL.shape
     outs = _launch("packed_response_padded_launch", (ZrL, ZiL, ZrR, ZiR),
-                   (B, Rp, n1), stages, tables, n // 2 + 1, Rp * n1)
+                   (B, Rp, n1), stages, tables, n // 2 + 1, Rp * n1, stage)
     launches_padded += 1
     return outs
 

@@ -49,8 +49,8 @@ VARIANTS = {
                ("mega_fft.cu", "__ldcg(slot + ((long long)k1",
                 "__ldcs(slot + ((long long)k1")],
     # at most three butterfly layers a step in K3's forward: less code
-    "l3": [("mega_fft.cu", "fftpersist::run<false, 5>(",
-            "fftpersist::run<false, 3>("),
+    "l3": [("mega_fft.cu", "fftpersist::cols_tile<false, 5>(",
+            "fftpersist::cols_tile<false, 3>("),
            ("mega_fft.cu", "fft_rows_dif_wide<false, false, 5>(s, slots,",
             "fft_rows_dif_wide<false, false, 3>(s, slots,")],
     # the response math out of line, called once a (candidate, bin)
@@ -61,8 +61,8 @@ VARIANTS = {
     # layers a step or five
     "mb3_l4": [("mega_fft.cu", "constexpr int kForwardMinBlocks = 2;",
                 "constexpr int kForwardMinBlocks = 3;"),
-               ("mega_fft.cu", "fftpersist::run<false, 5>(",
-                "fftpersist::run<false, 4>("),
+               ("mega_fft.cu", "fftpersist::cols_tile<false, 5>(",
+                "fftpersist::cols_tile<false, 4>("),
                ("mega_fft.cu", "fft_rows_dif_wide<false, false, 5>(s, slots,",
                 "fft_rows_dif_wide<false, false, 4>(s, slots,")],
     "mb3": [("mega_fft.cu", "constexpr int kForwardMinBlocks = 2;",

@@ -240,10 +240,9 @@ def _card_case(n, T, dev):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n,T", SIZES)
-def test_fft_kernels_match_plain_on_card(cuda_device, monkeypatch, n, T):
-    # 37 candidates: K4 in scratch chunks of 8, four full ones and a ragged
-    # one; K5 and K3 through their ring of 9 slots four times over
-    monkeypatch.setattr(mf, "CHUNK", 8)
+def test_fft_kernels_match_plain_on_card(cuda_device, n, T):
+    # 37 candidates: K5, K3 and K4, one persistent launch each, through
+    # their ring of 9 one-candidate scratch slots four times over
     _, x, stages, xd, stages_d = _card_case(n, T, cuda_device)
     before = dict(mf.launches)
     Z = mf.fwd_pack_fft(xd, n)

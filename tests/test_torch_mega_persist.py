@@ -1,6 +1,6 @@
-"""The persistent forward of K5 and K3 (``csrc/mega_fft.cu`` on the ticket
-scheduler of ``csrc/fft_persist.cuh``, shared with K10): its index maps on
-the CPU. A replica of the scheduler's ticket decode covers every (pass,
+"""The persistent kernels K5, K3 and K4 (``csrc/mega_fft.cu`` on the ticket
+scheduler of ``csrc/fft_persist.cuh``, shared with K10): their index maps
+on the CPU. A replica of the scheduler's ticket decode covers every (pass,
 chunk, item) once, and every wait it makes is on an earlier ticket; a torch
 model of the kernel's data flow (pass-1 column tiles into a ring of
 scratch slots, pass-2 tiles of rows and their mirror rows, taken in ticket
@@ -8,8 +8,11 @@ order) equals the plain version's (Zlo, Zrev); the epilogue's walk of the
 half-grid bins takes every bin once and pairs it with its mirror; the
 Freeverb phasors K3 forms from row and column factors lie
 within float32 rounding of the table's, and keep the response within K3's
-tolerance. At the smallest n the mega path admits (2^14: n1 = n2 = 128),
-at 2^15 and at the headline's 2^19."""
+tolerance. K4, the inverse: the scheduler with its plan, its gather's
+reads (each valid bin once), and a torch model of its two passes against
+the plain version and the JAX kernel; on a card, the kernel itself. At the
+smallest n the mega path admits (2^14: n1 = n2 = 128), at 2^15 and at the
+headline's 2^19."""
 
 import math
 
@@ -279,3 +282,181 @@ def test_forward_model_matches_plain(B):
         <= 1e-5 * scale
     assert float((torch.complex(zw[2], zw[3]) - rev).abs().max()) \
         <= 1e-5 * scale
+
+
+# ------------------------------------------------------------------- K4
+
+
+def inverse_plan(n, B):
+    """K4's plan (``mega_fft.cu inv_unpack_fft_launch``), K10's: pass-1
+    items are tiles of cw adjacent columns j2 (transforms of length n1 over
+    the bins u = j1*n2 + j2), pass-2 items tiles of `rows` rows k1
+    (transforms of length n2)."""
+    n1, n2 = mf._radix(n)
+    log_cw = min(tile_log(n1), n2.bit_length() - 1)
+    log_rows = min(tile_log(n2), n1.bit_length() - 1)
+    return dict(B=B, n_p1=n2 >> log_cw, n_p2=n1 >> log_rows, cw=1 << log_cw,
+                rows=1 << log_rows, pass1_only=False)
+
+
+@pytest.mark.parametrize("B", [1, 2, 3, 9, 10, 37])
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 15, 2 ** 19])
+def test_inverse_tickets_cover_every_item_once_and_wait_on_earlier_ones(n,
+                                                                        B):
+    """The scheduler's decode with K4's plan: each (pass, candidate, item)
+    once, every pass-2 item after all of its candidate's pass-1 items, and
+    every pass-1 item whose ring slot was used RING candidates earlier after
+    all of that candidate's pass-2 items (the waits are on earlier tickets,
+    so every wait ends)."""
+    p = inverse_plan(n, B)
+    n1, n2 = mf._radix(n)
+    assert (p["n_p1"] * p["cw"], p["n_p2"] * p["rows"]) == (n2, n1)
+    seen = {}
+    for t in range(tickets(p)):
+        item = decode(p, t)
+        assert item not in seen
+        seen[item] = t
+    assert set(seen) == ({(True, c, r) for c in range(B)
+                          for r in range(p["n_p1"])}
+                         | {(False, c, r) for c in range(B)
+                            for r in range(p["n_p2"])})
+    for (first, c, r), t in seen.items():
+        if first and c >= RING:
+            assert all(seen[(False, c - RING, q)] < t
+                       for q in range(p["n_p2"]))
+        if not first:
+            assert all(seen[(True, c, q)] < t for q in range(p["n_p1"]))
+
+
+def inverse_gather(n, u):
+    """K4's pass-1 gather rule (``mega_fft.cu HalfGridInput``): the array
+    ("lo" or "hi") and bin it reads for Y[u]."""
+    return ("lo", u) if u <= n // 2 else ("hi", n - u)
+
+
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 15, 2 ** 19])
+def test_inverse_gather_reads_each_valid_bin_once(n):
+    """Over every bin u = j1*n2 + j2 the gather reads Ylo at each k <= n/2
+    once and Yhig at each 1 <= k <= n/2 - 1 once, nothing else, and the bin
+    it reads holds Y[u] (Ylo[k] = Y[k], Yhig[m] = Y[n - m])."""
+    n1, n2 = mf._radix(n)
+    reads = {"lo": [], "hi": []}
+    for j1 in range(n1):
+        for j2 in range(n2):
+            u = j1 * n2 + j2
+            src, m = inverse_gather(n, u)
+            assert m == (u if src == "lo" else n - u)
+            reads[src].append(m)
+    assert sorted(reads["lo"]) == list(range(n // 2 + 1))
+    assert sorted(reads["hi"]) == list(range(1, n // 2))
+
+
+def inverse_model(parts, n, T):
+    """K4's data flow in torch (complex64, as the kernel's float32 pairs):
+    tickets in order; a pass-1 item gathers its column tile (bins
+    u = j1*n2 + j2 of its columns j2) by the gather rule, transforms it
+    over j1 and writes it, times the conjugated product of the two root
+    tables (``mega_fft._roots``), to the candidate's ring slot; a pass-2
+    item transforms its rows k1 over j2 and writes the samples
+    v = k2*n1 + k1 < T, scaled by 1/n. Returns (B, 2, T), NaN where no item
+    wrote."""
+    n1, n2 = mf._radix(n)
+    flat = [a.reshape(a.shape[0], -1) for a in parts]
+    arrays = {"lo": torch.complex(flat[0], flat[1]),
+              "hi": torch.complex(flat[2], flat[3])}
+    B = flat[0].shape[0]
+    p = inverse_plan(n, B)
+    roots = mf._roots(n, "cpu")
+    roots = torch.complex(roots[:, 0], roots[:, 1])
+    slots = torch.full((RING, n1, n2), math.nan, dtype=torch.complex64)
+    y = torch.full((B, n), math.nan, dtype=torch.complex64)
+    j1 = torch.arange(n1)
+    for t in range(tickets(p)):
+        first, c, r = decode(p, t)
+        slot = slots[c % RING]
+        if first:
+            for j2 in range(r * p["cw"], (r + 1) * p["cw"]):
+                col = torch.stack([arrays[src][c, m] for src, m in (
+                    inverse_gather(n, int(u)) for u in j1 * n2 + j2)])
+                a = torch.fft.ifft(col, norm="forward")  # over j1, unscaled
+                e = j1 * j2  # k1 runs over the same range as j1
+                w = roots[e // n1] * roots[n2 + e % n1]
+                slot[:, j2] = a * w.conj()
+            continue
+        k1 = torch.arange(r * p["rows"], (r + 1) * p["rows"])
+        out = torch.fft.ifft(slot[k1], dim=1, norm="forward") / n  # [k1, k2]
+        y[c].view(n2, n1)[:, k1] = out.transpose(0, 1)
+    y = y[:, :T]
+    return torch.stack([y.real, y.imag], dim=1)
+
+
+def _half_grid_case(B, n, seed):
+    """A random full spectrum Y as K4's inputs (YloR, YloI, YhigR, YhigI),
+    NaN in every bin K4 must not read (chip_smoke.py poison)."""
+    import chip_smoke as cs
+
+    rng = np.random.default_rng(seed)
+    Y = (rng.standard_normal((B, n)) + 1j * rng.standard_normal((B, n))
+         ).astype(np.complex64)
+    F = n // 2 + 1
+    Rp, n1 = mf.half_grid(n)
+    lo = np.zeros((B, Rp * n1), np.complex64)
+    hig = np.zeros((B, Rp * n1), np.complex64)
+    lo[:, :F] = Y[:, :F]
+    hig[:, :F] = Y[:, (n - np.arange(F)) % n]
+    parts = [torch.from_numpy(a.reshape(B, Rp, n1).copy())
+             for a in (lo.real, lo.imag, hig.real, hig.imag)]
+    return parts, cs.poison(parts, n)
+
+
+@pytest.mark.parametrize("T_rows", ["half", 33])
+@pytest.mark.parametrize("n", [2 ** 14, 2 ** 15])
+def test_inverse_model_matches_plain_and_jax(n, T_rows):
+    """The model of K4's two passes, fed NaN in every bin it must not read,
+    against the plain version (torch.fft.ifft on the valid bins): within
+    1e-6 x max|want| (measured 1.8e-7 to 2.3e-7: the root-table twiddle and
+    the transforms' float32 roundings); and against the JAX kernel
+    (interpret mode) on the clean inputs within 2e-5 x max|want|, the JAX
+    tests' own limit for its three-pass bf16 products
+    (``tests/test_mega_fft.py``), which put the JAX kernel itself 0.85e-5
+    to 1.01e-5 from the plain version here. B 3, T = n/2 and 33 x 128."""
+    import jax.numpy as jnp
+
+    from st_ito_tpu.ops.pallas import mega_fft as jmf
+
+    T = n // 2 if T_rows == "half" else T_rows * 128
+    B = 3
+    parts, poisoned = _half_grid_case(B, n, 11)
+    got = inverse_model(poisoned, n, T)
+    want = mf.inv_unpack_fft_plain(*parts, n, T)
+    jax_want = torch.from_numpy(np.array(jmf.inv_unpack_fft(
+        *(jnp.asarray(a.numpy()) for a in parts), n, T, interpret=True)))
+    assert got.shape == want.shape == jax_want.shape == (B, 2, T)
+    assert torch.isfinite(got).all()
+    for ref, tol in ((want, 1e-6), (jax_want, 2e-5)):
+        scale = float(ref.abs().max())
+        assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [1, 2, 10, 37])
+def test_inverse_kernel_matches_plain_on_card(cuda_device, B):
+    """K4, one persistent launch, against its plain version with NaN in
+    every bin it must not read, at n 2^15 (T n/2 and 37 x 128) and n 2^14:
+    within 1e-4 x max|want|."""
+    for n, T in ((2 ** 15, 2 ** 14), (2 ** 15, 37 * 128), (2 ** 14, 2 ** 13)):
+        parts, poisoned = _half_grid_case(B, n, B)
+        before = mf.launches["inv_unpack_fft"]
+        got = mf.inv_unpack_fft(*(a.to(cuda_device) for a in poisoned), n, T)
+        torch.cuda.synchronize()
+        assert mf.launches["inv_unpack_fft"] == before + 1
+        want = mf.inv_unpack_fft_plain(*parts, n, T)
+        scale = float(want.abs().max())
+        assert float((got.cpu() - want).abs().max()) <= 1e-4 * scale
