@@ -2,7 +2,8 @@
 """Drive the PyTorch/CUDA port (``st_ito_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--record PATH]
-                          [--phases k1,k9,fft,scan,main,style,comp,cli,dtype]
+                          [--phases k1,k9,fft,scan,main,style,comp,cli,
+                                    long,multitrack,dtype]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -62,10 +63,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    its in-kernel blend, once per generation and no other kernel;
 10. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
    material with the synthetic target and the default vst chain (K6, then
-   K3 -> K4) at popsize 512, 3 iterations, T 262144; launch counts per
-   fitness call, and the written WAV and parameter JSON;
-11. ``dtype``: bfloat16 against float32 fitness on a population of 64;
-12. the ``kernels`` JSON line, then the card line and the result line.
+   K3 -> K4) at popsize 512, 3 iterations, T 262144 (the host CMA-ES, the
+   CLI's gens_per_dispatch=1); then with ``--staged`` (2 iterations a
+   stage) and with ``--savepop`` (popsize 16, 2 iterations: every
+   generation's 16 ranked WAVs); launch counts per fitness call, and the
+   written WAV and parameter JSON;
+11. ``long``: the JAX package's ``examples/chunked_es_tpu.py`` on the
+   port: ``run_es`` with ``chunked=True`` on 60 s of stereo (T 2880000),
+   popsize 128, chunks of 262144, blocks of 4 generations, the basic chain
+   and the random-weight deployed Cnn14; a warm-up and a timed block, K1
+   and K9 once per sub-batch (the automatic one, sized on the card) and
+   no other kernel; the sub-batch, peak memory per candidate, spans and
+   the output render's time; then K1 at that path's chunk length (on
+   T_K1_LONG samples, by the two rules) and K9 at n 2^22;
+12. ``multitrack``: ``run_es_multitrack``, 4 tracks x popsize 128 at T
+   262144, a warm-up generation, then 2 timed: K1 on per-candidate input,
+   K3 and K4 once per generation and once for the final batched render;
+13. ``dtype``: bfloat16 against float32 fitness on a population of 64;
+14. the ``kernels`` JSON line, then the card line and the result line.
    K11 is on no main path (in the JAX package only its tests call it): its
    launches there are 0.
 Each phase logs the card's SM and memory clocks, power draw and
@@ -73,9 +88,10 @@ temperature (nvidia-smi) at its start and end.
 
 Tolerances: K1, a chunked scan whose carries round differently from the
 serial chain, (a) where a lane's distortion is bypassed within 1e-4 x
-max(1, the lane's peak) of the float32 plain version (B 37 x T 20011 and
-128 lanes x T 65536; logged at the headline, where the float32 plain run
-itself lies farther than that from float64), and (b) on every lane of every
+max(1, the lane's peak) of the float32 plain version (B 37 x T 20011,
+128 lanes x T 65536 and the long path's lanes x T_K1_LONG in that path's
+chunks; logged at the headline, where the float32 plain run itself lies
+farther than that from float64), and (b) on every lane of every
 set no farther from a float64 run of the plain version than 4x the float32
 one is, plus 1e-5 x max(1, peak); K6, K7 and K8, chunked scans too, by
 the same two rules on every lane of every set (``chunked.gate_excess``),
@@ -136,7 +152,23 @@ K7_OPS_PER_SAMPLE = 18 + 9 + 4 + 4
 K11_OPS_PER_SAMPLE = 2
 STYLE_CHAIN = "chains/eq+multiband-comp+limiter.json"
 CLI_ITERS = 3
-PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "cli", "dtype")
+# the CLI's --staged run (2 iterations a stage of the vst chain's 3) and
+# its --savepop run (popsize 16, 2 iterations)
+CLI_STAGED_ITERS = 2
+CLI_SAVEPOP_POP = 16
+# the long-audio phase: the JAX package's examples/chunked_es_tpu.py, 60 s
+# of stereo at 48 kHz, popsize 128, chunks of 262144, blocks of 4
+T_LONG = 60 * SR
+POP_LONG = 128
+GENS_LONG = 4
+# K1 is held at the long path's chunk length on this much audio: its plain
+# loop takes about 0.6 ms a sample step
+T_K1_LONG = 65536
+# the multitrack phase: 4 tracks x popsize 128 at the headline T
+TRACKS = 4
+POP_TRACK = 128
+PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "cli", "long",
+          "multitrack", "dtype")
 
 
 def log(*a):
@@ -262,19 +294,20 @@ def k1_inputs(B, C, T, seed, shared, dev):
     )[:5]
 
 
-def k1_plain64_job(path):
-    """The float64 plain run of the headline K1 set, written to ``path``:
-    run in a process of its own (spawned), beside the float32 run in the
-    main one, since each is bound by one core's rate of launches."""
+def k1_plain64_job(path, B, T, seed, shared):
+    """The float64 plain run of the K1 set ``k1_inputs(B, 2, T, seed,
+    shared)``, written to ``path``: run in a process of its own (spawned),
+    beside the float32 run in the main one, since each is bound by one
+    core's rate of launches."""
     from st_ito_torch.ops.kernels import eqcomp
 
-    args = k1_inputs(POP, 2, T_HEAD, 2, True, torch.device("cuda"))
+    args = k1_inputs(B, 2, T, seed, shared, torch.device("cuda"))
     torch.save(eqcomp.eqcomp_plain(*args, dtype=torch.float64).cpu(),
                path + ".tmp")
     os.replace(path + ".tmp", path)
 
 
-def k1_check(args, label, rule_a=True, want64=None):
+def k1_check(args, label, rule_a=True, want64=None, L=None):
     """K1 against its plain version on one input set, under the kernel's
     two rules (``eqcomp.gate_excess``): (a) where a lane's distortion is
     bypassed, |kernel - plain float32| <= 1e-4 x max(1, the lane's peak);
@@ -282,13 +315,19 @@ def k1_check(args, label, rule_a=True, want64=None):
     max_t |kernel - plain float64| <= 4 x max_t |plain float32 - plain
     float64| + 1e-5 x max(1, the lane's peak). Without ``rule_a`` rule (a)
     is logged and not held. ``want64`` returns the float64 run when it was
-    made elsewhere. Returns (max |kernel - plain float32|, the plain
-    version's ms)."""
+    made elsewhere. ``L``: launch the kernel in chunks of L samples (as
+    ``tools/k1_chunks.py`` does) in place of the wrapper's own chunk for
+    this shape. Returns (max |kernel - plain float32|, the plain version's
+    ms)."""
     from st_ito_torch.ops.kernels import eqcomp
+    from st_ito_torch.tools.k1_chunks import k1_launch
 
     lanes, T = args[1].shape[1], args[0].shape[-1]
-    L = eqcomp.chunk_len(lanes, T)
-    got = eqcomp.eqcomp_cuda(*args)
+    if L is None:
+        L = eqcomp.chunk_len(lanes, T)
+        got = eqcomp.eqcomp_cuda(*args)
+    else:
+        got = k1_launch(args, L)
     want, plain_ms = once_ms(lambda: eqcomp.eqcomp_plain(*args))
     want64 = (eqcomp.eqcomp_plain(*args, dtype=torch.float64)
               if want64 is None else want64().to(got.device))
@@ -328,7 +367,7 @@ def phase_k1(dev, rec):
 
     path = _build.BUILD_DIR.parent / "k1_plain64.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    job = spawn(k1_plain64_job, str(path))
+    job = spawn(k1_plain64_job, str(path), POP, T_HEAD, 2, True)
     try:
         head = k1_inputs(POP, 2, T_HEAD, 2, True, dev)
         rec["ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
@@ -1252,60 +1291,308 @@ def phase_comp(dev, model, rec):
                       want_per_gen={"k7": 1})
 
 
+def cli_run(dev, tmp, wav, name, popsize, iters, flags):
+    """``run_optim.main`` on ``wav`` with the synthetic target, the vst
+    chain and ``flags``; K6, K3 and K4 once per fitness call and no other
+    kernel; the written WAV and parameter JSON finite at the expected
+    shape. Returns (result, launches, wall s, fitness calls, run dir)."""
+    from st_ito_torch.cli import run_optim
+    from st_ito_torch.utils import load_audio
+
+    out_dir = os.path.join(tmp, name)
+    torch.cuda.synchronize()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    res = run_optim.main([
+        wav, "None", "--effect-type", "vst", "--popsize", str(popsize),
+        "--max-iters", str(iters), "--max-length", str(T_HEAD),
+        "--allow-random-model", "--output-dir", out_dir, "--device",
+        dev.type] + flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts()
+    calls = res["total_evals"] // popsize
+    want = {k: calls if k in ("k6", "k3", "k4") else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"cli {name}: launches {launches} in {calls} "
+                             f"fitness calls; expected {want}")
+    run_dir = os.path.join(out_dir, "program_to_synthetic_target_es")
+    audio, sr = load_audio(os.path.join(run_dir,
+                                        "output_audio_sigma=0.33.wav"))
+    with open(os.path.join(run_dir, "parameters_sigma=0.33.json")) as f:
+        params = json.load(f)
+    values = [v for stage in params.values() for v in stage.values()]
+    hist = np.asarray(res["fval_history"])
+    if (sr != SR or audio.shape != (2, T_HEAD)
+            or not np.isfinite(audio).all() or np.abs(audio).max() == 0
+            or not np.isfinite(values).all() or not np.isfinite(hist).all()):
+        raise AssertionError(f"cli {name}: the output WAV, parameter JSON "
+                             f"or fitness history is not finite at the "
+                             f"expected shape")
+    log(f"cli {name} (vst chain, popsize {popsize}, {iters} iterations"
+        f"{', ' + ' '.join(flags) if flags else ''}): "
+        f"{res['evals_per_sec']!r} evals/s, {wall!r} s wall, {calls} "
+        f"fitness calls, launches {launches}, fitness {hist.tolist()}")
+    return res, launches, wall, calls, run_dir
+
+
 def phase_cli(dev, rec):
     """The CLI on a WAV file with the synthetic target and the default vst
     chain; K6, K3 and K4 once per fitness call (find_w0's and each
-    iteration's) and no other kernel."""
+    iteration's) and no other kernel. Then ``--staged`` (each of the three
+    stages in turn, no find_w0) and ``--savepop`` (every generation's
+    renders written, ranked by fitness)."""
     import tempfile
 
-    from st_ito_torch.cli import run_optim
     from st_ito_torch.utils import save_audio
 
     with tempfile.TemporaryDirectory() as tmp:
         wav = os.path.join(tmp, "program.wav")
         save_audio(wav, program_audio(3, T_HEAD)[0], SR)
-        out_dir = os.path.join(tmp, "out")
+        res, launches, wall, calls, _ = cli_run(dev, tmp, wav, "default", POP,
+                                                CLI_ITERS, [])
+        if calls != CLI_ITERS + 1:
+            raise AssertionError(f"cli: {calls} fitness calls")
+        rec.update(evals_per_sec=res["evals_per_sec"],
+                   time_elapsed=res["time_elapsed"], wall_s=wall,
+                   total_evals=res["total_evals"], launches=launches,
+                   fval_history=list(res["fval_history"]))
+
+        res, st_launches, wall, calls, _ = cli_run(
+            dev, tmp, wav, "staged", POP, CLI_STAGED_ITERS, ["--staged"])
+        if calls != 3 * CLI_STAGED_ITERS or \
+                len(res["fval_history"]) != 3 * CLI_STAGED_ITERS:
+            raise AssertionError(f"cli --staged: {calls} fitness calls")
+        rec["staged"] = dict(evals_per_sec=res["evals_per_sec"],
+                             time_elapsed=res["time_elapsed"], wall_s=wall,
+                             launches=st_launches,
+                             fval_history=list(res["fval_history"]))
+
+        res, sp_launches, wall, calls, run_dir = cli_run(
+            dev, tmp, wav, "savepop", CLI_SAVEPOP_POP, 2, ["--savepop"])
+        written = {g: sorted(os.listdir(os.path.join(run_dir, g)))
+                   for g in ("pop_-1", "pop_0", "pop_1")}
+        for g, names in written.items():
+            ranks = sorted(int(n.split("_")[3]) for n in names)
+            if ranks != list(range(CLI_SAVEPOP_POP)):
+                raise AssertionError(f"cli --savepop: {g} holds {names}")
+        if calls != 3:
+            raise AssertionError(f"cli --savepop: {calls} fitness calls")
+        rec["savepop"] = dict(evals_per_sec=res["evals_per_sec"],
+                              time_elapsed=res["time_elapsed"], wall_s=wall,
+                              launches=sp_launches,
+                              files={g: len(n) for g, n in written.items()})
+        log(f"cli --savepop wrote {rec['savepop']['files']} WAVs")
+    return launches
+
+
+# ------------------------------------------------------ long audio, tracks
+
+
+def phase_long(dev, model, rec):
+    """The long-audio ES (``run_es`` with ``chunked=True``): 60 s stereo,
+    popsize 128, chunks of 262144, blocks of 4 generations; one warm-up
+    block, then one timed block whose launches must be K1 and K9 once per
+    sub-batch per generation and no other kernel (the LTI group runs
+    ``mx``: ``mega_fft.supported`` rejects T 2880000). Then K1 at the
+    chunk length of that path's lanes against its plain version under the
+    two rules (T_K1_LONG samples), and K9 at n 2^22 and the sub-batch."""
+    from st_ito_torch.chain import basic_chain, build_render_fn
+    from st_ito_torch.ito import engine, run_es
+    from st_ito_torch.ops.iir import next_pow2
+    from st_ito_torch.ops.kernels import _build, eqcomp
+    from st_ito_torch.ops.kernels import packed_response as k9
+    from st_ito_torch.utils import phase_timer
+
+    chain = basic_chain()
+    x = program_audio(10, T_LONG).to(dev)
+    w_target = torch.from_numpy(np.random.default_rng(0).uniform(
+        0.25, 0.75, chain.num_params).astype(np.float32))
+    render = build_render_fn(chain, SR, 2, device=dev)
+    y = render(w_target, x[0])[None]
+    picked = []
+    real = engine.make_fitness_fn
+
+    def spy(*a, **k):
+        picked.append(k["pop_microbatch"])
+        return real(*a, **k)
+
+    common = dict(popsize=POP_LONG, crop_len=T_HEAD, chunked=True,
+                  gens_per_dispatch=GENS_LONG, max_iters=GENS_LONG,
+                  sigma0=0.3, find_w0=False, seed=0, verbose=False,
+                  early_stop_patience=10**9, device=dev)
+    engine.make_fitness_fn = spy
+    try:
+        t0 = time.perf_counter()
+        run_es(x, y, SR, chain, model, **common)  # warm-up block
         torch.cuda.synchronize()
+        warm = time.perf_counter() - t0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        phase_timer.reset(True)
         launch_counts(reset=True)
         t0 = time.perf_counter()
-        res = run_optim.main([
-            wav, "None", "--effect-type", "vst", "--popsize", str(POP),
-            "--max-iters", str(CLI_ITERS), "--max-length", str(T_HEAD),
-            "--allow-random-model", "--output-dir", out_dir,
-            "--device", dev.type])
+        res = run_es(x, y, SR, chain, model, **common)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = launch_counts()
-        calls = res["total_evals"] // POP
-        want = {name: calls if name in ("k6", "k3", "k4") else 0
-                for name in launches}
-        if calls != CLI_ITERS + 1 or launches != want:
-            raise AssertionError(
-                f"cli: launches {launches} in {calls} fitness calls; "
-                f"expected {want}")
-        run_dir = os.path.join(out_dir, "program_to_synthetic_target_es")
-        from st_ito_torch.utils import load_audio
-
-        audio, sr = load_audio(os.path.join(run_dir,
-                                            "output_audio_sigma=0.33.wav"))
-        with open(os.path.join(run_dir, "parameters_sigma=0.33.json")) as f:
-            params = json.load(f)
-        values = [v for stage in params.values() for v in stage.values()]
-        if (sr != SR or audio.shape != (2, T_HEAD)
-                or not np.isfinite(audio).all() or np.abs(audio).max() == 0
-                or not np.isfinite(values).all()):
-            raise AssertionError("cli: the output WAV or parameter JSON is "
-                                 "not finite at the expected shape")
+        spans = phase_timer.read_ms()
+        phase_timer.reset(False)
+    finally:
+        engine.make_fitness_fn = real
+    peak = torch.cuda.max_memory_allocated()
+    mb = picked[-1] or POP_LONG
+    subs = POP_LONG // mb
+    want = {k: GENS_LONG * subs if k in ("k1", "k9") else 0
+            for k in launches}
+    if launches != want:
+        raise AssertionError(f"long: launches {launches} in {GENS_LONG} "
+                             f"generations of {subs} sub-batches; expected "
+                             f"{want}")
     hist = np.asarray(res["fval_history"])
-    if not np.isfinite(hist).all():
-        raise AssertionError(f"cli: fitness history {hist}")
+    out = res["output_audio"]
+    if hist.shape != (GENS_LONG,) or not np.isfinite(hist).all():
+        raise AssertionError(f"long: fitness history {hist}")
+    if out.shape != (1, 2, T_LONG) or not torch.isfinite(out).all():
+        raise AssertionError("long: output audio is not finite (1, 2, T)")
+    # the output render (per candidate, plain PyTorch, outside
+    # time_elapsed) once more, timed, on run_es's peak-normalised input
+    xn = x / x.abs().max()
+    again, render_ms = once_ms(lambda: render(
+        torch.as_tensor(res["wopt"], dtype=torch.float32), xn[0]))
+    render_err = float((again - out[0]).abs().max())
+    if render_err > 1e-5:
+        raise AssertionError(f"long: the output render differs: "
+                             f"{render_err}")
+    n_fft = next_pow2(T_LONG + min(T_LONG, 10 * SR))
+    # the (38, F) reverb table at n 2^22 (319 MB) is built once and kept
+    built = [key for key in k9._TABLES if key[2] == n_fft]
+    if len(built) != 1:
+        raise AssertionError(f"long: rp tables at n {n_fft}: {built}")
+    per_cand = (peak - base) / mb
+    rec.update(
+        sub_batch=mb, sub_batches=subs, launches=launches, warm_up_s=warm,
+        wall_s=wall, evals_per_sec=res["evals_per_sec"],
+        ms_per_generation=1e3 * res["time_elapsed"] / GENS_LONG,
+        phase_ms_per_generation={k: sum(v) / GENS_LONG
+                                 for k, v in spans.items()},
+        max_memory_allocated_bytes=peak, allocated_before_bytes=base,
+        peak_bytes_per_candidate=per_cand, n_fft=n_fft,
+        peak_bytes_per_candidate_fft_sample=per_cand / n_fft,
+        output_render_ms=render_ms, output_render_err=render_err,
+        fval_history=hist.tolist())
+    log(f"long (60 s, popsize {POP_LONG}, sub-batch {mb}): "
+        f"{res['evals_per_sec']!r} evals/s, {rec['ms_per_generation']!r} "
+        f"ms/generation, launches {launches}; warm-up block {warm!r} s")
+    log("per-phase device ms per generation (long): "
+        + json.dumps(rec["phase_ms_per_generation"]))
+    log(f"long: max_memory_allocated {peak} bytes, {base} before the "
+        f"block: {per_cand!r} bytes a candidate, {per_cand / n_fft!r} a "
+        f"sample of the 2^{n_fft.bit_length() - 1} FFT grid")
+    log(f"long: output render (per candidate, T {T_LONG}) {render_ms!r} "
+        f"ms; fitness history {hist.tolist()}")
+    del res, out, again, y
+    torch.cuda.empty_cache()
+
+    # K1 at the long path's lanes and chunk length
+    lanes = 2 * mb
+    L = eqcomp.chunk_len(lanes, T_LONG)
+    head = k1_inputs(mb, 2, T_LONG, 12, True, dev)
+    rec["k1_ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
+    rec["k1_chunk"] = L
+    rec["k1_bound_ms"] = max(
+        4 * (lanes * T_LONG + head[0].numel() + head[1].numel())
+        / HBM_BYTES_PER_S,
+        K1_OPS_PER_SAMPLE * lanes * T_LONG / FP32_OPS_PER_S) * 1e3
+    log(f"K1 long (lanes {lanes}, T {T_LONG}, chunk {L}, "
+        f"{-(-T_LONG // L)} chunks): {rec['k1_ms']!r} ms, bound "
+        f"{rec['k1_bound_ms']!r}")
+    del head
+    path = _build.BUILD_DIR.parent / "k1_long_plain64.pt"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    job = spawn(k1_plain64_job, str(path), mb, T_K1_LONG, 12, True)
+    try:
+        args = k1_inputs(mb, 2, T_K1_LONG, 12, True, dev)
+        rec["k1_max_abs_err"], rec["k1_plain_ms"] = k1_check(
+            args, f"long chunk {L}, B {mb}, T {T_K1_LONG}, shared=True",
+            want64=lambda: await_saved(str(path), job), L=L)
+    finally:
+        stop(job)
+
+    # K9 at n 2^22 and the sub-batch
+    case = k9_case(mb, n_fft, 13, dev)
+    if case[2] is not k9._TABLES[built[0]]:
+        raise AssertionError("long: K9's check built its tables again")
+    rec["k9_max_abs_err"], rec["k9_max_rel_err"], rec["k9_plain_ms"] = \
+        k9_check(case, f"long n 2^{n_fft.bit_length() - 1}, B {mb}")
+    rec["k9_ms"] = cuda_ms(lambda: k9.packed_response_cuda(*case[0],
+                                                           *case[1:]), 5)
+    F = n_fft // 2 + 1
+    rec["k9_bound_ms"] = max(
+        4 * (8 * mb * F + case[2]["reverb"]["_packed"].numel() + 9 * mb)
+        / HBM_BYTES_PER_S, K9_OPS_PER_BIN * mb * F / FP32_OPS_PER_S) * 1e3
+    log(f"K9 long (B {mb}, F {F}): {rec['k9_ms']!r} ms, bound "
+        f"{rec['k9_bound_ms']!r}")
+    del case
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_multitrack(dev, model, rec):
+    """``run_es_multitrack``: 4 tracks x popsize 128 at the headline T; a
+    warm-up generation, then 2 generations whose launches must be K1 (on
+    per-candidate input), K3 and K4 once per generation and once more for
+    the final batched render, no other kernel."""
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.ito import run_es_multitrack
+    from st_ito_torch.utils import phase_timer
+
+    chain = basic_chain()
+    x = torch.cat([program_audio(20 + t, T_HEAD) for t in range(TRACKS)])
+    y = torch.cat([styled_target(x[t:t + 1], chain, dev, 30 + t)
+                   for t in range(TRACKS)])
+    t0 = time.perf_counter()
+    run_es_multitrack(x, y, SR, chain, model, max_iters=1,
+                      popsize=POP_TRACK, device=dev)  # warm-up
+    torch.cuda.synchronize()
+    log(f"multitrack warm-up (1 generation): {time.perf_counter() - t0!r} s")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phase_timer.reset(True)
+    launch_counts(reset=True)
+    res = run_es_multitrack(x, y, SR, chain, model, max_iters=GENS,
+                            popsize=POP_TRACK, device=dev)
+    torch.cuda.synchronize()
+    launches = launch_counts()
+    spans = phase_timer.read_ms()
+    phase_timer.reset(False)
+    want = {k: GENS + 1 if k in ("k1", "k3", "k4") else 0 for k in launches}
+    if launches != want:
+        raise AssertionError(f"multitrack: launches {launches}; expected "
+                             f"{want}")
+    hist = np.asarray(res["fval_history"])
+    out = res["output_audio"]
+    if hist.shape != (TRACKS, GENS) or not np.isfinite(hist).all():
+        raise AssertionError(f"multitrack: fitness history {hist}")
+    if out.shape != (TRACKS, 2, T_HEAD) or not torch.isfinite(out).all():
+        raise AssertionError("multitrack: output audio is not finite "
+                             "(tracks, 2, T)")
     rec.update(evals_per_sec=res["evals_per_sec"],
-               time_elapsed=res["time_elapsed"], wall_s=wall,
-               total_evals=res["total_evals"], launches=launches,
-               fval_history=hist.tolist())
-    log(f"cli (vst chain, popsize {POP}, {CLI_ITERS} iterations): "
-        f"{res['evals_per_sec']!r} evals/s, {wall!r} s wall, launches "
-        f"{launches}, fitness {hist.tolist()}")
+               ms_per_generation=1e3 * res["time_elapsed"] / GENS,
+               phase_ms_per_generation={k: sum(v) / GENS
+                                        for k, v in spans.items()},
+               launches=launches, fval_history=hist.tolist(),
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+    log(f"multitrack ({TRACKS} tracks x popsize {POP_TRACK}): "
+        f"{res['evals_per_sec']!r} evals/s, {rec['ms_per_generation']!r} "
+        f"ms/generation, launches {launches}")
+    log("per-phase device ms per generation (multitrack, spans of the "
+        "final render included): " + json.dumps(
+            rec["phase_ms_per_generation"]))
+    log(f"max_memory_allocated (multitrack): "
+        f"{rec['max_memory_allocated_bytes']} bytes; fitness "
+        f"{hist.tolist()}")
     return launches
 
 
@@ -1402,7 +1689,7 @@ def main() -> int:
     model = main_rec = None
     # K11 is on no main path: no run of one launches it
     launches = {"k11": 0}
-    if {"main", "style", "comp", "dtype"} & set(phases):
+    if {"main", "style", "comp", "long", "multitrack", "dtype"} & set(phases):
         model = load_param_model(allow_random=True, seed=0, device=dev)
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
@@ -1417,7 +1704,7 @@ def main() -> int:
         for mode, r in main_rec.items():
             log(f"{mode}: {r['ms_per_generation']!r} ms/generation, "
                 f"{r['ms_per_generation'] / base!r} of mx")
-    style_rec, comp_rec, cli_rec = {}, {}, {}
+    style_rec, comp_rec, cli_rec, long_rec, mt_rec = {}, {}, {}, {}, {}
     if "style" in phases:
         launches["k8"] = run("style", phase_style, dev, model,
                              style_rec)["k8"]
@@ -1425,12 +1712,17 @@ def main() -> int:
         launches["k7"] = run("comp", phase_comp, dev, model, comp_rec)["k7"]
     if "cli" in phases:
         launches["k6"] = run("cli", phase_cli, dev, cli_rec)["k6"]
+    if "long" in phases:
+        run("long", phase_long, dev, model, long_rec)
+    if "multitrack" in phases:
+        run("multitrack", phase_multitrack, dev, model, mt_rec)
     dtype_rec = {}
     if "dtype" in phases:
         run("dtype", phase_dtype, dev, model, dtype_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
-                  cli=cli_rec, dtype=dtype_rec)
+                  cli=cli_rec, long=long_rec, multitrack=mt_rec,
+                  dtype=dtype_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -1483,6 +1775,15 @@ def main() -> int:
                       "library_ms_inv"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
+        # the long path's K1 (at its chunk) and K9 (at n 2^22), and each
+        # kernel's launches in the long and multitrack runs
+        if key in ("k1", "k9"):
+            for extra in ("ms", "plain_ms", "max_abs_err", "bound_ms",
+                          "chunk"):
+                if f"{key}_{extra}" in long_rec:
+                    kernels[-1][f"long_{extra}"] = long_rec[f"{key}_{extra}"]
+        for label, r in (("long", long_rec), ("multitrack", mt_rec)):
+            kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start
     write_record(args.record, record)

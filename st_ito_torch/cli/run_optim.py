@@ -13,12 +13,15 @@ CLI takes its device from JAX's platform selection): ``--device cpu`` runs
 the whole path on the CPU with the kernels' plain versions. ``--effect-type
 vst`` (the default) is EQ -> delay -> reverb, the native chain standing in
 for the reference's ZamEQ2 -> FlyingDelay -> TAL-Reverb-4; its population
-renderer runs K6, then K3 -> K4. ``--use-gpu`` and ``--parallel`` are
-accepted and do nothing: the population always renders in parallel on the
-device. Not ported, and raising with their ROADMAP item: ``--algorithm
-autodiff``, ``--metric mfcc`` / ``clap``, ``--staged``, ``--savepop``,
-``--chunked`` and ``--num-devices`` above 1. The convergence plot is best
-effort (it needs matplotlib).
+renderer runs K6, then K3 -> K4. ``--staged`` optimises one stage at a
+time (``run_staged_es``); ``--savepop`` writes every generation's renders,
+ranked, under the run directory; ``--chunked`` is the long-audio mode;
+``--dropout`` is the embedding dropout. ``--use-gpu`` and ``--parallel``
+are accepted and do nothing: the population always renders in parallel on
+the device. Not ported, and raising with their ROADMAP item:
+``--algorithm autodiff``, ``--metric mfcc`` / ``clap`` and
+``--num-devices`` above 1. The convergence plot is best effort (it needs
+matplotlib).
 """
 
 from __future__ import annotations
@@ -77,9 +80,6 @@ def _refuse_unported(args) -> None:
              args.algorithm == "autodiff", "8"),
             ("--metric mfcc", args.metric == "mfcc", "9"),
             ("--metric clap", args.metric == "clap", "11"),
-            ("--staged (run_staged_es)", args.staged, "6"),
-            ("--savepop", args.savepop, "6"),
-            ("--chunked (the long-audio mode)", args.chunked, "6"),
             ("--num-devices (a device mesh)", args.num_devices > 1, "13")):
         if chosen:
             raise NotImplementedError(
@@ -108,7 +108,8 @@ def main(argv=None):
                         choices=["param", "clap", "mfcc"])
     parser.add_argument("--sigma0", type=float, default=0.33)
     parser.add_argument("--chunked", action="store_true",
-                        help="long-audio mode (not ported)")
+                        help="long-audio mode: render the whole input, "
+                             "embed it in chunks of 262144 samples")
     parser.add_argument("--gens-per-dispatch", type=int, default=1,
                         help="generations per device block of the CMA-ES")
     parser.add_argument("--pop-microbatch", type=int, default=None,
@@ -128,7 +129,7 @@ def main(argv=None):
     _refuse_unported(args)
 
     from st_ito_torch.chain import build_render_fn
-    from st_ito_torch.ito import run_es
+    from st_ito_torch.ito import run_es, run_staged_es
     from st_ito_torch.models.registry import get_param_embeds, load_param_model
     from st_ito_torch.ops.resample import resample
     from st_ito_torch.utils import load_audio, resolve_device, save_audio
@@ -181,13 +182,15 @@ def main(argv=None):
 
     # ---- run ----
     sigma0 = args.sigma0
-    result = run_es(
+    es_func = run_staged_es if args.staged else run_es
+    result = es_func(
         input_audio[None], target_audio[None], sample_rate, chain, model,
         embed_func=embed_func, max_iters=args.max_iters,
         popsize=args.popsize, find_w0=True, sigma0=sigma0,
-        distance="cosine", dropout=args.dropout,
+        distance="cosine", dropout=args.dropout, savepop=args.savepop,
         normalize_stages=args.normalize_stages, run_dir=run_dir,
-        seed=args.seed, gens_per_dispatch=args.gens_per_dispatch,
+        seed=args.seed, chunked=args.chunked,
+        gens_per_dispatch=args.gens_per_dispatch,
         pop_microbatch=args.pop_microbatch, device=dev)
 
     # ---- save results ----

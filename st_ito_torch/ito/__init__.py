@@ -1,5 +1,26 @@
-"""The device-resident CMA-ES and the ITO loop ``run_es``."""
+"""Inference-time optimisation: the host CMA-ES (``cmaes``), the
+device-resident one (``device_es``), ``run_es`` and its staged and
+multitrack forms, and the baselines. ``run_autodiff`` (ROADMAP §1 item 8)
+and ``run_learned_inference`` (item 10) are not ported yet."""
 
-from st_ito_torch.ito.engine import make_fitness_fn, run_es
+from st_ito_torch.ito.cmaes import CMAES
+from st_ito_torch.ito.engine import (
+    make_fitness_fn,
+    run_es,
+    run_es_multitrack,
+    run_input,
+    run_random,
+    run_rule_based,
+    run_staged_es,
+)
 
-__all__ = ["make_fitness_fn", "run_es"]
+__all__ = [
+    "CMAES",
+    "make_fitness_fn",
+    "run_es",
+    "run_es_multitrack",
+    "run_staged_es",
+    "run_input",
+    "run_random",
+    "run_rule_based",
+]

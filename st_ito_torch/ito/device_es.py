@@ -5,6 +5,9 @@ holds the population: sampling, reflection into [0, 1], rank-mu covariance
 update, step-size control and the ``torch.linalg.eigh`` covariance refresh.
 ``make_block_runner`` runs k generations and keeps their statistics on the
 device, so the caller fetches one (k, N + 2) array per block.
+``state_to_dict`` and ``state_from_dict`` read and write the snapshot layout
+of the host ``CMAES.state_dict`` (the JAX package's keys, float64), so a
+snapshot written by either package, in either form, resumes in the other.
 
 Random numbers come from a ``torch.Generator`` on the device (they differ
 from ``jax.random``'s); ``cma_ask`` also takes injected normals so tests can
@@ -87,6 +90,38 @@ def cma_init(x0, sigma0: float, device) -> CMAState:
         best_f=f32(math.inf), generation=0, counteval=0)
 
 
+def state_to_dict(state: CMAState) -> dict:
+    """Fetch to the host in the ``CMAES.state_dict`` layout (float64)."""
+    def f64(t):
+        return t.detach().cpu().numpy().astype(np.float64)
+
+    return {"mean": f64(state.mean), "sigma": float(state.sigma),
+            "pc": f64(state.pc), "ps": f64(state.ps), "C": f64(state.C),
+            "best_x": f64(state.best_x), "best_f": float(state.best_f),
+            "counteval": int(state.counteval),
+            "generation": int(state.generation)}
+
+
+def state_from_dict(d: dict, device) -> CMAState:
+    """The state of a snapshot, on ``device``; the eigenbasis of the
+    symmetrised covariance is formed in float64 on the host, as the JAX
+    package forms it."""
+    C = np.asarray(d["C"], np.float64)
+    C = (C + C.T) / 2
+    d2, B = np.linalg.eigh(C)
+    D = np.sqrt(np.maximum(d2, 1e-20))
+
+    def f32(v):
+        return torch.as_tensor(np.asarray(v, np.float32), device=device)
+
+    return CMAState(mean=f32(d["mean"]), sigma=f32(float(d["sigma"])),
+                    pc=f32(d["pc"]), ps=f32(d["ps"]), C=f32(C), B=f32(B),
+                    D=f32(D), best_x=f32(d["best_x"]),
+                    best_f=f32(float(d["best_f"])),
+                    generation=int(d["generation"]),
+                    counteval=int(d["counteval"]))
+
+
 def _reflect01(x: torch.Tensor) -> torch.Tensor:
     """Reflect out-of-bounds coordinates back into [0, 1]."""
     y = torch.remainder(x, 2.0)
@@ -152,22 +187,40 @@ def cma_tell(state: CMAState, consts: CMAConsts, X: torch.Tensor,
                     generation, counteval)
 
 
+def lift_slice(template: torch.Tensor, W: torch.Tensor,
+               s0: int) -> torch.Tensor:
+    """Candidates W (lam, N) of the slice [s0, s0 + N) embedded into the
+    full frozen parameter vector ``template`` (P,): (lam, P)."""
+    Wf = template[None, :].repeat(W.shape[0], 1)
+    Wf[:, s0:s0 + W.shape[1]] = W
+    return Wf
+
+
 def make_block_runner(fitness: Callable, consts: CMAConsts,
                       crop_len: int | None = None,
                       crop_min_start: int = 16384) -> Callable:
-    """``run(state, x, target_embeds, k, generator, crop_generator) ->
-    (state, stats)`` runs k generations. ``fitness(W, x, target_embeds)``
-    returns (lam,) fitness values on the device. When ``crop_len`` is given
-    and x is longer, each generation scores the whole population on one
-    random crop of x, its start drawn from ``crop_generator`` (a CPU
-    generator, so drawing it needs no sync with the device).
+    """``run(state, x, target_embeds, k, generator, crop_generator,
+    target_content_embeds=None, lift=None) -> (state, stats)`` runs k
+    generations. ``fitness(W, x, target_embeds, target_content_embeds,
+    generator)`` returns (lam,) fitness values on the device; it draws its
+    embedding-dropout masks, if any, from ``generator``, the generator the
+    asks draw from. When ``crop_len`` is given and x is longer, each
+    generation scores the whole population on one random crop of x, its
+    start drawn from ``crop_generator`` (a CPU generator, so drawing it
+    needs no sync with the device).
+
+    ``lift = (template (P,), start)`` (``run_es``'s ``opt_slice``): the
+    candidates are the slice [start, start + N) of the full parameter
+    vector, every other entry frozen at the template's value; the fitness
+    sees the full vectors, the state and the statistics the slice.
 
     ``stats`` is the (k, N + 2) float32 device tensor of the JAX package's
     ``BlockStats.packed``: [:, 0] the best fitness OF each generation,
     [:, 1] best-so-far AFTER it, [:, 2:] the best-so-far candidate."""
 
     def run(state: CMAState, x, target_embeds, k: int,
-            generator: torch.Generator, crop_generator: torch.Generator):
+            generator: torch.Generator, crop_generator: torch.Generator,
+            target_content_embeds=None, lift=None):
         T = x.shape[-1]
         do_crop = crop_len is not None and T > crop_len
         rows = []
@@ -175,13 +228,15 @@ def make_block_runner(fitness: Callable, consts: CMAConsts,
             dev = state.mean.device
             with phase_timer.span("ask", dev):
                 W = cma_ask(state, consts, generator)
+            W_eval = W if lift is None else lift_slice(lift[0], W, lift[1])
             xe = x
             if do_crop:
                 lo = min(crop_min_start, T - crop_len)
                 start = int(torch.randint(lo, T - crop_len, (),
                                           generator=crop_generator))
                 xe = x[..., start:start + crop_len]
-            fvals = fitness(W, xe, target_embeds).to(torch.float32)
+            fvals = fitness(W_eval, xe, target_embeds, target_content_embeds,
+                            generator).to(torch.float32)
             with phase_timer.span("tell", dev):
                 state = cma_tell(state, consts, W, fvals)
             rows.append(torch.cat([fvals.min()[None], state.best_f[None],

@@ -5,6 +5,7 @@ from st_ito_torch.models.convert import cnn14_state_dict_from_jax
 from st_ito_torch.models.registry import (
     ParamModel,
     get_param_embeds,
+    get_param_embeds_chunked,
     load_param_model,
 )
 
@@ -14,5 +15,6 @@ __all__ = [
     "ParamModel",
     "cnn14_state_dict_from_jax",
     "get_param_embeds",
+    "get_param_embeds_chunked",
     "load_param_model",
 ]

@@ -1,7 +1,7 @@
 """AFx-Rep model loading and the embedding API — port of
-``st_ito_tpu/models/registry.py``'s ``ParamModel``, ``load_param_model`` and
-``get_param_embeds``. The other metrics (MFCC, MIR, CLAP, ...) are ROADMAP
-§1 items 9 and 11."""
+``st_ito_tpu/models/registry.py``'s ``ParamModel``, ``load_param_model``,
+``get_param_embeds`` and ``get_param_embeds_chunked``. The other metrics
+(MFCC, MIR, CLAP, ...) are ROADMAP §1 items 9 and 11."""
 
 from __future__ import annotations
 
@@ -84,13 +84,19 @@ def _l2_normalize(e: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 
 
 def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
-                     peak_normalize: bool = True, dropout: float = 0.0
+                     peak_normalize: bool = True, dropout: float = 0.0,
+                     generator: torch.Generator | None = None
                      ) -> dict[str, torch.Tensor]:
     """AFx-Rep embeddings of x (bs, chs, T) -> {"mid": (bs, D), "side":
     (bs, D)}, L2-normalised. x must be on the model's device; at another
-    sample rate than the encoder's it is resampled first (by FFT)."""
-    if dropout > 0.0:
-        raise NotImplementedError("embedding dropout is ROADMAP §1 item 6")
+    sample rate than the encoder's it is resampled first (by FFT).
+
+    Embedding dropout: with ``dropout`` > 0 and a ``generator`` (a
+    ``torch.Generator`` on x's device), each of mid and side keeps an
+    element with probability 1 - dropout, scaled by 1 / (1 - dropout),
+    before the normalisation, as the JAX package draws its masks from a key
+    (``st_ito_tpu/models/registry.py:139-143``); without a generator no
+    element is dropped, as there without a key."""
     x = x.to(torch.float32)
     if int(sample_rate) != int(model.config.sample_rate):
         x = resample(x, int(sample_rate), int(model.config.sample_rate))
@@ -98,6 +104,15 @@ def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
         peak = torch.amax(x.abs(), dim=tuple(range(1, x.ndim)), keepdim=True)
         x = x / torch.clamp_min(peak, 1e-8)
     mid, side = model(x)
+    if dropout > 0.0 and generator is not None:
+        keep = 1.0 - dropout
+
+        def drop(e):
+            mask = torch.rand(e.shape, generator=generator, device=e.device,
+                              dtype=torch.float32) < keep
+            return torch.where(mask, e / keep, 0.0)
+
+        mid, side = drop(mid), drop(side)
     return {"mid": _l2_normalize(torch.nan_to_num(mid)),
             "side": _l2_normalize(torch.nan_to_num(side))}
 
@@ -105,3 +120,37 @@ def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
 # get_param_embeds peak-normalises its own input, so a fitness function may
 # skip the renderer's output normalisation: embed(y / max|y|) == embed(y).
 get_param_embeds.peak_normalizes_input = True
+
+
+def embed_in_chunks(embed, x: torch.Tensor, model, sample_rate: float,
+                    chunk_len: int, hop: int | None = None, **kwargs
+                    ) -> dict[str, torch.Tensor]:
+    """Long-audio embedding through any ``embed``: cut x (bs, chs, T) into
+    chunks of ``chunk_len`` every ``hop`` samples (default: back to back; a
+    tail shorter than a chunk is left out), embed every chunk as one batch,
+    average each item's chunks and L2-normalise again. At T <= chunk_len it
+    is ``embed`` itself."""
+    bs, chs, T = x.shape
+    hop = hop or chunk_len
+    if T <= chunk_len:
+        return embed(x, model, sample_rate, **kwargs)
+    n_chunks = (T - chunk_len) // hop + 1
+    chunks = x.unfold(-1, chunk_len, hop).transpose(1, 2).reshape(
+        bs * n_chunks, chs, chunk_len)
+    e = embed(chunks, model, sample_rate, **kwargs)
+    return {k: _l2_normalize(v.reshape(bs, n_chunks, -1).mean(dim=1))
+            for k, v in e.items()}
+
+
+def get_param_embeds_chunked(x: torch.Tensor, model: ParamModel,
+                             sample_rate: float, chunk_len: int = 262144,
+                             hop: int | None = None, **kwargs
+                             ) -> dict[str, torch.Tensor]:
+    """``get_param_embeds`` over chunks of long audio (``embed_in_chunks``)."""
+    return embed_in_chunks(get_param_embeds, x, model, sample_rate,
+                           chunk_len, hop, **kwargs)
+
+
+# each chunk is peak-normalised on its own, so the chunked embed is
+# scale-invariant as well
+get_param_embeds_chunked.peak_normalizes_input = True

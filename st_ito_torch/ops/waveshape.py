@@ -1,5 +1,5 @@
 """Memoryless waveshaping — port of ``st_ito_tpu/ops/waveshape.py``'s
-``gain`` and ``distortion`` (tanh drive)."""
+``gain``, ``distortion`` (tanh drive) and ``fade_in``."""
 
 from __future__ import annotations
 
@@ -16,3 +16,10 @@ def gain(x: torch.Tensor, gain_db) -> torch.Tensor:
 
 def distortion(x: torch.Tensor, drive_db) -> torch.Tensor:
     return torch.tanh(x * _db_to_lin(drive_db).to(x.device))
+
+
+def fade_in(x: torch.Tensor, num_samples: int = 16384) -> torch.Tensor:
+    """Linear fade-in over the first num_samples."""
+    n = min(num_samples, x.shape[-1])
+    ramp = torch.linspace(0.0, 1.0, n, dtype=x.dtype, device=x.device)
+    return torch.cat([x[..., :n] * ramp, x[..., n:]], dim=-1)

@@ -1,6 +1,7 @@
-"""Device selection, WAV I/O (the port's own copies of
+"""Device selection, WAV I/O and the batch helpers (the port's own copies of
 ``st_ito_tpu/utils.py``'s ``load_audio`` / ``save_audio``, on
-``scipy.io.wavfile``) and opt-in per-phase CUDA-event timing."""
+``scipy.io.wavfile``, and of its ``apply_fade_in``, ``batch_peak_normalize``
+and ``batch_loudness_normalize``) and opt-in per-phase CUDA-event timing."""
 
 from __future__ import annotations
 
@@ -56,6 +57,27 @@ def save_audio(path: str, audio, sample_rate: int) -> None:
         audio = audio[None, :]
     audio = np.clip(audio, -1.0, 1.0)
     wavfile.write(path, sample_rate, (audio.T * 32767.0).astype(np.int16))
+
+
+def apply_fade_in(x: torch.Tensor, num_samples: int = 16384) -> torch.Tensor:
+    from st_ito_torch.ops.waveshape import fade_in
+
+    return fade_in(x, num_samples)
+
+
+def batch_peak_normalize(x: torch.Tensor) -> torch.Tensor:
+    """Each item of a batch (B, ...) over its own peak."""
+    peak = torch.amax(x.abs(), dim=tuple(range(1, x.ndim)), keepdim=True)
+    return x / torch.clamp_min(peak, 1e-8)
+
+
+def batch_loudness_normalize(x: torch.Tensor, sample_rate: int,
+                             target_lufs: float) -> torch.Tensor:
+    """Each item of x (..., C, T) gained to ``target_lufs`` integrated
+    loudness (``ops/loudness.py``)."""
+    from st_ito_torch.ops.loudness import loudness_normalize
+
+    return loudness_normalize(x, sample_rate, target_lufs)
 
 
 class PhaseTimer:

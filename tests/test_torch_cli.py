@@ -1,7 +1,8 @@
 """The port's style-transfer CLI (``st_ito_torch.cli.run_optim``) against
 st_ito_tpu's: the same chains and synthetic target, a whole run on the CPU
-that writes its WAVs and parameter JSON, and the flags that are not ported
-raising with their ROADMAP item."""
+that writes its WAVs and parameter JSON, ``--staged``, ``--savepop``,
+``--chunked`` and ``--dropout`` passed through as the JAX CLI passes them,
+and the flags that are not ported raising with their ROADMAP item."""
 
 import json
 import os
@@ -89,11 +90,58 @@ def test_cli_runs_on_the_cpu(cli_inputs, capsys):
     assert len(res["fval_history"]) == 2
 
 
+@pytest.mark.parametrize("flags", [
+    ["--staged"], ["--savepop"], ["--chunked"], ["--dropout", "0.2"],
+], ids=["staged", "savepop", "chunked", "dropout"])
+def test_cli_es_modes_on_the_cpu(cli_inputs, flags, monkeypatch):
+    """Each mode flag reaches run_es (or run_staged_es for --staged) as the
+    JAX CLI passes it (st_ito_tpu/cli/run_optim.py:226-242), and the run
+    writes its WAVs and parameters; --staged optimises the vst chain's
+    three stages in turn, --savepop writes every generation's renders
+    (find_w0's in pop_-1)."""
+    import st_ito_torch.ito as ito
+    from st_ito_torch.ito import engine
+
+    seen = []
+
+    def spy(fn, **extra):
+        return lambda *a, **k: (seen.append(dict(k, **extra)), fn(*a, **k))[1]
+
+    # the CLI's call, and run_staged_es's calls of run_es per stage
+    monkeypatch.setattr(ito, "run_es", spy(engine.run_es))
+    monkeypatch.setattr(ito, "run_staged_es",
+                        spy(engine.run_staged_es, staged=True))
+    monkeypatch.setattr(engine, "run_es", spy(engine.run_es))
+    wav, out = cli_inputs
+    res = run_optim.main([wav, "None", "--device", "cpu", "--popsize", "4",
+                          "--max-iters", "1", "--max-length", "8192",
+                          "--output-dir", out] + flags)
+    run_dir = os.path.join(out, "song_to_synthetic_target_es")
+    audio, sr = load_audio(os.path.join(run_dir,
+                                        "output_audio_sigma=0.33.wav"))
+    assert sr == 48000 and audio.shape == (2, 8192)
+    assert np.isfinite(audio).all() and np.isfinite(res["fopt"])
+    k = seen[0]
+    assert k["savepop"] == (flags == ["--savepop"])
+    assert k["chunked"] == (flags == ["--chunked"])
+    assert k["dropout"] == (0.2 if flags[0] == "--dropout" else 0.0)
+    if flags == ["--staged"]:
+        assert k.get("staged") and len(seen) == 4  # the call and 3 stages
+        assert [s["opt_slice"] for s in seen[1:]] == [
+            (a, b) for _, a, b in
+            run_optim.build_chain("vst", "es").stage_slices()]
+        assert len(res["fval_history"]) == 3
+    else:
+        assert len(seen) == 1 and len(res["fval_history"]) == 1
+    if flags == ["--savepop"]:
+        for gen in ("pop_-1", "pop_0"):
+            assert len(os.listdir(os.path.join(run_dir, gen))) == 4
+
+
 @pytest.mark.parametrize("flags,item", [
     (["--algorithm", "autodiff"], "8"), (["--metric", "mfcc"], "9"),
-    (["--metric", "clap"], "11"), (["--staged"], "6"), (["--savepop"], "6"),
-    (["--chunked"], "6"), (["--num-devices", "4"], "13"),
-])
+    (["--metric", "clap"], "11"), (["--num-devices", "4"], "13"),
+], ids=["flags0-8", "flags1-9", "flags2-11", "flags6-13"])  # as they were
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
         run_optim.main(["in.wav", "None", "--device", "cpu"] + flags)

@@ -258,15 +258,3 @@ def test_output_audio_is_the_per_candidate_render():
     batched = build_batched_render_fn(chain, SR, 2, device="cpu")(
         torch.from_numpy(w32[None]), torch.from_numpy(x[0]))[0].numpy()
     assert np.abs(batched - want).max() > 1e-3
-
-
-@pytest.mark.parametrize("kwargs", [
-    {"savepop": True}, {"chunked": True}, {"es_state_path": "s.npz"},
-    {"opt_slice": (0, 19)}, {"dropout": 0.1}, {"content_model": object()},
-])
-def test_unported_run_es_options_raise(kwargs):
-    model = port_model(jax_params(5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run_es(_audio(2), _audio(3), SR, basic_chain(), model, max_iters=1,
-               popsize=4, find_w0=False, verbose=False, device="cpu",
-               **kwargs)
