@@ -2,8 +2,8 @@
 """Drive the PyTorch/CUDA port (``st_ito_torch``) on one NVIDIA card.
 
     python3 chip_smoke.py [--record PATH]
-                          [--phases k1,k9,fft,scan,main,style,comp,cli,
-                                    long,multitrack,dtype]
+                          [--phases k1,k9,fft,scan,main,style,comp,fx,cli,
+                                    mfcc,long,multitrack,dtype]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -61,14 +61,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 9. ``comp``: the same run with the single-compressor chain (the one
    ``st_ito_tpu/eval/psm.py:44`` builds) with its bypass slot: K7, with
    its in-kernel blend, once per generation and no other kernel;
-10. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
+10. ``fx``: the same run with the fx chain, every effect of the rest of
+   the chain (EQ -> noise gate -> chorus -> phaser -> gain -> stereo
+   widener -> delay -> reverb, 49 parameters, built from
+   ``EFFECT_REGISTRY``) in "auto" (mega2): K6, K8 (the gate's detector),
+   K11 six times (the phaser's allpasses), K3 and K4 per generation and no
+   other kernel; then one population of 37 rendered with the per-stage
+   response path ("xla") and with "mx", held against each other; K11
+   against its plain version on the phaser's own first-stage (coeff,
+   drive) at 1024 lanes x 262144, and K8 on the gate's own detector input
+   (512 lanes, its first 65536 samples) by the two rules, with a float64
+   witness; each kernel's time on those inputs;
+11. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
    material with the synthetic target and the default vst chain (K6, then
    K3 -> K4) at popsize 512, 3 iterations, T 262144 (the host CMA-ES, the
    CLI's gens_per_dispatch=1); then with ``--staged`` (2 iterations a
    stage) and with ``--savepop`` (popsize 16, 2 iterations: every
    generation's 16 ranked WAVs); launch counts per fitness call, and the
    written WAV and parameter JSON;
-11. ``long``: the JAX package's ``examples/chunked_es_tpu.py`` on the
+12. ``mfcc``: the same CLI run with ``--metric mfcc`` (the MFCC feature
+   embed in place of the Cnn14): K6, K3 and K4 per fitness call, evals/s,
+   the written WAV and parameter JSON;
+13. ``long``: the JAX package's ``examples/chunked_es_tpu.py`` on the
    port: ``run_es`` with ``chunked=True`` on 60 s of stereo (T 2880000),
    popsize 128, chunks of 262144, blocks of 4 generations, the basic chain
    and the random-weight deployed Cnn14; a warm-up and a timed block, K1
@@ -76,13 +90,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    no other kernel; the sub-batch, peak memory per candidate, spans and
    the output render's time; then K1 at that path's chunk length (on
    T_K1_LONG samples, by the two rules) and K9 at n 2^22;
-12. ``multitrack``: ``run_es_multitrack``, 4 tracks x popsize 128 at T
+14. ``multitrack``: ``run_es_multitrack``, 4 tracks x popsize 128 at T
    262144, a warm-up generation, then 2 timed: K1 on per-candidate input,
    K3 and K4 once per generation and once for the final batched render;
-13. ``dtype``: bfloat16 against float32 fitness on a population of 64;
-14. the ``kernels`` JSON line, then the card line and the result line.
-   K11 is on no main path (in the JAX package only its tests call it): its
-   launches there are 0.
+15. ``dtype``: bfloat16 against float32 fitness on a population of 64;
+16. the ``kernels`` JSON line, then the card line and the result line.
+   A kernel's launches there come from the timed run of a path that
+   launches it: K11's from ``fx``, the one path that does.
 Each phase logs the card's SM and memory clocks, power draw and
 temperature (nvidia-smi) at its start and end.
 
@@ -167,8 +181,8 @@ T_K1_LONG = 65536
 # the multitrack phase: 4 tracks x popsize 128 at the headline T
 TRACKS = 4
 POP_TRACK = 128
-PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "cli", "long",
-          "multitrack", "dtype")
+PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "fx", "cli",
+          "mfcc", "long", "multitrack", "dtype")
 
 
 def log(*a):
@@ -1291,6 +1305,163 @@ def phase_comp(dev, model, rec):
                       want_per_gen={"k7": 1})
 
 
+# the fx chain: every stage of the registry's rest of the chain, 49
+# parameters with the bypass slots
+FX_STAGES = ("parametric_eq", "noise_gate", "chorus", "phaser", "gain",
+             "stereo_widener", "delay", "reverb")
+# the fx chain's kernels per generation: K6 (the EQ on the shared input),
+# K8 (the gate's detector), K11 (the phaser's six allpasses), K3 -> K4 (the
+# gain -> widener -> delay -> reverb group in mega2)
+FX_KERNELS = {"k6": 1, "k8": 1, "k11": 6, "k3": 1, "k4": 1}
+# the population the fx chain's two LTI paths ("xla", "mx") render
+FX_POP_RENDER = 37
+# K8 is held on the gate's own detector input over this many samples
+T_K8_FX = 65536
+
+
+def fx_chain():
+    from st_ito_torch.chain import EFFECT_REGISTRY, ChainSpec
+
+    return ChainSpec(tuple(EFFECT_REGISTRY[n]() for n in FX_STAGES),
+                     with_bypass=True)
+
+
+def capture_kernel_inputs(fn):
+    """fn() with ``scan.linear_recurrence_cuda`` and ``ballistics_cuda``
+    watched: the first inputs each one was given, as (a_in, b_in) and
+    (c_in, vec), cloned."""
+    from st_ito_torch.ops.kernels import scan
+
+    seen = {}
+    real = {name: getattr(scan, name) for name in (
+        "linear_recurrence_cuda", "ballistics_cuda")}
+
+    def watch(name):
+        def call(*args):
+            seen.setdefault(name, tuple(a.clone() for a in args))
+            return real[name](*args)
+        return call
+
+    for name in real:
+        setattr(scan, name, watch(name))
+    try:
+        fn()
+    finally:
+        for name, f in real.items():
+            setattr(scan, name, f)
+    return seen
+
+
+def phase_fx(dev, model, rec, recs):
+    """``run_es`` on the fx chain (EQ -> noise gate -> chorus -> phaser ->
+    gain -> widener -> delay -> reverb, 49 parameters) in ``fft_mode``
+    "auto" (mega2): K6, K8, K11 six times, K3 and K4 per generation and no
+    other kernel. Then one population of 37 rendered in "xla" and in "mx"
+    (the two LTI paths, atol 5e-5, rtol 1e-4 on a peak-normalised input);
+    K11 against its plain version on the phaser's own first-stage (coeff,
+    drive) at the headline, and K8 on the gate's own detector input by the
+    two rules over T_K8_FX samples; each kernel's time on those inputs."""
+    from st_ito_torch.chain import build_batched_render_fn
+    from st_ito_torch.ops.kernels import scan
+
+    chain = fx_chain()
+    launches = phase_main(dev, model, rec, "auto", chain=chain, label="fx",
+                          want_per_gen=FX_KERNELS)
+
+    # the two LTI paths on one population
+    x = program_audio(40, T_HEAD)[0].to(dev)
+    x = x / x.abs().max()
+    W = torch.from_numpy(np.random.default_rng(41).random(
+        (FX_POP_RENDER, chain.num_params)).astype(np.float32)).to(dev)
+    renders = {mode: build_batched_render_fn(chain, SR, 2, fft_mode=mode,
+                                             device=dev)(W, x)
+               for mode in ("xla", "mx")}
+    err = float((renders["xla"] - renders["mx"]).abs().max())
+    torch.testing.assert_close(renders["xla"], renders["mx"], atol=5e-5,
+                               rtol=1e-4)
+    rec["xla_vs_mx_max_abs_err"] = err
+    log(f"fx: the xla and mx LTI paths on {FX_POP_RENDER} candidates: max "
+        f"|xla - mx| {err!r} (atol 5e-5, rtol 1e-4)")
+    del renders
+    torch.cuda.empty_cache()
+
+    # the inputs the path gives K11 and K8: one render of the population
+    W = torch.from_numpy(np.random.default_rng(42).random(
+        (POP, chain.num_params)).astype(np.float32)).to(dev)
+    render = build_batched_render_fn(chain, SR, 2, device=dev)
+    seen = capture_kernel_inputs(lambda: render(W, x))
+    del W
+    torch.cuda.empty_cache()
+
+    k11 = recs["k11"]
+    a_in, b_in = seen["linear_recurrence_cuda"]
+    label = f"the phaser's first stage, lanes {a_in.shape[0]}, T {T_HEAD}"
+    got = scan.linear_recurrence_cuda(a_in, b_in)
+    want, k11["fx_plain_ms"] = once_ms(
+        lambda: scan.linear_recurrence_plain(a_in, b_in))
+    e = float((got - want).abs().max())
+    k11["fx_bitwise"] = bool(torch.equal(got, want))
+    del got, want
+    log(f"K11 {label}: max |kernel - plain| = {e!r}, bitwise "
+        f"{k11['fx_bitwise']} (plain {k11['fx_plain_ms']!r} ms)")
+    if not math.isfinite(e) or e > 1e-4:
+        raise AssertionError(f"K11 disagrees with its plain version on the "
+                             f"phaser's inputs: {e}")
+    k11["max_abs_err"] = max(k11.get("max_abs_err", 0.0), e)
+    k11["fx_max_abs_err"] = e
+    k11["fx_ms"] = cuda_ms(lambda: scan.linear_recurrence_cuda(a_in, b_in), 3)
+    k11["fx_bound_ms"] = 4 * 3 * a_in.numel() / HBM_BYTES_PER_S * 1e3
+    log(f"K11 on {label}: {k11['fx_ms']!r} ms (bound "
+        f"{k11['fx_bound_ms']!r} ms)")
+    del a_in, b_in, seen["linear_recurrence_cuda"]
+    torch.cuda.empty_cache()
+
+    k8 = recs["k8"]
+    c_in, vec = seen.pop("ballistics_cuda")
+    k8["fx_ms"] = cuda_ms(lambda: scan.ballistics_cuda(c_in, vec), 3)
+    k8["fx_bound_ms"] = max(4 * (2 * c_in.numel() + vec.numel())
+                            / HBM_BYTES_PER_S * 1e3,
+                            K8_OPS_PER_SAMPLE * c_in.numel()
+                            / FP32_OPS_PER_S * 1e3)
+    log(f"K8 on the gate's detector input (lanes {c_in.shape[0]}, T "
+        f"{T_HEAD}): {k8['fx_ms']!r} ms (bound {k8['fx_bound_ms']!r} ms); "
+        f"c in [{float(c_in.min())!r}, {float(c_in.max())!r}] dB")
+    if float(c_in.min()) < -100.0 or float(c_in.max()) > 0.0:
+        raise AssertionError("the gate's detector input leaves [-100, 0] dB")
+    head = (c_in[:, :T_K8_FX].contiguous(), vec)
+    e, k8["fx_plain_ms"], ex = detector_check(
+        "K8", scan.ballistics_cuda, scan.ballistics_plain, head,
+        f"the gate's detector input, lanes {c_in.shape[0]}, T {T_K8_FX}")
+    k8["max_abs_err"] = max(k8.get("max_abs_err", 0.0), e)
+    k8["fx_max_abs_err"] = e
+    k8["fx_a_miss_plain_far"] = ex["a_miss_plain_far"]
+    del c_in, vec, head
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_mfcc(dev, rec):
+    """The CLI with ``--metric mfcc`` on the default vst chain: K6, K3 and
+    K4 once per fitness call and no other kernel; the written WAV and
+    parameter JSON."""
+    import tempfile
+
+    from st_ito_torch.utils import save_audio
+
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "program.wav")
+        save_audio(wav, program_audio(3, T_HEAD)[0], SR)
+        res, launches, wall, calls, _ = cli_run(
+            dev, tmp, wav, "mfcc", POP, CLI_ITERS, ["--metric", "mfcc"])
+    if calls != CLI_ITERS + 1:
+        raise AssertionError(f"mfcc: {calls} fitness calls")
+    rec.update(evals_per_sec=res["evals_per_sec"],
+               time_elapsed=res["time_elapsed"], wall_s=wall,
+               total_evals=res["total_evals"], launches=launches,
+               fval_history=list(res["fval_history"]))
+    return launches
+
+
 def cli_run(dev, tmp, wav, name, popsize, iters, flags):
     """``run_optim.main`` on ``wav`` with the synthetic target, the vst
     chain and ``flags``; K6, K3 and K4 once per fitness call and no other
@@ -1687,9 +1858,9 @@ def main() -> int:
         run("scan", phase_scan, dev, recs)
 
     model = main_rec = None
-    # K11 is on no main path: no run of one launches it
-    launches = {"k11": 0}
-    if {"main", "style", "comp", "long", "multitrack", "dtype"} & set(phases):
+    launches = {}
+    if {"main", "style", "comp", "fx", "long", "multitrack",
+            "dtype"} & set(phases):
         model = load_param_model(allow_random=True, seed=0, device=dev)
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
@@ -1705,13 +1876,21 @@ def main() -> int:
             log(f"{mode}: {r['ms_per_generation']!r} ms/generation, "
                 f"{r['ms_per_generation'] / base!r} of mx")
     style_rec, comp_rec, cli_rec, long_rec, mt_rec = {}, {}, {}, {}, {}
+    fx_rec, mfcc_rec = {}, {}
     if "style" in phases:
         launches["k8"] = run("style", phase_style, dev, model,
                              style_rec)["k8"]
     if "comp" in phases:
         launches["k7"] = run("comp", phase_comp, dev, model, comp_rec)["k7"]
+    if "fx" in phases:
+        # K11's count comes from the fx chain's run, the one path that
+        # launches it
+        launches["k11"] = run("fx", phase_fx, dev, model, fx_rec,
+                              recs)["k11"]
     if "cli" in phases:
         launches["k6"] = run("cli", phase_cli, dev, cli_rec)["k6"]
+    if "mfcc" in phases:
+        run("mfcc", phase_mfcc, dev, mfcc_rec)
     if "long" in phases:
         run("long", phase_long, dev, model, long_rec)
     if "multitrack" in phases:
@@ -1721,8 +1900,8 @@ def main() -> int:
         run("dtype", phase_dtype, dev, model, dtype_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
-                  cli=cli_rec, long=long_rec, multitrack=mt_rec,
-                  dtype=dtype_rec)
+                  fx=fx_rec, cli=cli_rec, mfcc=mfcc_rec, long=long_rec,
+                  multitrack=mt_rec, dtype=dtype_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -1772,7 +1951,8 @@ def main() -> int:
         for extra in ("plain_shape", "chunk", "carry_table_bytes",
                       "resonance_rel_err", "ms_fwd", "ms_inv",
                       "plain_ms_fwd", "plain_ms_inv", "library_ms_fwd",
-                      "library_ms_inv"):
+                      "library_ms_inv", "fx_ms", "fx_plain_ms",
+                      "fx_max_abs_err", "fx_bound_ms", "fx_bitwise"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
         # the long path's K1 (at its chunk) and K9 (at n 2^22), and each
@@ -1782,7 +1962,8 @@ def main() -> int:
                           "chunk"):
                 if f"{key}_{extra}" in long_rec:
                     kernels[-1][f"long_{extra}"] = long_rec[f"{key}_{extra}"]
-        for label, r in (("long", long_rec), ("multitrack", mt_rec)):
+        for label, r in (("long", long_rec), ("multitrack", mt_rec),
+                         ("fx", fx_rec), ("mfcc", mfcc_rec)):
             kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start

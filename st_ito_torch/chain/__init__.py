@@ -4,13 +4,16 @@ from st_ito_torch.chain.params import ParamSpec, StageSpec, ChainSpec
 from st_ito_torch.chain.effects import (
     EFFECT_REGISTRY,
     basic_chain,
+    basic_chorus,
     basic_compressor,
     basic_delay,
     basic_distortion,
     basic_gain,
     basic_limiter,
     basic_multiband_compressor,
+    basic_noise_gate,
     basic_parametric_eq,
+    basic_phaser,
     basic_reverb,
     basic_stereo_widener,
     chain_from_json,
@@ -29,13 +32,16 @@ __all__ = [
     "ChainSpec",
     "EFFECT_REGISTRY",
     "basic_chain",
+    "basic_chorus",
     "basic_compressor",
     "basic_delay",
     "basic_distortion",
     "basic_gain",
     "basic_limiter",
     "basic_multiband_compressor",
+    "basic_noise_gate",
     "basic_parametric_eq",
+    "basic_phaser",
     "basic_reverb",
     "basic_stereo_widener",
     "build_batched_render_fn",

@@ -5,8 +5,10 @@ parameter vectors are interchangeable with the JAX package, and the same
 population renderer plans each stage from its ``effect``
 (chain/executor.py ``build_batched_render_fn``); the per-candidate renderer
 (``build_render_fn``) calls each stage's ``process_fn(x (C, T), params,
-sample_rate)``, plain PyTorch ops on x's device. Chorus, noise gate and
-phaser are not ported: their registry entries raise."""
+sample_rate)``, plain PyTorch ops on x's device; every LTI stage (EQ,
+delay, reverb, gain, widener) carries its ``response_fn``
+(chain/responses.py), the per-stage response path of the population
+renderer."""
 
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ from typing import Mapping
 
 import torch
 
+from st_ito_torch.chain import responses as _resp
 from st_ito_torch.chain.params import ChainSpec, ParamSpec, StageSpec
 from st_ito_torch.ops import delay as _delay
 from st_ito_torch.ops import dynamics as _dyn
@@ -69,7 +72,8 @@ def basic_parametric_eq(fixed: Mapping[str, float] | None = None) -> StageSpec:
         )
 
     return StageSpec("ParametricEQ", "parametric_eq", params, process,
-                     num_channels=1, fixed_parameters=fixed or {}, pad=8192)
+                     num_channels=1, fixed_parameters=fixed or {}, pad=8192,
+                     response_fn=_resp.eq_response)
 
 
 def basic_compressor(fixed: Mapping[str, float] | None = None) -> StageSpec:
@@ -121,7 +125,8 @@ def basic_delay(fixed: Mapping[str, float] | None = None) -> StageSpec:
                                      p["mix"])
 
     return StageSpec("Delay", "delay", params, process,
-                     num_channels=2, fixed_parameters=fixed or {}, pad=-1)
+                     num_channels=2, fixed_parameters=fixed or {}, pad=-1,
+                     response_fn=_resp.delay_response)
 
 
 def basic_reverb(fixed: Mapping[str, float] | None = None) -> StageSpec:
@@ -141,7 +146,28 @@ def basic_reverb(fixed: Mapping[str, float] | None = None) -> StageSpec:
             width=p["width"])
 
     return StageSpec("Reverb", "reverb", params, process,
-                     num_channels=2, fixed_parameters=fixed or {}, pad=-1)
+                     num_channels=2, fixed_parameters=fixed or {}, pad=-1,
+                     response_fn=_resp.freeverb_response)
+
+
+def basic_chorus(fixed: Mapping[str, float] | None = None) -> StageSpec:
+    """LFO-modulated fractional delay; unlike the reference, rate_hz is
+    honoured."""
+    P = ParamSpec
+    params = (
+        P("rate_hz", 0.1, 10.0, 1.0),
+        P("centre_delay_ms", 0.1, 20.0, 7.0),
+        P("depth", 0.0, 1.0, 0.1),
+        P("feedback", 0.0, 1.0, 0.5),
+        P("mix", 0.0, 1.0, 0.5),
+    )
+
+    def process(x, p, sr):
+        return _delay.chorus(x, sr, p["rate_hz"], p["centre_delay_ms"],
+                             p["depth"], p["feedback"], p["mix"])
+
+    return StageSpec("Chorus", "chorus", params, process,
+                     num_channels=2, fixed_parameters=fixed or {})
 
 
 def basic_limiter(fixed: Mapping[str, float] | None = None) -> StageSpec:
@@ -159,6 +185,23 @@ def basic_limiter(fixed: Mapping[str, float] | None = None) -> StageSpec:
                      num_channels=2, fixed_parameters=fixed or {})
 
 
+def basic_noise_gate(fixed: Mapping[str, float] | None = None) -> StageSpec:
+    P = ParamSpec
+    params = (
+        P("threshold_db", -100.0, 0.0, -60.0),
+        P("ratio", 1.0, 10.0, 10.0),
+        P("attack_ms", 0.1, 100.0, 1.0),
+        P("release_ms", 10.0, 1000.0, 100.0),
+    )
+
+    def process(x, p, sr):
+        return _dyn.noise_gate(x, sr, p["threshold_db"], p["ratio"],
+                               p["attack_ms"], p["release_ms"])
+
+    return StageSpec("NoiseGate", "noise_gate", params, process,
+                     num_channels=2, fixed_parameters=fixed or {})
+
+
 def basic_gain(fixed: Mapping[str, float] | None = None) -> StageSpec:
     params = (ParamSpec("gain_db", -24.0, 24.0, 0.0),)
 
@@ -166,7 +209,8 @@ def basic_gain(fixed: Mapping[str, float] | None = None) -> StageSpec:
         return _ws.gain(x, p["gain_db"])
 
     return StageSpec("Gain", "gain", params, process,
-                     num_channels=1, fixed_parameters=fixed or {}, pad=0)
+                     num_channels=1, fixed_parameters=fixed or {}, pad=0,
+                     response_fn=_resp.gain_response)
 
 
 def basic_stereo_widener(fixed: Mapping[str, float] | None = None
@@ -177,7 +221,27 @@ def basic_stereo_widener(fixed: Mapping[str, float] | None = None
         return _st.stereo_widener(x, p["width"])
 
     return StageSpec("StereoWidener", "stereo_widener", params, process,
-                     num_channels=2, fixed_parameters=fixed or {}, pad=0)
+                     num_channels=2, fixed_parameters=fixed or {}, pad=0,
+                     response_fn=_resp.widener_response)
+
+
+def basic_phaser(fixed: Mapping[str, float] | None = None) -> StageSpec:
+    P = ParamSpec
+    params = (
+        P("rate_hz", 0.1, 10.0, 1.0),
+        P("depth", 0.0, 1.0, 0.5),
+        P("centre_frequency_hz", 100.0, 8000.0, 1300.0),
+        P("feedback", 0.0, 1.0, 0.0),
+        P("mix", 0.0, 1.0, 0.5),
+    )
+
+    def process(x, p, sr):
+        return _delay.phaser(x, sr, p["rate_hz"], p["depth"],
+                             p["centre_frequency_hz"], p["feedback"],
+                             p["mix"])
+
+    return StageSpec("Phaser", "phaser", params, process,
+                     num_channels=2, fixed_parameters=fixed or {})
 
 
 def basic_multiband_compressor(fixed: Mapping[str, float] | None = None
@@ -215,27 +279,18 @@ def basic_multiband_compressor(fixed: Mapping[str, float] | None = None
                      process, num_channels=2, fixed_parameters=fixed or {})
 
 
-def _not_ported(effect: str):
-    def build(fixed: Mapping[str, float] | None = None) -> StageSpec:
-        raise NotImplementedError(
-            f"the {effect} effect is not ported to st_ito_torch yet (ROADMAP "
-            f"§1 item 7)")
-
-    return build
-
-
 EFFECT_REGISTRY = {
     "parametric_eq": basic_parametric_eq,
     "compressor": basic_compressor,
     "distortion": basic_distortion,
     "delay": basic_delay,
     "reverb": basic_reverb,
-    "chorus": _not_ported("chorus"),
+    "chorus": basic_chorus,
     "limiter": basic_limiter,
-    "noise_gate": _not_ported("noise_gate"),
+    "noise_gate": basic_noise_gate,
     "gain": basic_gain,
     "stereo_widener": basic_stereo_widener,
-    "phaser": _not_ported("phaser"),
+    "phaser": basic_phaser,
     "multiband_compressor": basic_multiband_compressor,
 }
 

@@ -12,14 +12,20 @@ JAX package runs on its accelerator (``executor.py:150-195``, ``:206-327``):
 - any other EQ ("fast") as one pass of the K6 kernel
   (``ops/kernels/scan.py``), its bypass blended in-kernel;
 - consecutive LTI stages (delay, reverb, gain, widener) fused into one group
-  with a guard of the full T for feedback tails, so the FFT size is
-  next_pow2(T + T), applied by ``fft_mode``: "mega2" as K3 -> K4, "mega" as
-  K5 -> K2 -> K4 (``ops/kernels/mega_fft.py``), "mx" as torch.fft -> K9 ->
-  torch.fft and "fused" as K10 -> K9 -> K10 (``ops/lti.py``);
+  (one group per stage with ``fuse_lti=False``) with a guard of the full T
+  for feedback tails, so the FFT size is next_pow2(T + T), applied by
+  ``fft_mode``: "mega2" as K3 -> K4, "mega" as K5 -> K2 -> K4
+  (``ops/kernels/mega_fft.py``), "mx" as torch.fft -> K9 -> torch.fft and
+  "fused" as K10 -> K9 -> K10 (``ops/lti.py``); "xla", and a mono group in
+  any mode, compose the stages' responses (``chain/responses.py
+  compose_responses``) and apply them between ``torch.fft.rfft`` and
+  ``irfft``;
 - every other stage ("nl": compressor, distortion, limiter, multiband
-  compressor) through its batched function (``chain/responses.py
-  NL_BATCHED``): the unlinked compressor as one pass of K7, the linked
-  compressors' ballistics in K8;
+  compressor, noise gate, chorus, phaser) through its batched function
+  (``chain/responses.py NL_BATCHED``): the unlinked compressor as one pass
+  of K7, the linked compressors' and the noise gate's detector in K8, each
+  of the phaser's six allpasses as one pass of K11, the chorus as gathers
+  in plain PyTorch;
 - peak normalisation of the output.
 
 A population-shared (C, T) input is streamed into a leading K1 or K6 pass
@@ -35,11 +41,15 @@ buffer end feeds the reverb).
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 import torch
 
 from st_ito_torch.chain.params import ChainSpec, StageSpec
-from st_ito_torch.chain.responses import (NL_BATCHED, eq_comp_fast_batched,
+from st_ito_torch.chain.responses import (NL_BATCHED, apply_response,
+                                          bypass_blend, compose_responses,
+                                          eq_comp_fast_batched,
                                           eq_fast_batched)
 from st_ito_torch.chain.rp_responses import RP_BUNDLES
 from st_ito_torch.ops.iir import next_pow2
@@ -96,18 +106,20 @@ def build_render_fn(chain: ChainSpec, sample_rate: int, num_channels: int,
     return render
 
 
-def _plan(chain: ChainSpec) -> list[tuple[str, list[int]]]:
+def _plan(chain: ChainSpec,
+          fuse_lti: bool = True) -> list[tuple[str, list[int]]]:
     """Group the chain's stages as the JAX package's TPU plan does: the EQ
-    is "fast", rp-capable stages form "lti" groups, the rest are "nl"; an
-    EQ -> compressor (-> distortion) run merges into one "eqcomp" head.
-    Raises for an "nl" stage with no batched function."""
+    is "fast", consecutive stages with a response form "lti" groups (one
+    per stage without ``fuse_lti``), the rest are "nl"; an EQ ->
+    compressor (-> distortion) run merges into one "eqcomp" head. Raises
+    for an "nl" stage with no batched function."""
     slices = chain.stage_slices()
     plan: list[tuple[str, list[int]]] = []
     for i, (stage, _, _) in enumerate(slices):
         if stage.effect == "parametric_eq":
             plan.append(("fast", [i]))
-        elif stage.effect in RP_BUNDLES:
-            if plan and plan[-1][0] == "lti":
+        elif stage.response_fn is not None:
+            if fuse_lti and plan and plan[-1][0] == "lti":
                 plan[-1][1].append(i)
             else:
                 plan.append(("lti", [i]))
@@ -132,7 +144,8 @@ def _plan(chain: ChainSpec) -> list[tuple[str, list[int]]]:
         if kind == "nl" and effect not in NL_BATCHED:
             raise NotImplementedError(
                 f"stage {slices[idxs[0]][0].name!r} ({effect}) has no batched "
-                f"function in st_ito_torch yet (ROADMAP §1 item 7)")
+                f"function: the population renderer runs the effects of "
+                f"EFFECT_REGISTRY")
     return merged
 
 
@@ -154,10 +167,14 @@ def build_batched_render_fn(
 
     Runs on ``device`` (default the card). ``fft_mode`` picks how the fused
     LTI group is applied: "mega2" (K3 -> K4), "mega" (K5 -> K2 -> K4), "mx"
-    (torch.fft -> K9 -> torch.fft) or "fused" (K10 -> K9 -> K10; "mx3" is
-    its JAX alias). "auto", the default, is "mega2" on any device (the JAX
-    package's "xla" response path for other backends is not ported; on the
-    CPU the kernels' plain versions run). A shape that
+    (torch.fft -> K9 -> torch.fft), "fused" (K10 -> K9 -> K10; "mx3" is
+    its JAX alias) or "xla" (the per-stage responses composed and applied
+    between ``torch.fft.rfft`` and ``irfft``; the EQ stays on K6, as in the
+    JAX package's TPU plan). "auto", the default, is "mega2" on any device
+    (on the CPU the kernels' plain versions run). ``fuse_lti=False`` makes
+    each LTI stage a group of its own, applied by the same dispatch: each
+    truncates to the buffer, as the per-candidate renderer does. A mono
+    group takes the response path in every mode. A shape that
     ``mega_fft.supported(n, T)`` rejects (T not a multiple of n2, or n below
     2^14) takes the "mx" path in either mega mode, and one that
     ``fused_fft.supported(n, T)`` rejects (the same rule) takes it in
@@ -169,11 +186,10 @@ def build_batched_render_fn(
     (bf16 dot passes) and are not ported."""
     if fft_mode == "auto":
         fft_mode = "mega2"
-    if fft_mode not in ("mega2", "mega", "mx", "fused", "mx3"):
-        raise NotImplementedError(
-            f"fft_mode={fft_mode!r}: 'auto', 'mega2', 'mega', 'mx' and "
-            f"'fused' ('mx3') are ported; the 'xla' response path is "
-            f"ROADMAP §1 item 7")
+    if fft_mode not in ("mega2", "mega", "mx", "fused", "mx3", "xla"):
+        raise ValueError(
+            f"fft_mode={fft_mode!r}: 'auto', 'mega2', 'mega', 'mx', "
+            f"'fused' ('mx3') or 'xla'")
     if fft_precision not in ("high", "highest"):
         raise NotImplementedError(
             f"fft_precision={fft_precision!r}: reduced-precision FFTs are "
@@ -181,9 +197,6 @@ def build_batched_render_fn(
     if not fast:
         raise NotImplementedError(
             "fast=False (the differentiable renderer) is ROADMAP §1 item 8")
-    if not fuse_lti:
-        raise NotImplementedError(
-            "fuse_lti=False (per-stage LTI parity path) is ROADMAP §1 item 7")
     if out_rows_hop is not None:
         raise NotImplementedError(
             "out_rows_hop: the hop-blocked rows form is a TPU layout device "
@@ -192,10 +205,28 @@ def build_batched_render_fn(
     dev = resolve_device(device)
     slices = chain.stage_slices()
     bypass_off = 1 if chain.with_bypass else 0
-    plan = _plan(chain)
+    plan = _plan(chain, fuse_lti)
 
     def active_mask(W, start):
         return (W[:, start] <= 0.5).to(torch.float32)
+
+    def response_group(x, stages, W, n):
+        """The group's stages' responses, bypass-blended and composed, on
+        the size-n rfft grid, applied to x (B, C, T)."""
+        F = n // 2 + 1
+        omega = torch.linspace(0.0, math.pi, F, dtype=torch.float32,
+                               device=dev)
+        kind, H = "scalar", None
+        for stage, start, _ in stages:
+            k, Hs = stage.response_fn(
+                stage_params(stage, W, start, bypass_off), omega,
+                sample_rate, x.shape[1])
+            if chain.with_bypass:
+                Hs = bypass_blend(k, Hs, W[:, start] <= 0.5)
+            kind, H = compose_responses(kind, H, k, Hs, F)
+        X = torch.fft.rfft(x, n=n, dim=-1)
+        Y = apply_response(kind, H, X)
+        return torch.fft.irfft(Y, n=n, dim=-1)[..., :x.shape[-1]].to(x.dtype)
 
     def render(W, x) -> torch.Tensor:
         W = torch.as_tensor(W, dtype=torch.float32, device=dev)
@@ -256,17 +287,20 @@ def build_batched_render_fn(
                 x = y
                 continue
 
-            # ---- fused LTI group (all stages rp-capable) ----
-            if x.shape[1] != 2:
-                raise NotImplementedError(
-                    "a mono fused-LTI group (the pair-packed layout) is "
-                    "ROADMAP §1 item 7; the rp path is stereo-only")
+            # ---- fused LTI group ----
             pad = 0
             for stage, _, _ in stages:
                 pad = max(pad, T if stage.pad < 0 else stage.pad)
             if max_lti_pad is not None:
                 pad = min(pad, max_lti_pad)
             n = next_pow2(T + pad)
+            if (fft_mode == "xla" or x.shape[1] != 2
+                    or any(s.effect not in RP_BUNDLES for s, _, _ in stages)):
+                # the per-stage response path: the rp kernels are
+                # stereo-only, as in the JAX package
+                with phase_timer.span("lti_xla", dev):
+                    x = response_group(x, stages, W, n)
+                continue
             rp_stages = [
                 (stage.effect, stage_params(stage, W, start, bypass_off),
                  active_mask(W, start) if chain.with_bypass else None)

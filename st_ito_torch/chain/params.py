@@ -44,7 +44,10 @@ class StageSpec:
     impulse-response tail when fused into an LTI group (-1 = one full signal
     length, for feedback tails). ``process_fn(x (C, T), params, sample_rate)
     -> y`` is the per-candidate render hook (``build_render_fn``), params a
-    dict name -> denormalized 0-d tensor."""
+    dict name -> denormalized 0-d tensor. ``response_fn(params, omega,
+    sample_rate, channels) -> (kind, H)``: the LTI stage's frequency
+    response batched over the population (chain/responses.py); an LTI
+    stage has one, and the population renderer groups such stages."""
 
     name: str
     effect: str
@@ -53,6 +56,7 @@ class StageSpec:
     num_channels: int = 2
     fixed_parameters: Mapping[str, float] = dataclasses.field(default_factory=dict)
     pad: int = 8192
+    response_fn: Callable | None = None
 
     @property
     def param_names(self) -> tuple[str, ...]:

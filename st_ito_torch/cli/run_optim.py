@@ -16,12 +16,13 @@ for the reference's ZamEQ2 -> FlyingDelay -> TAL-Reverb-4; its population
 renderer runs K6, then K3 -> K4. ``--staged`` optimises one stage at a
 time (``run_staged_es``); ``--savepop`` writes every generation's renders,
 ranked, under the run directory; ``--chunked`` is the long-audio mode;
-``--dropout`` is the embedding dropout. ``--use-gpu`` and ``--parallel``
-are accepted and do nothing: the population always renders in parallel on
-the device. Not ported, and raising with their ROADMAP item:
-``--algorithm autodiff``, ``--metric mfcc`` / ``clap`` and
-``--num-devices`` above 1. The convergence plot is best effort (it needs
-matplotlib).
+``--dropout`` is the embedding dropout. ``--metric mfcc`` scores by
+the MFCC feature metric (``models/registry.py get_mfcc_feature_embeds``)
+in place of the AFx-Rep encoder. ``--use-gpu`` and ``--parallel`` are
+accepted and do nothing: the population always renders in parallel on the
+device. Not ported, and raising with their ROADMAP item: ``--algorithm
+autodiff``, ``--metric clap`` and ``--num-devices`` above 1. The
+convergence plot is best effort (it needs matplotlib).
 """
 
 from __future__ import annotations
@@ -78,7 +79,6 @@ def _refuse_unported(args) -> None:
     for flag, chosen, item in (
             ("--algorithm autodiff (the differentiable path)",
              args.algorithm == "autodiff", "8"),
-            ("--metric mfcc", args.metric == "mfcc", "9"),
             ("--metric clap", args.metric == "clap", "11"),
             ("--num-devices (a device mesh)", args.num_devices > 1, "13")):
         if chosen:
@@ -130,7 +130,10 @@ def main(argv=None):
 
     from st_ito_torch.chain import build_render_fn
     from st_ito_torch.ito import run_es, run_staged_es
-    from st_ito_torch.models.registry import get_param_embeds, load_param_model
+    from st_ito_torch.models.registry import (get_mfcc_feature_embeds,
+                                              get_param_embeds,
+                                              load_mfcc_feature_extractor,
+                                              load_param_model)
     from st_ito_torch.ops.resample import resample
     from st_ito_torch.utils import load_audio, resolve_device, save_audio
 
@@ -148,9 +151,13 @@ def main(argv=None):
         input_audio = resample(input_audio, input_sr, sample_rate)
 
     # ---- metric ----
-    model = load_param_model(allow_random=args.allow_random_model,
-                             device=dev)
-    embed_func = get_param_embeds
+    if args.metric == "mfcc":
+        model = load_mfcc_feature_extractor()
+        embed_func = get_mfcc_feature_embeds
+    else:
+        model = load_param_model(allow_random=args.allow_random_model,
+                                 device=dev)
+        embed_func = get_param_embeds
 
     # ---- target ----
     if args.target in (None, "None", "none"):

@@ -1,7 +1,9 @@
 """AFx-Rep model loading and the embedding API — port of
 ``st_ito_tpu/models/registry.py``'s ``ParamModel``, ``load_param_model``,
-``get_param_embeds`` and ``get_param_embeds_chunked``. The other metrics
-(MFCC, MIR, CLAP, ...) are ROADMAP §1 items 9 and 11."""
+``get_param_embeds``, ``get_param_embeds_chunked`` and the MFCC feature
+metric (``MFCCFeatureExtractor``, ``load_mfcc_feature_extractor``,
+``get_mfcc_feature_embeds``). The MIR features are ``features.py``; the
+other encoders (CLAP, ...) are ROADMAP §1 item 11."""
 
 from __future__ import annotations
 
@@ -15,6 +17,7 @@ import torch
 from st_ito_torch.models.cnn14 import Cnn14, Cnn14Config, init_cnn14_
 from st_ito_torch.models.convert import cnn14_state_dict_from_jax
 from st_ito_torch.ops.resample import resample
+from st_ito_torch.ops.stft import mfcc as _mfcc
 from st_ito_torch.utils import resolve_device
 
 
@@ -154,3 +157,40 @@ def get_param_embeds_chunked(x: torch.Tensor, model: ParamModel,
 # each chunk is peak-normalised on its own, so the chunked embed is
 # scale-invariant as well
 get_param_embeds_chunked.peak_normalizes_input = True
+
+
+# ------------------------------------------------------- MFCC feature metric
+
+
+@dataclasses.dataclass
+class MFCCFeatureExtractor:
+    sample_rate: int = 48000
+    n_mfcc: int = 25
+    embed_dim: int = 75
+
+
+def load_mfcc_feature_extractor(use_gpu: bool = False
+                                ) -> MFCCFeatureExtractor:
+    return MFCCFeatureExtractor()
+
+
+def get_mfcc_feature_embeds(x: torch.Tensor, model: MFCCFeatureExtractor,
+                            sample_rate: float, midside: bool = False,
+                            **kwargs) -> dict[str, torch.Tensor]:
+    """{"mono": (bs, 3 * n_mfcc [* 2 with midside])}: each coefficient's
+    mean, standard deviation and maximum over the frames of x (bs, chs, T)
+    (its channel mean, or mid and side with ``midside`` on stereo),
+    L2-normalised. Note that ``mfcc``'s 80 dB floor is taken from the
+    maximum over the whole batch, as in the JAX package."""
+    x = x.to(torch.float32)
+    bs, chs, _ = x.shape
+    if int(sample_rate) != model.sample_rate:
+        x = resample(x, int(sample_rate), model.sample_rate)
+    if chs == 2 and midside:
+        x = torch.stack([x[:, 0] + x[:, 1], x[:, 0] - x[:, 1]], dim=1)
+    else:
+        x = x.mean(dim=1, keepdim=True)
+    M = _mfcc(x, model.sample_rate, n_mfcc=model.n_mfcc).transpose(-1, -2)
+    feats = torch.cat([M.mean(dim=-1), M.std(dim=-1, correction=0),
+                       M.amax(dim=-1)], dim=-1).reshape(bs, -1)
+    return {"mono": _l2_normalize(feats)}

@@ -1,8 +1,9 @@
-"""The compressor and the limiter — port of ``st_ito_tpu/ops/dynamics.py``'s
-``_time_constant_alpha``, ``gain_computer`` (the fused K1 and K7 kernels
-inline the same gain computer per sample), ``ballistics_parallel``,
-``ballistics`` (K8 when ``fast``), ``ballistics_scan``, ``compressor`` (K7
-when fast and unlinked) and ``limiter``.
+"""The compressor, the limiter and the noise gate — port of
+``st_ito_tpu/ops/dynamics.py``'s ``_time_constant_alpha``, ``gain_computer``
+(the fused K1 and K7 kernels inline the same gain computer per sample),
+``ballistics_parallel``, ``ballistics`` (K8 when ``fast``),
+``ballistics_scan``, ``compressor`` (K7 when fast and unlinked),
+``limiter`` and ``noise_gate`` (its detector in K8 when ``fast``).
 
 The attack/release ballistics are the decoupled peak detector (Giannoulis,
 Massberg & Reiss 2012). Its release stage is a min-affine recurrence, closed
@@ -182,3 +183,32 @@ def limiter(x: torch.Tensor, sample_rate: float, threshold_db=-1.0,
     return compressor(x, sample_rate, threshold_db=threshold_db, ratio=1000.0,
                       attack_ms=0.05, release_ms=release_ms, knee_db=0.1,
                       makeup_gain_db=0.0, fast=fast)
+
+
+def noise_gate(x: torch.Tensor, sample_rate: float, threshold_db=-60.0,
+               ratio=10.0, attack_ms=1.0, release_ms=100.0,
+               fast: bool = False) -> torch.Tensor:
+    """Downward expander (pedalboard.NoiseGate-style) on x (..., C, T):
+    the envelope is the peak over channels; below the threshold the level
+    is expanded by ``ratio``, floored at -100 dB, and smoothed by the
+    decoupled detector: K8 when ``fast`` (its plain version on a CPU
+    tensor), else the parallel form. The parameters broadcast to x's
+    leading dims."""
+    dev = x.device
+
+    def f32(v):
+        return torch.as_tensor(v, dtype=torch.float32, device=dev)
+
+    env = x.abs().amax(dim=-2, keepdim=True)  # (..., 1, T)
+    env_db = 20.0 * torch.log10(torch.clamp_min(env, 1e-8))
+    under = torch.clamp_max(env_db - f32(threshold_db), 0.0)
+    gr_db = torch.clamp_min(under * (f32(ratio) - 1.0), -100.0)
+    alpha_a = _time_constant_alpha(f32(attack_ms), sample_rate)
+    alpha_r = _time_constant_alpha(f32(release_ms), sample_rate)
+    # the gate opens (gain rising) at its attack time and closes at its
+    # release time: the detector's attack slot takes the release
+    # coefficient and its release slot the attack's, as in the JAX package
+    # (st_ito_tpu/ops/dynamics.py:265)
+    gr_smooth = ballistics(gr_db, alpha_r.expand(gr_db.shape)[..., 0],
+                           alpha_a.expand(gr_db.shape)[..., 0], fast=fast)
+    return x * 10.0 ** (gr_smooth / 20.0)

@@ -1,13 +1,14 @@
 """Multiband parametric EQ — port of ``st_ito_tpu/ops/eq.py``'s
-``parametric_eq_sos`` and ``parametric_eq``: low shelf -> N peaking bands ->
-high shelf, the cascade's response built on the rFFT grid and applied with
-one FFT (``ops/iir.py apply_iir_fsm``)."""
+``parametric_eq_sos``, ``parametric_eq`` and ``parametric_eq_scan``: low
+shelf -> N peaking bands -> high shelf, the cascade's response built on the
+rFFT grid and applied with one FFT (``ops/iir.py apply_iir_fsm``), or run
+exactly sample by sample (the golden-test path)."""
 
 from __future__ import annotations
 
 import torch
 
-from st_ito_torch.ops.iir import apply_iir_fsm, biquad_coeffs
+from st_ito_torch.ops.iir import apply_iir_fsm, biquad_coeffs, biquad_scan
 
 
 def parametric_eq_sos(sample_rate: float, low_shelf_gain_db,
@@ -44,3 +45,24 @@ def parametric_eq(x: torch.Tensor, sample_rate: float, low_shelf_gain_db=0.0,
         low_shelf_q_factor, band_gains_db, band_cutoff_freqs, band_q_factors,
         high_shelf_gain_db, high_shelf_cutoff_freq, high_shelf_q_factor)
     return apply_iir_fsm(x, b.to(x.device), a.to(x.device), pad=pad)
+
+
+def parametric_eq_scan(x: torch.Tensor, sample_rate: float,
+                       **kwargs) -> torch.Tensor:
+    """The same cascade as ``parametric_eq``, exactly: per-sample TDF-II
+    sections one after another (``ops/iir.py biquad_scan``). Golden-test
+    path only."""
+    b, a = parametric_eq_sos(
+        sample_rate,
+        kwargs.get("low_shelf_gain_db", 0.0),
+        kwargs.get("low_shelf_cutoff_freq", 80.0),
+        kwargs.get("low_shelf_q_factor", 0.707),
+        torch.as_tensor(kwargs.get("band_gains_db", [0.0])),
+        torch.as_tensor(kwargs.get("band_cutoff_freqs", [300.0])),
+        torch.as_tensor(kwargs.get("band_q_factors", [0.707])),
+        kwargs.get("high_shelf_gain_db", 0.0),
+        kwargs.get("high_shelf_cutoff_freq", 1000.0),
+        kwargs.get("high_shelf_q_factor", 0.707))
+    for i in range(b.shape[-2]):
+        x = biquad_scan(x, b[..., i, :], a[..., i, :])
+    return x

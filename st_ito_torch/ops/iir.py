@@ -1,8 +1,9 @@
-"""Biquad design and application — port of the parts of
-``st_ito_tpu/ops/iir.py`` the ported chains need: ``biquad_coeffs`` (RBJ
-Audio-EQ cookbook, all eight forms of the JAX list), ``freqz`` /
-``fft_filt`` / ``apply_iir_fsm`` (a cascade applied by frequency sampling),
-``linear_recurrence`` and ``next_pow2``."""
+"""Biquad design and application — port of ``st_ito_tpu/ops/iir.py``:
+``biquad_coeffs`` (RBJ Audio-EQ cookbook, all eight forms of the JAX list),
+``freqz`` / ``fft_filt`` / ``apply_iir_fsm`` (a cascade applied by
+frequency sampling), the exact per-sample filters ``biquad_scan`` and
+``lfilter_scan`` (plain loops over T: golden tests only),
+``linear_recurrence``, ``one_pole_smooth`` and ``next_pow2``."""
 
 from __future__ import annotations
 
@@ -169,6 +170,45 @@ def apply_iir_fsm(x: torch.Tensor, b: torch.Tensor, a: torch.Tensor,
     return fft_filt(x, H, n)
 
 
+def biquad_scan(x: torch.Tensor, b: torch.Tensor,
+                a: torch.Tensor) -> torch.Tensor:
+    """Exact TDF-II biquad over the last axis (scipy.signal.lfilter(b, a,
+    x) for a second-order section, a0 = 1); b, a (..., 3) broadcast
+    against x's leading dims. A loop over T: golden tests only."""
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    b0, b1, b2 = b[..., 0], b[..., 1], b[..., 2]
+    a1, a2 = a[..., 1], a[..., 2]
+    s1 = s2 = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    out = []
+    for xt in x.unbind(-1):
+        yt = b0 * xt + s1
+        s1, s2 = b1 * xt - a1 * yt + s2, b2 * xt - a2 * yt
+        out.append(yt)
+    return torch.stack(out, dim=-1)
+
+
+def lfilter_scan(x: torch.Tensor, b: torch.Tensor,
+                 a: torch.Tensor) -> torch.Tensor:
+    """Exact direct-form-II-transposed filter of any order over the last
+    axis (scipy.signal.lfilter semantics); b, a (K,) with a[0] == 1. A loop
+    over T: golden tests only."""
+    b = torch.as_tensor(b, dtype=x.dtype, device=x.device)
+    a = torch.as_tensor(a, dtype=x.dtype, device=x.device)
+    K = b.shape[0]
+    if K == 3:
+        return biquad_scan(x, b, a)
+    zero = torch.zeros(x.shape[:-1], dtype=x.dtype, device=x.device)
+    state = [zero] * (K - 1)
+    out = []
+    for xt in x.unbind(-1):
+        yt = b[0] * xt + state[0]
+        state = [b[i] * xt - a[i] * yt + (state[i] if i < K - 1 else zero)
+                 for i in range(1, K)]
+        out.append(yt)
+    return torch.stack(out, dim=-1)
+
+
 # --------------------------------------------------------------------------
 # First-order linear recurrences (parallel prefix)
 # --------------------------------------------------------------------------
@@ -203,3 +243,11 @@ def linear_recurrence(coeff: torch.Tensor, drive: torch.Tensor,
 
     coeff, drive = torch.broadcast_tensors(coeff, drive)
     return doubling_scan(combine, (coeff, drive), dim=axis)[1]
+
+
+def one_pole_smooth(x: torch.Tensor, alpha, axis: int = -1) -> torch.Tensor:
+    """One-pole lowpass y[n] = alpha*y[n-1] + (1-alpha)*x[n] from rest;
+    alpha a scalar or elementwise (time-varying ballistics)."""
+    alpha = torch.as_tensor(alpha, dtype=x.dtype, device=x.device).expand(
+        x.shape)
+    return linear_recurrence(alpha, (1.0 - alpha) * x, axis=axis)

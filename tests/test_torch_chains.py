@@ -219,16 +219,6 @@ def test_chain_from_json_matches_jax(tmp_path):
                                    np.asarray(want.init_params()))
 
 
-@pytest.mark.parametrize("effect", ["chorus", "noise_gate", "phaser"])
-def test_unported_effects_raise(tmp_path, effect):
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        teffects.EFFECT_REGISTRY[effect]()
-    path = tmp_path / "chain.json"
-    path.write_text(json.dumps({"X": {"effect": effect}}))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 7"):
-        chain_from_json(str(path))
-
-
 # ------------------------------------------------------------- renderers
 
 

@@ -2,7 +2,8 @@
 st_ito_tpu's: the same chains and synthetic target, a whole run on the CPU
 that writes its WAVs and parameter JSON, ``--staged``, ``--savepop``,
 ``--chunked`` and ``--dropout`` passed through as the JAX CLI passes them,
-and the flags that are not ported raising with their ROADMAP item."""
+``--metric mfcc`` against the JAX CLI, and the flags that are not ported
+raising with their ROADMAP item."""
 
 import json
 import os
@@ -138,10 +139,55 @@ def test_cli_es_modes_on_the_cpu(cli_inputs, flags, monkeypatch):
             assert len(os.listdir(os.path.join(run_dir, gen))) == 4
 
 
+def test_cli_metric_mfcc_matches_jax(tmp_path, monkeypatch):
+    """``--metric mfcc`` at popsize 8, 2 iterations, on a 48 kHz WAV, here
+    on the CPU and in the JAX CLI on its TPU plan (Pallas interpreted):
+    both run the host CMA-ES (the CLI's gens_per_dispatch=1) from one seed,
+    so they ask for the same populations, bit for bit, as long as the MFCC
+    fitness ranks them alike; the fitness history within 1e-4, and the
+    written WAV and parameters."""
+    from st_ito_tpu.ito.cmaes import CMAES as JaxCMAES
+    from st_ito_torch.ito import CMAES
+
+    from tests.test_torch_ito import _record_asks
+    from tests.test_torch_render import force_jax_tpu_plan
+
+    rng = np.random.default_rng(1)
+    t = np.arange(8192) / 48000
+    x = (0.3 * np.sin(2 * np.pi * 330 * t) * np.ones((2, 1))
+         + 0.05 * rng.standard_normal((2, 8192)))
+    wav = str(tmp_path / "tune.wav")
+    save_audio(wav, x.astype(np.float32), 48000)
+    monkeypatch.setenv("STITO_COMPILE_CACHE", "0")
+    asks = {"jax": [], "port": []}
+    _record_asks(monkeypatch, JaxCMAES, asks["jax"])
+    _record_asks(monkeypatch, CMAES, asks["port"])
+    common = [wav, "None", "--metric", "mfcc", "--popsize", "8",
+              "--max-iters", "2", "--max-length", "8192"]
+    with pytest.MonkeyPatch.context() as mp:
+        force_jax_tpu_plan(mp)
+        want = jax_cli.main(common + ["--output-dir", str(tmp_path / "j")])
+    got = run_optim.main(common + ["--device", "cpu", "--output-dir",
+                                   str(tmp_path / "t")])
+    assert len(asks["port"]) == len(asks["jax"]) == 2
+    for a, b in zip(asks["port"], asks["jax"]):
+        np.testing.assert_array_equal(a, b)
+    hist = np.asarray(got["fval_history"])
+    assert hist.shape == (2,) and np.isfinite(hist).all()
+    assert np.abs(hist - np.asarray(want["fval_history"])).max() <= 1e-4
+    run_dir = str(tmp_path / "t" / "tune_to_synthetic_target_es")
+    audio, sr = load_audio(os.path.join(run_dir,
+                                        "output_audio_sigma=0.33.wav"))
+    assert sr == 48000 and audio.shape == (2, 8192)
+    assert np.isfinite(audio).all() and np.abs(audio).max() > 0
+    with open(os.path.join(run_dir, "parameters_sigma=0.33.json")) as f:
+        assert list(json.load(f)) == ["ParametricEQ", "Delay", "Reverb"]
+
+
 @pytest.mark.parametrize("flags,item", [
-    (["--algorithm", "autodiff"], "8"), (["--metric", "mfcc"], "9"),
-    (["--metric", "clap"], "11"), (["--num-devices", "4"], "13"),
-], ids=["flags0-8", "flags1-9", "flags2-11", "flags6-13"])  # as they were
+    (["--algorithm", "autodiff"], "8"), (["--metric", "clap"], "11"),
+    (["--num-devices", "4"], "13"),
+], ids=["flags0-8", "flags2-11", "flags6-13"])  # as they were
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
         run_optim.main(["in.wav", "None", "--device", "cpu"] + flags)
