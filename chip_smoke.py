@@ -36,18 +36,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (in_len 2^18 -> 2^19 bins) and inverse (2^19 -> out_len 2^18); each
    kernel's time, and cuFFT's for the same transforms;
 6. ``scan``: K6 (the lone biquad-cascade EQ), K7 (the whole unlinked
-   compressor) and K8 (the lone compressor ballistics), all three chunked
-   scans, and K11 (the linear recurrence) against their plain versions:
+   compressor), K8 (the lone compressor ballistics) and K11 (the linear
+   recurrence), all four chunked scans, against their plain versions:
    74 lanes (B=37, stereo; K8 37 lanes), T=20011, K6 with mixed bypass on
    a shared and a per-candidate input, K7 with and without its bypass row;
    then each at its headline shape in full: K6 at the CLI's 1024 lanes x
    262144 on the shared input, K7 at the compressor-led chain's 1024 lanes
    x 262144 with and without the bypass row, K8 at the style chain's 512
-   lanes x 262144, K11 at 1024 lanes x 262144; K6, K7 and K8 also against
-   float64 runs of their plain versions (at the headline made in a spawned
-   process beside the float32 ones); then each kernel's time there, and
-   ``ops/dynamics.py ballistics_parallel`` (several ops, a yardstick) at
-   K8's;
+   lanes x 262144, K11 at 1024 lanes x 262144; each also against a
+   float64 run of its plain version (K6's, K7's and K8's at the headline
+   made in a spawned process beside the float32 ones); K11 also on a long
+   memory (each lane's coefficient fixed in [0.999, 0.99999]) at 74 x
+   20011 and at the headline, where two broken carries run beside it (its
+   chunks' products zeroed, or formed in float) and the rules must reject
+   the first, and at the headline the second; then each kernel's time
+   there, K11's three stages timed apart, and ``ops/dynamics.py
+   ballistics_parallel`` (several ops, a yardstick) at K8's;
 7. ``main``: ``run_es`` with the basic chain, a random-weight Cnn14 at the
    deployed config, stereo T=262144 at 48 kHz, popsize 512, in each
    fft_mode ("mega2", which "auto" picks, then "mega", "mx" and "fused"):
@@ -67,11 +71,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``EFFECT_REGISTRY``) in "auto" (mega2): K6, K8 (the gate's detector),
    K11 six times (the phaser's allpasses), K3 and K4 per generation and no
    other kernel; then one population of 37 rendered with the per-stage
-   response path ("xla") and with "mx", held against each other; K11
-   against its plain version on the phaser's own first-stage (coeff,
-   drive) at 1024 lanes x 262144, and K8 on the gate's own detector input
-   (512 lanes, its first 65536 samples) by the two rules, with a float64
-   witness; each kernel's time on those inputs;
+   response path ("xla") and with "mx", held against each other; K11 on
+   the phaser's own first-stage (coeff, drive) at 1024 lanes x 262144,
+   and K8 on the gate's own detector input (512 lanes, its first 65536
+   samples), each by the two rules with a float64 witness; each kernel's
+   time on those inputs;
 11. ``cli``: ``st_ito_torch.cli.run_optim.main`` on a stereo WAV of program
    material with the synthetic target and the default vst chain (K6, then
    K3 -> K4) at popsize 512, 3 iterations, T 262144 (the host CMA-ES, the
@@ -107,14 +111,13 @@ max(1, the lane's peak) of the float32 plain version (B 37 x T 20011,
 chunks; logged at the headline, where the float32 plain run itself lies
 farther than that from float64), and (b) on every lane of every
 set no farther from a float64 run of the plain version than 4x the float32
-one is, plus 1e-5 x max(1, peak); K6, K7 and K8, chunked scans too, by
-the same two rules on every lane of every set (``chunked.gate_excess``),
+one is, plus 1e-5 x max(1, peak); K6, K7, K8 and K11, chunked scans too,
+by the same two rules on every lane of every set (``chunked.gate_excess``),
 with their first chunk bitwise; a lane may miss (a) only where the float32
 plain run itself lies farther than 1e-4 x peak from float64, and the log
 counts such lanes (at K6's headline also where the kernel lies at most
 ``chunked.A_EXCUSE`` = 1.25x as far from float64 as that run does);
-K11 atol 1e-4 (it is expected to match bitwise: the log
-says whether it does); every other kernel 1e-4 x max|want|
+every other kernel 1e-4 x max|want|
 per output array on the valid bins (K9 and K2, which divide approximately
 as K3 does, and the FFTs, which cannot match cuFFT bitwise); the groups
 atol 5e-5, rtol 1e-4 against the mx path on a peak-normalised input.
@@ -894,19 +897,6 @@ def k11_inputs(lanes, T, seed, dev):
     return a, torch.randn((lanes, T), generator=g, device=dev)
 
 
-def scan_check(name, kernel, plain, args, label):
-    """K11: (max |kernel - plain|, plain ms) on one input set (atol 1e-4;
-    it is expected to match bitwise, and the log says whether it does)."""
-    got = kernel(*args)
-    want, plain_ms = once_ms(lambda: plain(*args))
-    e = float((got - want).abs().max())
-    log(f"{name} {label}: max |kernel - plain| = {e!r}, bitwise "
-        f"{bool(torch.equal(got, want))} (plain {plain_ms!r} ms)")
-    if not math.isfinite(e) or e > 1e-4:
-        raise AssertionError(f"{name} disagrees with its plain version: {e}")
-    return e, plain_ms
-
-
 def scan_heads(dev):
     """The headline K6, K8 and K7 input sets by name, each made from its
     seed when called (the spawned float64 job makes them again)."""
@@ -941,14 +931,14 @@ def scan_plain64_job(folder):
 
 def chunked_check(name, kernel, plain, args, label, L, want64=None,
                   excuse=False):
-    """K6, K7 or K8, chunked scans in chunks of L samples, against the plain
-    version on one input set: the first chunk bitwise, then the two rules
-    of ``chunked.gate_excess``: (b) on every lane; (a) on every lane,
+    """K6, K7, K8 or K11, chunked scans in chunks of L samples, against the
+    plain version on one input set: the first chunk bitwise, then the two
+    rules of ``chunked.gate_excess``: (b) on every lane; (a) on every lane,
     except that a lane may miss it where the float32 plain run itself lies
     farther than 1e-4 x peak from the float64 one (those lanes are counted
     in the log, and the lanes past (a) listed). With ``excuse`` a lane may
-    also miss it where the kernel lies at most ``chunked.A_EXCUSE`` times as
-    far from float64 as the float32 plain run does. ``want64`` returns the
+    also miss it where the kernel lies at most ``chunked.A_EXCUSE`` times
+    as far from float64 as the float32 plain run does. ``want64`` returns the
     float64 run when it was made elsewhere. Returns (max |kernel - plain
     float32|, the plain version's ms, the excess)."""
     from st_ito_torch.ops.kernels import chunked
@@ -1143,23 +1133,150 @@ def scan_checks(dev, recs, want64):
     del head
     torch.cuda.empty_cache()
 
+    # K11: 74 lanes (three blocks, the last ragged) x T 20011 in 79 chunks
+    # of 256 (the last ragged), then the fx chain's 1024 lanes in full, each
+    # against float32 and float64 runs of its plain version, on k11_inputs
+    # and on a long memory, where two broken carries must miss the rules
     k11 = recs["k11"]
-    e_small, _ = scan_check("K11", scan.linear_recurrence_cuda,
-                            scan.linear_recurrence_plain,
-                            k11_inputs(74, 20011, 48, dev),
-                            "lanes 74, T 20011")
-    head = k11_inputs(lanes, T_HEAD, 49, dev)
-    k11["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}"
-    e, k11["plain_ms"] = scan_check("K11", scan.linear_recurrence_cuda,
-                                    scan.linear_recurrence_plain, head,
-                                    k11["plain_shape"])
-    k11["max_abs_err"] = max(e_small, e)
-    k11["ms"] = cuda_ms(lambda: scan.linear_recurrence_cuda(*head), 3)
-    k11["bytes"] = 4 * 3 * lanes * T_HEAD
-    k11["operations"] = K11_OPS_PER_SAMPLE * lanes * T_HEAD
-    log(f"K11 headline (lanes {lanes}, T {T_HEAD}): {k11['ms']!r} ms")
+    e_small, _, _ = k11_check(k11_inputs(74, 20011, 48, dev),
+                              "lanes 74, T 20011")
+    e_long, k11["long_broken_b"] = k11_long_check(
+        k11_long_inputs(74, 20011, 50, dev), "long memory, lanes 74, "
+        "T 20011", float_must_fail=False)
+    head = k11_long_inputs(lanes, T_HEAD, 51, dev)
+    e_head_long, k11["head_long_broken_b"] = k11_long_check(
+        head, f"long memory, headline lanes {lanes}, T {T_HEAD}",
+        float_must_fail=True)
     del head
     torch.cuda.empty_cache()
+    head = k11_inputs(lanes, T_HEAD, 49, dev)
+    k11["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}"
+    e, k11["plain_ms"], ex = k11_check(head, k11["plain_shape"])
+    k11["max_abs_err"] = max(e_small, e_long, e_head_long, e)
+    k11["a_miss_plain_far"] = ex["a_miss_plain_far"]
+    k11["chunk"] = scan.linrec_chunk_len(lanes, T_HEAD)
+    k11["ms"] = cuda_ms(lambda: scan.linear_recurrence_cuda(*head), 3)
+    k11["stages_ms"] = k11_stages_ms(*head)
+    # the function's bytes, each input read once and the output written
+    # once; the design's own traffic reads both inputs twice (passes A and
+    # D), its floor logged beside the bound
+    k11["bytes"] = 4 * 3 * lanes * T_HEAD
+    k11["traffic_floor_ms"] = 4 * 5 * lanes * T_HEAD / HBM_BYTES_PER_S * 1e3
+    k11["operations"] = K11_OPS_PER_SAMPLE * lanes * T_HEAD
+    log(f"K11 headline (lanes {lanes}, T {T_HEAD}, chunk {k11['chunk']}): "
+        f"{k11['ms']!r} ms; stages {k11['stages_ms']} ms; bound "
+        f"{k11['bytes'] / HBM_BYTES_PER_S * 1e3!r} ms (the function's "
+        f"bytes), the design's traffic floor {k11['traffic_floor_ms']!r} ms")
+    del head
+    torch.cuda.empty_cache()
+
+
+def k11_check(args, label):
+    """K11 by ``chunked_check`` in the wrapper's chunks, against float32 and
+    float64 runs of its plain version."""
+    from st_ito_torch.ops.kernels import scan
+
+    L = scan.linrec_chunk_len(*args[0].shape)
+    return chunked_check("K11", scan.linear_recurrence_cuda,
+                         scan.linear_recurrence_plain, args, label, L)
+
+
+def k11_long_inputs(lanes, T, seed, dev):
+    """K11's (a, b) with a long memory: each lane's coefficient fixed in
+    U[0.999, 0.99999] (the phaser's allpass with its sweep held, at a
+    longer memory than its 20 Hz floor's 0.9974), so that a chunk's product
+    of coefficients P_k is 0.77 to 0.998 over 256 samples and 0.36 to 0.99
+    over 1024, and the carry's term P_k y_k is most of each chunk's start;
+    a random drive. Made on the card."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    a = 0.999 + 0.00099 * torch.rand((lanes, 1), generator=g, device=dev)
+    return (a.expand(lanes, T).contiguous(),
+            torch.randn((lanes, T), generator=g, device=dev))
+
+
+def k11_long_check(args, label, float_must_fail):
+    """K11 by ``chunked_check`` on a long memory (``k11_long_inputs``), then
+    two broken carries against the same plain runs: after pass A, the
+    carry table's P_k row zeroed (the carry drops P_k y_k), or set to the
+    chunk's product formed in float (one float product a sample, pass A's
+    order), then the carry and pass D. The rules must reject the first
+    carry, and the second where ``float_must_fail``: a float product drifts
+    by up to Lc/2 ulp, which shows over many long chunks (the headline's
+    256 of 1024) and not over 79 of 256. Returns (max |kernel - plain|,
+    each broken carry's rule (b) excess)."""
+    from st_ito_torch.ops.kernels import chunked, scan
+
+    a_in, b_in = args
+    lanes, T = a_in.shape
+    want = scan.linear_recurrence_plain(a_in, b_in)
+    want64 = scan.linear_recurrence_plain(a_in, b_in, dtype=torch.float64)
+    L, table = scan.linrec_table(lanes, T, a_in.device)
+    e, _, _ = chunked_check("K11", scan.linear_recurrence_cuda,
+                            lambda *_: want, args, label, L,
+                            want64=lambda: want64)
+    n = table.shape[0]
+    chunks = a_in[:, :(n - 1) * L].reshape(lanes, n - 1, L)
+    p_float = torch.ones((lanes, n - 1), device=a_in.device)
+    for j in range(L):
+        p_float = p_float * chunks[:, :, j]
+    del chunks
+    out = torch.empty_like(a_in)
+    broken_b = {}
+    for name, p_row, must in (("P_k zeroed", torch.zeros_like(p_float), True),
+                              ("P_k in float", p_float, float_must_fail)):
+        scan.linear_recurrence_launch(a_in, b_in, out, table, L, 0)
+        # row 1 of each chunk: P_k (csrc/scan.cu RecurrenceTable::kP)
+        table[:n - 1, 1, :] = p_row.t()
+        for stage in (1, 2):
+            scan.linear_recurrence_launch(a_in, b_in, out, table, L, stage)
+        ex = chunked.gate_excess(out, want, want64=want64)
+        missed = ex["b"] > 0.0 or ex["a_miss_plain_near"] > 0
+        broken_b[name] = ex["b"]
+        log(f"K11 {label}, a broken carry, {name}: max |out - plain| "
+            f"{ex['max_err']!r}, max |out - plain64| {ex['max_err64']!r} "
+            f"(rule b excess {ex['b']!r}; lanes missing (a) where the "
+            f"float32 plain run lies within 1e-4 x peak of float64: "
+            f"{ex['a_miss_plain_near']}); the rules reject it: {missed}")
+        if must and not missed:
+            raise AssertionError(f"K11's rules at {label} pass a broken "
+                                 f"carry ({name}): {ex}")
+    return e, broken_b
+
+
+def k11_stages_ms(a_in, b_in):
+    """K11's three stages (pass A, the carry, pass D) timed apart by
+    ``stages_ms``, its C entry point launched one stage at a time in the
+    wrapper's chunks. Raises if the stages run apart differ from the whole
+    scan."""
+    from st_ito_torch.ops.kernels import scan
+
+    L, table = scan.linrec_table(*a_in.shape, a_in.device)
+    out = torch.empty_like(a_in)
+    parts = stages_ms(lambda s: scan.linear_recurrence_launch(
+        a_in, b_in, out, table, L, s), 3)
+    if not torch.equal(out, scan.linear_recurrence_cuda(a_in, b_in)):
+        raise AssertionError("K11's stages run apart differ from the whole "
+                             "scan")
+    return dict(zip(("pass_a", "carry", "pass_d"), parts))
+
+
+def stages_ms(launch, n_stages, reps=3):
+    """A chunked scan's stages timed apart: launch(s) launches stage s; the
+    stages in order, reps rounds after one warm-up round, with a CUDA event
+    after each launch. Returns each stage's mean ms."""
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(n_stages + 1)]
+    parts = [0.0] * n_stages
+    for r in range(reps + 1):
+        torch.cuda.synchronize()
+        ev[0].record()
+        for s in range(n_stages):
+            launch(s)
+            ev[s + 1].record()
+        ev[-1].synchronize()
+        if r:  # round 0 warms up
+            for s in range(n_stages):
+                parts[s] += ev[s].elapsed_time(ev[s + 1]) / reps
+    return parts
 
 
 # ------------------------------------------------------------ main path
@@ -1358,9 +1475,9 @@ def phase_fx(dev, model, rec, recs):
     "auto" (mega2): K6, K8, K11 six times, K3 and K4 per generation and no
     other kernel. Then one population of 37 rendered in "xla" and in "mx"
     (the two LTI paths, atol 5e-5, rtol 1e-4 on a peak-normalised input);
-    K11 against its plain version on the phaser's own first-stage (coeff,
-    drive) at the headline, and K8 on the gate's own detector input by the
-    two rules over T_K8_FX samples; each kernel's time on those inputs."""
+    K11 on the phaser's own first-stage (coeff, drive) at the headline,
+    and K8 on the gate's own detector input over T_K8_FX samples, each by
+    the two rules; each kernel's time on those inputs."""
     from st_ito_torch.chain import build_batched_render_fn
     from st_ito_torch.ops.kernels import scan
 
@@ -1396,23 +1513,15 @@ def phase_fx(dev, model, rec, recs):
     k11 = recs["k11"]
     a_in, b_in = seen["linear_recurrence_cuda"]
     label = f"the phaser's first stage, lanes {a_in.shape[0]}, T {T_HEAD}"
-    got = scan.linear_recurrence_cuda(a_in, b_in)
-    want, k11["fx_plain_ms"] = once_ms(
-        lambda: scan.linear_recurrence_plain(a_in, b_in))
-    e = float((got - want).abs().max())
-    k11["fx_bitwise"] = bool(torch.equal(got, want))
-    del got, want
-    log(f"K11 {label}: max |kernel - plain| = {e!r}, bitwise "
-        f"{k11['fx_bitwise']} (plain {k11['fx_plain_ms']!r} ms)")
-    if not math.isfinite(e) or e > 1e-4:
-        raise AssertionError(f"K11 disagrees with its plain version on the "
-                             f"phaser's inputs: {e}")
+    e, k11["fx_plain_ms"], ex = k11_check((a_in, b_in), label)
     k11["max_abs_err"] = max(k11.get("max_abs_err", 0.0), e)
     k11["fx_max_abs_err"] = e
+    k11["fx_a_miss_plain_far"] = ex["a_miss_plain_far"]
     k11["fx_ms"] = cuda_ms(lambda: scan.linear_recurrence_cuda(a_in, b_in), 3)
     k11["fx_bound_ms"] = 4 * 3 * a_in.numel() / HBM_BYTES_PER_S * 1e3
     log(f"K11 on {label}: {k11['fx_ms']!r} ms (bound "
-        f"{k11['fx_bound_ms']!r} ms)")
+        f"{k11['fx_bound_ms']!r} ms); coefficient in "
+        f"[{float(a_in.min())!r}, {float(a_in.max())!r}]")
     del a_in, b_in, seen["linear_recurrence_cuda"]
     torch.cuda.empty_cache()
 
@@ -1946,13 +2055,17 @@ def main() -> int:
             "library_ms": rec.get("library_ms")})
         # extra keys: the plain version's shape where it is not the
         # headline's, a chunked scan's chunk length (K6's carry table
-        # traffic), K3's, K2's and K9's relative error on the comb
-        # resonances, and K10's two calls (the entry is their mean)
+        # traffic; K11's stages, its design's traffic floor and its broken
+        # carries' rule (b) excess on the long memory), K3's,
+        # K2's and K9's relative error on the comb resonances, and K10's
+        # two calls (the entry is their mean)
         for extra in ("plain_shape", "chunk", "carry_table_bytes",
                       "resonance_rel_err", "ms_fwd", "ms_inv",
                       "plain_ms_fwd", "plain_ms_inv", "library_ms_fwd",
                       "library_ms_inv", "fx_ms", "fx_plain_ms",
-                      "fx_max_abs_err", "fx_bound_ms", "fx_bitwise"):
+                      "fx_max_abs_err", "fx_bound_ms", "stages_ms",
+                      "traffic_floor_ms", "long_broken_b",
+                      "head_long_broken_b"):
             if extra in rec:
                 kernels[-1][extra] = rec[extra]
         # the long path's K1 (at its chunk) and K9 (at n 2^22), and each

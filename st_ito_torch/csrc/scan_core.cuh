@@ -9,24 +9,26 @@
 // the serial work. Threads past the last lane compute lane 0's values and
 // store nothing. A population-shared (C, T) input is read in place: lane
 // b*C + c loads its row from x[c], which stays in L2, so the (B, C, T)
-// broadcast is never written. State carries across the whole of T in one
-// launch, at any length.
+// broadcast is never written. A warp walks one span of samples (a chunk)
+// from the state its op holds.
 //
 // An Op holds one lane's coefficients and state in registers and maps one
 // input sample (or, with two input sequences, one pair) to one output
 // sample with step().
 //
-// The chunked scans (K1, eqcomp.cu; K6, K7 and K8, scan.cu) split T into
-// chunks of Lc samples, each walked by its own warp with run_tiles_span
-// from a given state, and pass the state between chunks with small serial
-// carries per lane: linear_chunk_carry (a linear state, e.g. the cascade's
-// 2S values, through Phi = A^Lc), minaffine_chunk_carry (the release stage
-// of the ballistics, through the chunk's composed min-affine map,
-// MinAffine) and onepole_chunk_carry (the attack stage, through aa^Lc).
+// The chunked scans (K1, eqcomp.cu; K6, K7, K8 and K11, scan.cu) split T
+// into chunks of Lc samples, each walked by its own warp with
+// run_tiles_span from a given state, and pass the state between chunks
+// with small serial carries per lane: linear_chunk_carry (a linear state,
+// e.g. the cascade's 2S values, through Phi = A^Lc), minaffine_chunk_carry
+// (the release stage of the ballistics, through the chunk's composed
+// min-affine map, MinAffine) and onepole_chunk_carry (the attack stage,
+// through aa^Lc).
 // K6 runs a linear state's passes and carry as written once at the end of
 // this file (run_chunked_linear), K7 and K8 the detector's
-// (run_chunked_detector); K1 runs the linear scan's pass A and carry, then
-// passes of its own, with its cascade.
+// (run_chunked_detector), K11 its own passes and carry (scan.cu
+// run_chunked_recurrence); K1 runs the linear scan's pass A and
+// carry, then passes of its own, with its cascade.
 
 #pragma once
 
@@ -281,27 +283,6 @@ __device__ __forceinline__ void run_tiles_span(
   }
 }
 
-// The whole of T in one walk, from the op's initial state.
-template <int NIn, class Op>
-__device__ __forceinline__ void run_tiles_n(Op& op,
-                                            const float* const (&x)[NIn],
-                                            int shared_channels,
-                                            float* __restrict__ out,
-                                            int lanes, long long T,
-                                            int lane0) {
-  run_tiles_span<NIn, true>(op, x, shared_channels, out, lanes, T, lane0, 0,
-                            T);
-}
-
-template <class Op>
-__device__ __forceinline__ void run_tiles(Op& op, const float* __restrict__ x,
-                                          int shared_channels,
-                                          float* __restrict__ out, int lanes,
-                                          long long T, int lane0) {
-  const float* const xs[1] = {x};
-  run_tiles_n<1>(op, xs, shared_channels, out, lanes, T, lane0);
-}
-
 // x^n rounded once to float: the product formed in double by squaring
 // (relative error about 2 log2(n) x 2^-53 before the rounding). Formed by
 // n float products instead, as MinAffine::then forms k = ar^Lc and
@@ -518,8 +499,18 @@ struct ChunkSpan {
                                        float* __restrict__ out, int lanes,
                                        long long T) const {
     const float* const xs[1] = {x};
-    run_tiles_span<1, kStore>(op, xs, shared_channels, out, lanes, T, lane0,
-                              t0, t1);
+    walk_n<kStore>(op, xs, shared_channels, out, lanes, T);
+  }
+
+  // the same with NIn input sequences (op.step(a, b) for two)
+  template <bool kStore, int NIn, class Op>
+  __device__ __forceinline__ void walk_n(Op& op,
+                                         const float* const (&x)[NIn],
+                                         int shared_channels,
+                                         float* __restrict__ out, int lanes,
+                                         long long T) const {
+    run_tiles_span<NIn, kStore>(op, x, shared_channels, out, lanes, T,
+                                lane0, t0, t1);
   }
 };
 
@@ -612,7 +603,7 @@ __global__ void __launch_bounds__(kTile) detector_out_pass(
 }
 
 // Whether the launch arguments are ones the chunked scans take (K1, K6, K7,
-// K8): chunks a positive multiple of the tile, both grid dimensions in
+// K8, K11): chunks a positive multiple of the tile, both grid dimensions in
 // range.
 inline bool chunked_args_ok(int lanes, long long T, long long Lc) {
   return lanes > 0 && T > 0 && Lc > 0 && Lc % kTile == 0 &&

@@ -1,12 +1,13 @@
 """What the chunked scans share: the chunk length and the accuracy rules.
 
-K1 (``eqcomp``), K6, K7 and K8 (``scan``) cut T into chunks of ``chunk_len``
-samples, each walked by its own warp from the state it starts in, and pass
-the state between chunks through a carry table (``rows`` floats per chunk
-and lane, ``csrc/scan_core.cuh``). The carries round differently from the
-serial chain of the plain versions, so the kernels are held to two rules
-(``gate_excess``) in place of bitwise equality; the first chunk starts from
-rest, as the serial chain does, and stays bitwise equal.
+K1 (``eqcomp``), K6, K7, K8 and K11 (``scan``) cut T into chunks of
+``chunk_len`` samples, each walked by its own warp from the state it starts
+in, and pass the state between chunks through a carry table (``rows``
+floats per chunk and lane, ``csrc/scan_core.cuh``, ``csrc/scan.cu``). The
+carries round differently from the serial chain of the plain versions, so
+the kernels are held to two rules (``gate_excess``) in place of bitwise
+equality; the first chunk starts from rest, as the serial chain does, and
+stays bitwise equal.
 """
 
 from __future__ import annotations

@@ -7,13 +7,13 @@ Ports of ``st_ito_tpu/ops/pallas/scan.py:133 biquad_cascade_pallas``,
 ``st_ito_torch/csrc/scan.cu``; beside them here are their plain PyTorch
 versions, Python loops over T on (lanes,) tensors in the kernels' order of
 operations (K7's gain computer and gain, which carry no state, are taken
-over the whole (lanes, T) block around its loop). K6, K7 and K8 run as
-chunked scans (``cascade_chunk_len`` and ``detector_chunk_len`` pick the
-chunk): their carries round differently from the serial chain, so they are
-held to their plain versions by the two rules of ``chunked.gate_excess``,
-with a float64 run of the plain version (``dtype=torch.float64``) as the
-witness. The wrappers
-``biquad_cascade``, ``compressor_fused``, ``ballistics`` and
+over the whole (lanes, T) block around its loop). All four run as chunked
+scans (``cascade_chunk_len``, ``detector_chunk_len`` and
+``linrec_chunk_len`` pick the chunk): their carries round differently from
+the serial chain, so they are held to their plain versions by the two
+rules of ``chunked.gate_excess``, with a float64 run of the plain version
+(``dtype=torch.float64``) as the witness, and the first chunk bit for bit.
+The wrappers ``biquad_cascade``, ``compressor_fused``, ``ballistics`` and
 ``linear_recurrence`` run the plain version for a CPU tensor and the kernel
 for any other: on a CUDA tensor they launch the kernel or raise.
 """
@@ -39,6 +39,9 @@ CASCADE_ROWS = 2 * KERNEL_SECTIONS
 # K7's and K8's carry table: the MinAffine (k, b, m) whose first row becomes
 # y1, then g, per chunk and lane (csrc/scan_core.cuh DetectorTable)
 DETECTOR_ROWS = 4
+# K11's carry table: the chunk's end value from rest, which becomes y at its
+# start, and the product of its coefficients (csrc/scan.cu RecurrenceTable)
+RECURRENCE_ROWS = 2
 
 _DB_PER_LOG = 20.0 / math.log(10.0)
 _LN10_OVER_20 = math.log(10.0) / 20.0
@@ -77,6 +80,12 @@ def _detector_table(lanes: int, T: int, dev):
     L = detector_chunk_len(lanes, T)
     return L, torch.empty((-(-T // L), DETECTOR_ROWS, lanes),
                           dtype=torch.float32, device=dev)
+
+
+def linrec_chunk_len(lanes: int, T: int) -> int:
+    """K11's chunk length for (lanes, T) (``chunked.chunk_len``): 1024 at
+    the fx chain's 1024 lanes x 262144 (256 chunks)."""
+    return chunked.chunk_len(lanes, T, RECURRENCE_ROWS)
 
 
 def _lead_vec(v, lead_shape, dev) -> torch.Tensor:
@@ -372,10 +381,13 @@ def ballistics(c, alpha_attack, alpha_release):
 # ----------------------------------------------------------------- K11
 
 
-def linear_recurrence_plain(a_in, b_in) -> torch.Tensor:
+def linear_recurrence_plain(a_in, b_in, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K11: y = a*y + b from y = 0, one time step
-    at a time over all lanes. a_in, b_in (lanes, T); returns (lanes, T)."""
-    y = torch.zeros(a_in.shape[0], dtype=torch.float32, device=a_in.device)
+    at a time over all lanes. a_in, b_in (lanes, T); returns (lanes, T) in
+    ``dtype``: float32 (the kernel's arithmetic) or float64 (a witness of
+    its rounding)."""
+    a_in, b_in = a_in.to(dtype), b_in.to(dtype)
+    y = torch.zeros(a_in.shape[0], dtype=dtype, device=a_in.device)
     out = []
     for at, bt in zip(a_in.unbind(-1), b_in.unbind(-1)):
         y = at * y + bt
@@ -383,24 +395,46 @@ def linear_recurrence_plain(a_in, b_in) -> torch.Tensor:
     return torch.stack(out, dim=1)
 
 
-def linear_recurrence_cuda(a_in, b_in) -> torch.Tensor:
-    """Launch K11 on the current stream. Returns (lanes, T)."""
+def linrec_table(lanes: int, T: int, dev):
+    """(K11's chunk length, an uninitialised carry table for it)."""
+    L = linrec_chunk_len(lanes, T)
+    return L, torch.empty((-(-T // L), RECURRENCE_ROWS, lanes),
+                          dtype=torch.float32, device=dev)
+
+
+def linear_recurrence_launch(a_in, b_in, out, table, L: int,
+                             stage: int = -1) -> None:
+    """One launch of K11's C entry point on the current stream, in chunks
+    of L samples with the carry table ``table``: the whole scan (stage -1)
+    or one stage of it (0 pass A, 1 the carry, 2 pass D), so that a tool
+    can time the stages apart. Raises when the launch fails."""
     lib = _build.load("scan")
+    lanes, T = a_in.shape
+    fn = lib.linear_recurrence_launch
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(a_in.data_ptr(), b_in.data_ptr(), out.data_ptr(),
+             table.data_ptr(), lanes, T, L, stage, _stream(a_in))
+    if err != 0:
+        raise RuntimeError(f"linear recurrence kernel launch failed: CUDA "
+                           f"error {err}")
+
+
+def linear_recurrence_cuda(a_in, b_in) -> torch.Tensor:
+    """Launch K11 on the current stream, in chunks of
+    ``linrec_chunk_len(lanes, T)`` samples. Returns (lanes, T). Its three
+    launches count as one."""
+    _build.load("scan")  # raises first when the library cannot be had
     _check_cuda(a_in, b_in)
     if a_in.ndim != 2 or a_in.shape != b_in.shape:
         raise ValueError(f"a and b must be one (lanes, T) shape, got "
                          f"{tuple(a_in.shape)} and {tuple(b_in.shape)}")
     lanes, T = a_in.shape
     out = torch.empty((lanes, T), dtype=torch.float32, device=a_in.device)
-    fn = lib.linear_recurrence_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                   ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(a_in.data_ptr(), b_in.data_ptr(), out.data_ptr(), lanes, T,
-             _stream(a_in))
-    if err != 0:
-        raise RuntimeError(f"linear recurrence kernel launch failed: CUDA "
-                           f"error {err}")
+    L, table = linrec_table(lanes, T, a_in.device)
+    linear_recurrence_launch(a_in, b_in, out, table, L)
     launches["linear_recurrence"] += 1
     return out
 

@@ -1,19 +1,20 @@
 """Time the chunked scans at several chunk lengths at their headline shapes:
 K1 (``csrc/eqcomp.cu``, 1024 lanes x 262144 on the shared input of
 ``chip_smoke.py``'s ``k1`` phase), K6 (the same lanes on the shared input
-of its ``scan`` phase), K8 (512 lanes) and K7 (1024 lanes, with its bypass
-row), the last three (``scan_core.cuh run_chunked_linear`` and
-``run_chunked_detector``) also stage by stage, with CUDA events between the
-launches, so that the carries are timed apart from the passes.
+of its ``scan`` phase), K8 (512 lanes), K7 (1024 lanes, with its bypass
+row) and K11 (1024 lanes), the last four (``scan_core.cuh
+run_chunked_linear`` and ``run_chunked_detector``, ``scan.cu
+run_chunked_recurrence``) also stage by stage, with CUDA events between
+the launches, so that the carries are timed apart from the passes.
 
-    python3 -m st_ito_torch.tools.k1_chunks [--kernels k1,k6,k7,k8]
+    python3 -m st_ito_torch.tools.k1_chunks [--kernels k1,k6,k7,k8,k11]
                                              [--parent DIR]
 
 The wrappers pick the chunk (``chunked.chunk_len``); here the libraries are
 called directly with each length. For K1 the kernel is then held against
 float32 and float64 runs of the plain version lane by lane, listing the
 lanes farthest from rule (a) of ``eqcomp.gate_excess`` (the plain runs take
-minutes: a Python loop over T). For K6, K7 and K8 each length's output is
+minutes: a Python loop over T). For K6, K7, K8 and K11 each length's output is
 compared with the wrapper's (``chip_smoke.py`` holds that one to the plain
 version). ``--parent DIR`` also builds K1 from another checkout's sources
 (``DIR/st_ito_torch/csrc/eqcomp.cu`` with the headers beside it, e.g. from
@@ -35,11 +36,12 @@ import chip_smoke as cs
 from st_ito_torch.ops.kernels import _build, eqcomp, scan
 
 CHUNKS = (1024, 512, 2048, 256)
-# the stages of run_chunked_linear (K6) and run_chunked_detector (K7, K8),
-# by their stage argument
+# the stages of run_chunked_linear (K6), run_chunked_detector (K7, K8) and
+# run_chunked_recurrence (K11), by their stage argument
 STAGES = {"k6": ("pass A", "carry", "pass D"),
           "k7": ("pass B", "carry 1", "pass C", "carry 2", "pass D")}
 STAGES["k8"] = STAGES["k7"]
+STAGES["k11"] = STAGES["k6"]
 
 
 def k1_launch(args, L, lib=None):
@@ -120,8 +122,12 @@ def k1_against_parent(parent: str) -> bool:
 
 def scan_launch(name, args, L, stage, out, table):
     """One launch of K6 (``name`` "k6", args (x, vec, S, with_active,
-    shared_channels)), K8 ("k8", args (c, vec)) or K7 ("k7", args (x, vec,
-    with_active)) in chunks of L, all stages (stage -1) or one."""
+    shared_channels)), K8 ("k8", args (c, vec)), K7 ("k7", args (x, vec,
+    with_active)) or K11 ("k11", args (a, b)) in chunks of L, all stages
+    (stage -1) or one."""
+    if name == "k11":
+        scan.linear_recurrence_launch(*args, out, table, L, stage)
+        return
     lib = _build.load("scan")
     x, vec = args[0], args[1]
     lanes, T = vec.shape[1], x.shape[-1]
@@ -148,12 +154,15 @@ def scan_launch(name, args, L, stage, out, table):
 
 
 def sweep_scan(name, args, reps=5):
-    """K6, K7 or K8 at each of CHUNKS, whole and stage by stage."""
+    """K6, K7, K8 or K11 at each of CHUNKS, whole and stage by stage."""
     x, vec = args[0], args[1]
-    lanes, T = vec.shape[1], x.shape[-1]
+    lanes, T = (x.shape[0] if name == "k11" else vec.shape[1]), x.shape[-1]
     if name == "k6":
         ref = scan.biquad_cascade_cuda(*args)
         want, rows = scan.cascade_chunk_len(lanes, T), scan.CASCADE_ROWS
+    elif name == "k11":
+        ref = scan.linear_recurrence_cuda(*args)
+        want, rows = scan.linrec_chunk_len(lanes, T), scan.RECURRENCE_ROWS
     else:
         ref = (scan.ballistics_cuda if name == "k8"
                else scan.compressor_fused_cuda)(*args)
@@ -167,19 +176,9 @@ def sweep_scan(name, args, reps=5):
         ms = cs.cuda_ms(lambda: scan_launch(name, args, L, -1, out, table),
                         reps)
         diff = float((out - ref).abs().max())
-        # the stages apart: an event after each launch
-        ev = [torch.cuda.Event(enable_timing=True)
-              for _ in range(len(stages) + 1)]
-        parts = [0.0] * len(stages)
-        for _ in range(reps):
-            torch.cuda.synchronize()
-            ev[0].record()
-            for s in range(len(stages)):
-                scan_launch(name, args, L, s, out, table)
-                ev[s + 1].record()
-            ev[-1].synchronize()
-            for s in range(len(stages)):
-                parts[s] += ev[s].elapsed_time(ev[s + 1]) / reps
+        parts = cs.stages_ms(
+            lambda s: scan_launch(name, args, L, s, out, table),
+            len(stages), reps)
         times = ", ".join(f"{n} {p!r}" for n, p in zip(stages, parts))
         print(f"{name.upper()} chunk {L} ({-(-T // L)} chunks): {ms!r} ms; "
               f"{times} ms; max |out - wrapper's| {diff!r}", flush=True)
@@ -187,8 +186,8 @@ def sweep_scan(name, args, reps=5):
 
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    parser.add_argument("--kernels", default="k1,k6,k7,k8",
-                        help="comma-separated subset of k1,k6,k7,k8")
+    parser.add_argument("--kernels", default="k1,k6,k7,k8,k11",
+                        help="comma-separated subset of k1,k6,k7,k8,k11")
     parser.add_argument("--parent", help="a checkout whose K1 this one's "
                         "must equal bit for bit")
     args = parser.parse_args()
@@ -201,6 +200,8 @@ def main() -> None:
         sweep_scan("k8", cs.k8_inputs(cs.POP, cs.T_HEAD, 44, dev))
     if "k7" in kernels:
         sweep_scan("k7", cs.k7_inputs(cs.POP, 2, cs.T_HEAD, 48, True, dev))
+    if "k11" in kernels:
+        sweep_scan("k11", cs.k11_inputs(2 * cs.POP, cs.T_HEAD, 49, dev))
     if "k1" in kernels:
         sweep_k1()
     if args.parent and not k1_against_parent(args.parent):

@@ -532,23 +532,38 @@ def cuda_device():
 def test_phaser_k11_and_gate_k8_on_the_card(cuda_device, monkeypatch):
     """The phaser's allpasses on K11 and the gate's detector on K8, on the
     card, against the same functions with the kernels' plain versions: one
-    K11 launch per allpass, the phaser within 1e-4 x max(1, peak) (K11 is
-    a serial scan, as its plain version is); one K8 launch per gate, held
-    on the detector input it was given by K8's two rules
-    (``chunked.gate_excess``: the first chunk bitwise, (b) on every lane,
-    (a) wherever the float32 plain run lies within 1e-4 x peak of
-    float64)."""
+    K11 launch per allpass, each held on the (coeff, drive) it was given by
+    K11's two rules, and the phaser within 1e-4 x max(1, peak); one K8
+    launch per gate, held on the detector input it was given by K8's. The
+    rules (``chunked.gate_excess``), as the chunked scans are held: the
+    first chunk bitwise, (b) on every lane, (a) wherever the float32 plain
+    run lies within 1e-4 x peak of float64."""
     from st_ito_torch.ops.kernels import chunked
+
+    def hold(out, want32, want64, L):
+        assert torch.equal(out[:, :L], want32[:, :L])
+        excess = chunked.gate_excess(out, want32, want64=want64)
+        assert excess["b"] <= 0.0 and excess["a_miss_plain_near"] == 0, excess
 
     x, p = _batched_case("phaser", 37, 20011, 21)
     want = tresp.phaser_batched(torch.from_numpy(x), {
         k: torch.from_numpy(v) for k, v in p.items()}, SR, True).numpy()
+    seen = []
+    real_k11 = scan.linear_recurrence_cuda
+    monkeypatch.setattr(scan, "linear_recurrence_cuda", lambda a_in, b_in: (
+        seen.append((a_in, b_in, real_k11(a_in, b_in))), seen[-1][2])[1])
     before = scan.launches["linear_recurrence"]
     got = tresp.phaser_batched(torch.from_numpy(x).to(cuda_device), {
         k: torch.from_numpy(v).to(cuda_device) for k, v in p.items()}, SR,
         True)
     torch.cuda.synchronize()
     assert scan.launches["linear_recurrence"] == before + 6
+    assert len(seen) == 6
+    L = scan.linrec_chunk_len(74, 20011)
+    for a_in, b_in, out in ((v.cpu() for v in call) for call in seen):
+        assert a_in.shape == (74, 20011)
+        hold(out, scan.linear_recurrence_plain(a_in, b_in),
+             scan.linear_recurrence_plain(a_in, b_in, dtype=torch.float64), L)
     assert np.abs(got.cpu().numpy() - want).max() <= _peak_tol(want)
 
     x, p = _batched_case("noise_gate", 37, 20011, 22)
@@ -566,7 +581,4 @@ def test_phaser_k11_and_gate_k8_on_the_card(cuda_device, monkeypatch):
     assert c_in.shape == (37, 20011) and float(c_in.min()) >= -100.0
     want32 = scan.ballistics_plain(c_in, vec)
     want64 = scan.ballistics_plain(c_in, vec, dtype=torch.float64)
-    L = scan.detector_chunk_len(37, 20011)
-    assert torch.equal(out[:, :L], want32[:, :L])
-    excess = chunked.gate_excess(out, want32, want64=want64)
-    assert excess["b"] <= 0.0 and excess["a_miss_plain_near"] == 0, excess
+    hold(out, want32, want64, scan.detector_chunk_len(37, 20011))

@@ -19,12 +19,12 @@ output's peak: measured 5.5e-5 on K6's 3.77 peak (a low, high-Q section
 amplifies the rounding) and 2.3e-5 on K8's 29.4. From a float64 run of the
 same recurrences the port stays within 1.5x of JAX's distance (K6 6.6e-5
 against JAX's 7.4e-5, K8 2.2e-5 against 1.6e-5; K7 7.1e-7 against 8.2e-7
-on a 1.9 peak, K11 2.1e-6 against 1.7e-6 on 10.6). On the card K11 is
-held to its plain version bit for bit; K6, K7 and K8, chunked scans whose
-carries round differently from the serial chain, by the two rules of
-``chunked.gate_excess`` against float32 and float64 runs of the plain
-versions, with the first chunk bit for bit (``test_torch_biquad_chunked``
-and ``test_torch_dynamics_chunked`` hold torch models of their passes to
+on a 1.9 peak, K11 2.1e-6 against 1.7e-6 on 10.6). On the card K6, K7,
+K8 and K11, chunked scans whose carries round differently from the serial
+chain, are held by the two rules of ``chunked.gate_excess`` against
+float32 and float64 runs of the plain versions, with the first chunk bit
+for bit (``test_torch_biquad_chunked``, ``test_torch_dynamics_chunked``
+and ``test_torch_linrec_chunked`` hold torch models of their passes to
 the same rules on the CPU)."""
 
 import numpy as np
@@ -145,6 +145,16 @@ def k11_case(lanes, T, seed):
     a = rng.uniform(0.9, 0.999, (lanes, T)).astype(np.float32)
     b = rng.standard_normal((lanes, T)).astype(np.float32)
     return a, b
+
+
+def k11_long_case(lanes, T, seed):
+    """A longer memory: each lane's coefficient fixed in [0.999, 0.99999],
+    so that a chunk's product of coefficients is most of the carried state
+    (0.77 to 0.998 over 256 samples); a random drive."""
+    rng = np.random.default_rng(seed)
+    a = rng.uniform(0.999, 0.99999, (lanes, 1)).astype(np.float32)
+    b = rng.standard_normal((lanes, T)).astype(np.float32)
+    return np.ascontiguousarray(np.broadcast_to(a, (lanes, T))), b
 
 
 def k6_numpy(x, b, a, act, dtype):
@@ -389,11 +399,43 @@ def test_k7_kernel_matches_plain_on_card(cuda_device, masked):
 
 @pytest.mark.cuda
 def test_k11_kernel_matches_plain_on_card(cuda_device):
-    a, b = k11_case(37, 2000, 11)
-    want = scan.linear_recurrence(torch.from_numpy(a), torch.from_numpy(b))
-    before = scan.launches["linear_recurrence"]
-    got = scan.linear_recurrence(torch.from_numpy(a).to(cuda_device),
-                                 torch.from_numpy(b).to(cuda_device))
-    torch.cuda.synchronize()
-    assert scan.launches["linear_recurrence"] == before + 1
-    assert torch.equal(got.cpu(), want)
+    # 37 lanes: two 32-lane blocks, the last ragged; T 2000 in 8 chunks of
+    # 256 (the last ragged), T 200 in one, and a long memory at T 20011 in
+    # 79 chunks. K11 is a chunked scan: the first chunk bitwise, then the
+    # two rules of chunked.gate_excess, (a) on every lane where the float32
+    # plain run lies within 1e-4 x peak of float64
+    for case in (k11_case(37, 2000, 11), k11_case(37, 200, 11),
+                 k11_long_case(37, 20011, 11)):
+        a, b = (torch.from_numpy(v) for v in case)
+        T = a.shape[1]
+        want32 = scan.linear_recurrence_plain(a, b)
+        want64 = scan.linear_recurrence_plain(a, b, dtype=torch.float64)
+        before = scan.launches["linear_recurrence"]
+        got = scan.linear_recurrence(a.to(cuda_device), b.to(cuda_device))
+        torch.cuda.synchronize()
+        assert scan.launches["linear_recurrence"] == before + 1
+        got = got.cpu()
+        L = scan.linrec_chunk_len(37, T)
+        assert torch.equal(got[:, :L], want32[:, :L])
+        excess = chunked.gate_excess(got, want32, want64=want64)
+        assert excess["b"] <= 0.0 and excess["a_miss_plain_near"] == 0, excess
+
+
+@pytest.mark.cuda
+def test_k11_rules_reject_a_carry_without_the_chunk_products_on_card(
+        cuda_device):
+    # on a long memory the carry's term P_k y_k is most of each chunk's
+    # start: with the table's P_k row zeroed after pass A, the carry and
+    # pass D give an output that the rules reject on every lane
+    a, b = (torch.from_numpy(v) for v in k11_long_case(37, 20011, 12))
+    want32 = scan.linear_recurrence_plain(a, b)
+    want64 = scan.linear_recurrence_plain(a, b, dtype=torch.float64)
+    a_d, b_d = a.to(cuda_device), b.to(cuda_device)
+    L, table = scan.linrec_table(37, 20011, cuda_device)
+    out = torch.empty_like(a_d)
+    scan.linear_recurrence_launch(a_d, b_d, out, table, L, 0)
+    table[:, 1, :] = 0.0  # row 1: P_k (csrc/scan.cu RecurrenceTable::kP)
+    scan.linear_recurrence_launch(a_d, b_d, out, table, L, 1)
+    scan.linear_recurrence_launch(a_d, b_d, out, table, L, 2)
+    excess = chunked.gate_excess(out.cpu(), want32, want64=want64)
+    assert excess["b"] > 0.0 and excess["a_miss_plain_near"] == 37, excess
