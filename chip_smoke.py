@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py [--record PATH]
                           [--phases k1,k9,fft,scan,main,style,comp,fx,cli,
-                                    mfcc,long,multitrack,dtype]
+                                    mfcc,long,multitrack,dtype,autodiff,
+                                    nofast,eval]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -98,7 +99,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    262144, a warm-up generation, then 2 timed: K1 on per-candidate input,
    K3 and K4 once per generation and once for the final batched render;
 15. ``dtype``: bfloat16 against float32 fitness on a population of 64;
-16. the ``kernels`` JSON line, then the card line and the result line.
+16. ``autodiff``: gradient ITO at full width, the deployed Cnn14 in
+   float32 forward and backward: the CLI's ``--algorithm autodiff`` (the
+   51-parameter processor) for a warm-up iteration and 10 timed ones, and
+   with ``--metric mfcc``, whose loss must fall; ``run_autodiff`` through
+   the basic chain's per-candidate renderer; no kernel launched; then the
+   first step's loss and gradient on the card against the same step on
+   the CPU (loss 1e-5 relative, gradient 1e-3 relative L2);
+17. ``nofast``: the differentiable renderer (``fast=False``) in a device
+   block of the CMA-ES at popsize 512, the basic chain, a warm-up and a
+   timed block of 2 generations with no kernel launched; 8 candidates of
+   its render against the CPU's (1e-4 x peak) and their distance from the
+   fast renderer's;
+18. ``eval``: ``run_synthetic_benchmark`` on the basic chain with
+   ``run_es`` (popsize 64, 3 generations: K1, K3 and K4 each) and
+   ``run_autodiff`` (3 iterations), the ``eval_psm`` CLI on 4 examples,
+   ``eval_sweep`` on 5 points and ``effect_info --test``; finite scores
+   and written JSON;
+19. the ``kernels`` JSON line, then the card line and the result line.
    A kernel's launches there come from the timed run of a path that
    launches it: K11's from ``fx``, the one path that does.
 Each phase logs the card's SM and memory clocks, power draw and
@@ -184,8 +202,20 @@ T_K1_LONG = 65536
 # the multitrack phase: 4 tracks x popsize 128 at the headline T
 TRACKS = 4
 POP_TRACK = 128
+# gradient ITO: timed iterations after a warm-up one; the fast=False
+# renderer's candidates held against the CPU; the eval phase's run_es
+# (popsize, generations) and run_autodiff (iterations) per synthetic case,
+# PSM examples and sweep points
+AD_ITERS = 10
+NOFAST_CHECK = 8
+EVAL_ES_POP = 64
+EVAL_ES_GENS = 3
+EVAL_AD_ITERS = 3
+EVAL_PSM_EXAMPLES = 4
+EVAL_SWEEP_STEPS = 5
 PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "fx", "cli",
-          "mfcc", "long", "multitrack", "dtype")
+          "mfcc", "long", "multitrack", "dtype", "autodiff", "nofast",
+          "eval")
 
 
 def log(*a):
@@ -1905,6 +1935,335 @@ def phase_dtype(dev, model, rec):
         raise AssertionError(f"bf16 fitness disagrees: {delta}, {rho}")
 
 
+# ------------------------------------------- gradient ITO, fast=False, eval
+
+
+def no_launches(label, launches):
+    """Hold that a path launched no kernel."""
+    if any(launches.values()):
+        raise AssertionError(f"{label}: launches {launches}; expected none")
+
+
+def autodiff_cli_run(dev, tmp, wav, name, iters, flags):
+    """``run_optim.main`` with ``--algorithm autodiff`` and the synthetic
+    target (the 51-parameter processor at the JAX CLI's w_target) on
+    ``wav`` at the default --max-length: no kernel launched; the loss
+    history finite, the WAV (2, T_HEAD) and the 51 parameters written.
+    Returns (result, wall s, peak bytes)."""
+    from st_ito_torch.cli import run_optim
+    from st_ito_torch.utils import load_audio
+
+    out_dir = os.path.join(tmp, name)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    t0 = time.perf_counter()
+    res = run_optim.main([wav, "None", "--algorithm", "autodiff",
+                          "--max-iters", str(iters), "--allow-random-model",
+                          "--output-dir", out_dir, "--device", dev.type]
+                         + flags)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    no_launches(f"autodiff cli {name}", launch_counts())
+    run_dir = os.path.join(out_dir, "program_to_synthetic_target_autodiff")
+    audio, sr = load_audio(os.path.join(run_dir,
+                                        "output_audio_sigma=0.33.wav"))
+    with open(os.path.join(run_dir, "parameters_sigma=0.33.json")) as f:
+        params = json.load(f)
+    hist = np.asarray(res["fval_history"])
+    if (sr != SR or audio.shape != (2, T_HEAD)
+            or not np.isfinite(audio).all() or len(params) != 51
+            or not np.isfinite(list(params.values())).all()
+            or hist.shape != (iters,) or not np.isfinite(hist).all()):
+        raise AssertionError(f"autodiff cli {name}: the output WAV, the "
+                             f"parameter JSON or the loss history is not "
+                             f"finite at the expected shape")
+    log(f"autodiff cli {name} ({iters} iterations"
+        f"{', ' + ' '.join(flags) if flags else ''}): "
+        f"{1e3 * res['time_elapsed'] / iters!r} ms/iteration, {wall!r} s "
+        f"wall, peak {peak} bytes, loss {hist.tolist()}")
+    return res, wall, peak
+
+
+def phase_autodiff(dev, model, rec):
+    """Gradient ITO at full width: the CLI's ``--algorithm autodiff`` (the
+    51-parameter processor and the deployed Cnn14 in float32, forward and
+    backward) for a warm-up iteration and AD_ITERS timed ones, and again
+    with ``--metric mfcc``, whose loss must fall; ``run_autodiff`` through
+    the basic chain's per-candidate renderer for a warm-up and AD_ITERS
+    iterations; no kernel launched in any of them. Then the first step's
+    loss and gradient (theta = 0) on the card against the same step run
+    by the port on the CPU: the loss within 1e-5 relative, the gradient
+    within 1e-3 in relative L2 (TF32 in the backward pass would miss it)."""
+    import tempfile
+
+    from st_ito_torch import proc
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.cli.run_optim import synthetic_autodiff_target_params
+    from st_ito_torch.ito import engine, run_autodiff
+    from st_ito_torch.models import load_param_model
+    from st_ito_torch.utils import save_audio
+
+    x = program_audio(3, T_HEAD)
+    with tempfile.TemporaryDirectory() as tmp:
+        wav = os.path.join(tmp, "program.wav")
+        save_audio(wav, x[0], SR)
+        autodiff_cli_run(dev, tmp, wav, "warm-up", 1, [])
+        res, wall, peak = autodiff_cli_run(dev, tmp, wav, "param", AD_ITERS,
+                                           [])
+        rec["cli"] = dict(ms_per_iteration=1e3 * res["time_elapsed"]
+                          / AD_ITERS, wall_s=wall,
+                          max_memory_allocated_bytes=peak,
+                          fval_history=res["fval_history"])
+        res, wall, peak = autodiff_cli_run(dev, tmp, wav, "mfcc", AD_ITERS,
+                                           ["--metric", "mfcc"])
+        hist = res["fval_history"]
+        rec["mfcc"] = dict(ms_per_iteration=1e3 * res["time_elapsed"]
+                           / AD_ITERS, wall_s=wall,
+                           max_memory_allocated_bytes=peak,
+                           fval_history=hist)
+        if not hist[-1] < hist[0]:
+            raise AssertionError(f"autodiff --metric mfcc: the loss did not "
+                                 f"fall: {hist}")
+
+    chain = basic_chain()
+    y = styled_target(x, chain, dev, 50)
+    common = dict(chain=chain, lr=1e-2, verbose=False, device=dev)
+    run_autodiff(x, y, SR, model, n_iters=1, **common)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts(reset=True)
+    res = run_autodiff(x, y, SR, model, n_iters=AD_ITERS, **common)
+    torch.cuda.synchronize()
+    no_launches("run_autodiff (basic chain)", launch_counts())
+    hist = np.asarray(res["fval_history"])
+    out = res["output_audio"]
+    if (not np.isfinite(hist).all() or out.shape != (1, 2, T_HEAD)
+            or not torch.isfinite(out).all()):
+        raise AssertionError(f"run_autodiff (basic chain): loss {hist}")
+    rec["chain"] = dict(ms_per_iteration=1e3 * res["time_elapsed"]
+                        / AD_ITERS,
+                        max_memory_allocated_bytes=(
+                            torch.cuda.max_memory_allocated()),
+                        fval_history=hist.tolist())
+    log(f"run_autodiff (basic chain, {AD_ITERS} iterations): "
+        f"{rec['chain']['ms_per_iteration']!r} ms/iteration, peak "
+        f"{rec['chain']['max_memory_allocated_bytes']} bytes, loss "
+        f"{hist.tolist()}")
+
+    # the first step on the card and on the CPU: the CLI's input and target
+    w_target = torch.from_numpy(synthetic_autodiff_target_params())
+    with torch.no_grad():
+        y = proc.apply_complex_autodiff_processor(
+            x.to(dev), w_target.to(dev)[None], SR)
+    steps = {}
+    for where, m in (("card", model), ("cpu", load_param_model(
+            allow_random=True, seed=0, device="cpu"))):
+        d = dev if where == "card" else torch.device("cpu")
+        fn, P, _ = engine.autodiff_loss_fn(x.to(d), y.to(d), SR, m, device=d)
+        theta = torch.zeros(P, device=d, requires_grad=True)
+        t0 = time.perf_counter()
+        loss = engine.autodiff_step(fn, theta)
+        steps[where] = (loss.item(), theta.grad.double().cpu(),
+                        time.perf_counter() - t0)
+    (l_card, g_card, _), (l_cpu, g_cpu, s_cpu) = steps["card"], steps["cpu"]
+    rel = float(torch.linalg.norm(g_card - g_cpu) / torch.linalg.norm(g_cpu))
+    loss_rel = abs(l_card - l_cpu) / abs(l_cpu)
+    worst = int(torch.argmax((g_card - g_cpu).abs()))
+    rec["first_step"] = dict(loss_card=l_card, loss_cpu=l_cpu,
+                             loss_rel=loss_rel, grad_rel_l2=rel,
+                             grad_norm=float(torch.linalg.norm(g_cpu)),
+                             worst_component=worst, cpu_s=s_cpu)
+    log(f"autodiff first step, card against CPU: loss {l_card!r} / "
+        f"{l_cpu!r} (relative {loss_rel!r}), gradient relative L2 {rel!r} "
+        f"(norm {rec['first_step']['grad_norm']!r}; worst component "
+        f"{worst}: {float(g_card[worst])!r} / {float(g_cpu[worst])!r}); the "
+        f"CPU step took {s_cpu!r} s")
+    if not (torch.isfinite(g_card).all() and torch.isfinite(g_cpu).all()
+            and math.isfinite(l_card)):
+        raise AssertionError("autodiff: a loss or gradient is not finite")
+    if rel > 1e-3 or loss_rel > 1e-5:
+        raise AssertionError(f"autodiff: the card's first step lies "
+                             f"{rel} (gradient, relative L2) and {loss_rel} "
+                             f"(loss) from the CPU's")
+
+
+def phase_nofast(dev, model, rec):
+    """The differentiable renderer (``fast=False``) inside the ES loop:
+    one device block of the CMA-ES (``device_es``, as ``run_es`` runs it
+    at gens_per_dispatch > 1) of the basic chain at popsize 512 through
+    ``make_fitness_fn(renderer_fast=False)``, a warm-up and a timed block
+    of GENS generations, which must launch no kernel. Then 8 candidates of
+    its render on the card against the same render on the CPU (atol 1e-4 x
+    peak), and their distance from the fast renderer's."""
+    from st_ito_torch.chain import basic_chain, build_batched_render_fn
+    from st_ito_torch.ito import device_es, make_fitness_fn
+    from st_ito_torch.models import get_param_embeds
+    from st_ito_torch.utils import phase_timer
+
+    chain = basic_chain()
+    x = program_audio(0, T_HEAD)[0].to(dev)
+    x = x / x.abs().max()
+    target = get_param_embeds(styled_target(x[None].cpu(), chain, dev, 1),
+                              model, SR)
+    fitness = make_fitness_fn(chain, model, SR, 2, renderer_fast=False,
+                              device=dev)
+    consts = device_es.cma_consts(chain.num_params, POP, dev)
+    runner = device_es.make_block_runner(fitness, consts)
+
+    def block():
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = device_es.cma_init(np.full(chain.num_params, 0.5), 0.33, dev)
+        t0 = time.perf_counter()
+        _, stats = runner(state, x, target, GENS, gen,
+                          torch.Generator().manual_seed(0))
+        stats = stats.cpu().numpy()
+        return time.perf_counter() - t0, stats
+
+    block()  # warm-up
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    phase_timer.reset(True)
+    launch_counts(reset=True)
+    secs, stats = block()
+    launches = launch_counts()
+    spans = phase_timer.read_ms()
+    phase_timer.reset(False)
+    no_launches("nofast", launches)
+    if not np.isfinite(stats).all():
+        raise AssertionError(f"nofast: block statistics {stats}")
+    rec.update(ms_per_generation=1e3 * secs / GENS,
+               evals_per_sec=POP * GENS / secs, launches=launches,
+               phase_ms_per_generation={k: sum(v) / GENS
+                                        for k, v in spans.items()},
+               max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+               best_fitness=stats[:, 1].tolist())
+    log(f"nofast (basic chain, fast=False, popsize {POP}): "
+        f"{rec['ms_per_generation']!r} ms/generation, "
+        f"{rec['evals_per_sec']!r} evals/s, peak "
+        f"{rec['max_memory_allocated_bytes']} bytes, spans "
+        + json.dumps(rec["phase_ms_per_generation"]))
+
+    W = torch.from_numpy(np.random.default_rng(51).random(
+        (NOFAST_CHECK, chain.num_params)).astype(np.float32))
+    renders = {}
+    for label, fast, d in (("card", False, dev), ("cpu", False, "cpu"),
+                           ("fast", True, dev)):
+        launch_counts(reset=True)
+        renders[label] = build_batched_render_fn(
+            chain, SR, 2, fast=fast, device=d)(W, x.to(d)).cpu()
+        if not fast:
+            no_launches(f"nofast render ({label})", launch_counts())
+    peak = float(renders["cpu"].abs().max())
+    err = float((renders["card"] - renders["cpu"]).abs().max())
+    dist = float((renders["card"] - renders["fast"]).abs().max())
+    rec.update(card_vs_cpu_max_abs_err=err, vs_fast_max_abs=dist)
+    log(f"nofast render of {NOFAST_CHECK} candidates: card against CPU "
+        f"max abs {err!r} (limit 1e-4 x peak {peak!r}); against the fast "
+        f"renderer (frequency-sampled EQ against the exact cascade, the "
+        f"tail-continuous group) max abs {dist!r}")
+    if not err <= 1e-4 * max(1.0, peak):
+        raise AssertionError(f"nofast: the card's render lies {err} from "
+                             f"the CPU's")
+
+
+def phase_eval(dev, model, rec):
+    """The recovery evaluations on the card: ``run_synthetic_benchmark``
+    on the basic chain with ``run_es`` (popsize 64, EVAL_ES_GENS
+    generations: K1, K3 and K4 each generation) and ``run_autodiff``
+    (EVAL_AD_ITERS iterations) under the param metric; the ``eval_psm``
+    CLI on EVAL_PSM_EXAMPLES examples, ``eval_sweep`` on the distortion's
+    drive at EVAL_SWEEP_STEPS points and ``effect_info --test`` on the
+    reverb. Every score finite and every JSON written."""
+    import tempfile
+
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.cli import effect_info, eval_psm, eval_sweep
+    from st_ito_torch.eval.synthetic import run_synthetic_benchmark
+    from st_ito_torch.ito import run_autodiff, run_es
+    from st_ito_torch.models import get_param_embeds
+
+    chain = basic_chain()
+    x = program_audio(60, T_HEAD)[0]
+    methods = {
+        "es": {"func": run_es, "kwargs": dict(
+            chain=chain, model=model, popsize=EVAL_ES_POP,
+            max_iters=EVAL_ES_GENS, find_w0=False, verbose=False,
+            device=dev)},
+        "autodiff": {"func": run_autodiff, "kwargs": dict(
+            model=model, chain=chain, n_iters=EVAL_AD_ITERS, verbose=False,
+            device=dev)}}
+    with tempfile.TemporaryDirectory() as tmp:
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "synthetic.json")
+        res = run_synthetic_benchmark(chain, x, methods, model,
+                                      get_param_embeds, SR, out_path=out,
+                                      device=dev)
+        rec["synthetic_s"] = time.perf_counter() - t0
+        launches = launch_counts()
+        with open(out) as f:
+            written = json.load(f)
+        scores = [v for case in res.values() for m in ("es", "autodiff")
+                  for v in case[m].values()]
+        if len(res) != 6 or written.keys() != res.keys() or not np.isfinite(
+                scores).all():
+            raise AssertionError(f"eval synthetic: {res}")
+        want = {k: 6 * EVAL_ES_GENS if k in ("k1", "k3", "k4") else 0
+                for k in launches}
+        if launches != want:
+            raise AssertionError(f"eval synthetic: launches {launches}; "
+                                 f"expected {want}")
+        rec["synthetic"] = {name: {m: case[m] for m in ("es", "autodiff")}
+                            for name, case in res.items()}
+        log(f"eval synthetic (6 cases; run_es at popsize {EVAL_ES_POP}, "
+            f"{EVAL_ES_GENS} generations; run_autodiff, {EVAL_AD_ITERS} "
+            f"iterations): {rec['synthetic_s']!r} s, launches {launches}, "
+            + json.dumps(rec["synthetic"]))
+
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "psm.json")
+        psm = eval_psm.main(["--metrics", "param", "--num-examples",
+                             str(EVAL_PSM_EXAMPLES), "--allow-random-model",
+                             "--out", out, "--device", dev.type])
+        with open(out) as f:
+            written = json.load(f)
+        accs = [a for cond in psm.values() for m in cond.values()
+                for a in m["accuracy_by_distractors"].values()]
+        if set(written) != {"intra-effect", "inter-effect"} or not (
+                np.isfinite(accs).all()):
+            raise AssertionError(f"eval_psm: {psm}")
+        rec["psm"] = psm
+        rec["psm_s"] = time.perf_counter() - t0
+
+        t0 = time.perf_counter()
+        out = os.path.join(tmp, "sweep.json")
+        sweep = eval_sweep.main(["--effect", "distortion", "--param",
+                                 "drive_db", "--num-steps",
+                                 str(EVAL_SWEEP_STEPS),
+                                 "--allow-random-model", "--out", out,
+                                 "--device", dev.type])
+        with open(out) as f:
+            written = json.load(f)
+        if (len(written["similarities"]) != EVAL_SWEEP_STEPS
+                or not np.isfinite(sweep["similarities"]).all()):
+            raise AssertionError(f"eval_sweep: {sweep}")
+        rec["sweep"] = sweep
+        rec["sweep_s"] = time.perf_counter() - t0
+
+    stats = effect_info.main(["reverb", "--test", "--device", dev.type])
+    if not (stats["finite"] and np.isfinite(list(stats.values())).all()):
+        raise AssertionError(f"effect_info: {stats}")
+    rec["effect_info"] = stats
+    log(f"eval_psm ({EVAL_PSM_EXAMPLES} examples) {rec['psm_s']!r} s: "
+        f"{json.dumps(psm)}; eval_sweep ({EVAL_SWEEP_STEPS} points) "
+        f"{rec['sweep_s']!r} s: monotonicity {sweep['monotonicity']!r}; "
+        f"effect_info reverb: {stats}")
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -1968,8 +2327,8 @@ def main() -> int:
 
     model = main_rec = None
     launches = {}
-    if {"main", "style", "comp", "fx", "long", "multitrack",
-            "dtype"} & set(phases):
+    if {"main", "style", "comp", "fx", "long", "multitrack", "dtype",
+            "autodiff", "nofast", "eval"} & set(phases):
         model = load_param_model(allow_random=True, seed=0, device=dev)
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
@@ -2004,13 +2363,20 @@ def main() -> int:
         run("long", phase_long, dev, model, long_rec)
     if "multitrack" in phases:
         run("multitrack", phase_multitrack, dev, model, mt_rec)
-    dtype_rec = {}
+    dtype_rec, ad_rec, nofast_rec, eval_rec = {}, {}, {}, {}
     if "dtype" in phases:
         run("dtype", phase_dtype, dev, model, dtype_rec)
+    if "autodiff" in phases:
+        run("autodiff", phase_autodiff, dev, model, ad_rec)
+    if "nofast" in phases:
+        run("nofast", phase_nofast, dev, model, nofast_rec)
+    if "eval" in phases:
+        run("eval", phase_eval, dev, model, eval_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
                   fx=fx_rec, cli=cli_rec, mfcc=mfcc_rec, long=long_rec,
-                  multitrack=mt_rec, dtype=dtype_rec)
+                  multitrack=mt_rec, dtype=dtype_rec, autodiff=ad_rec,
+                  nofast=nofast_rec, eval=eval_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -2076,7 +2442,8 @@ def main() -> int:
                 if f"{key}_{extra}" in long_rec:
                     kernels[-1][f"long_{extra}"] = long_rec[f"{key}_{extra}"]
         for label, r in (("long", long_rec), ("multitrack", mt_rec),
-                         ("fx", fx_rec), ("mfcc", mfcc_rec)):
+                         ("fx", fx_rec), ("mfcc", mfcc_rec),
+                         ("nofast", nofast_rec)):
             kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start

@@ -12,8 +12,14 @@ The package mirrors ``st_ito_tpu``'s layout and public names:
               CUDA sources live in ``st_ito_torch/csrc/``.
 - ``models``  the AFx-Rep Cnn14 as an ``nn.Module``, its weight converter and
               ``load_param_model`` / ``get_param_embeds``.
-- ``ito``     the device-resident CMA-ES and ``run_es``.
-- ``cli``     the style-transfer CLI, ``python -m st_ito_torch.cli.run_optim``.
+- ``ito``     the host and device-resident CMA-ES, ``run_es`` and gradient
+              ITO (``run_autodiff``).
+- ``cli``     the style-transfer CLI (``python -m st_ito_torch.cli.run_optim``),
+              the evaluation CLIs ``eval_psm``, ``eval_sweep`` and
+              ``effect_info``.
+- ``eval``    the metric registry and the recovery evaluations (synthetic,
+              sweep, case study, PSM) with their figures.
+- ``proc``    the 51-parameter differentiable processor of gradient ITO.
 
 It imports torch, numpy and the standard library only. Entry points run on
 the card (``device="cuda"``) unless the caller passes ``device="cpu"``; on a

@@ -33,6 +33,16 @@ and never broadcast to (B, C, T); before any other first stage it is
 broadcast, as in the JAX package (the JAX K6 has no shared mode, so there
 the lone EQ reads the broadcast; the output is the same).
 
+``fast=False`` is the differentiable renderer, the JAX package's plan off
+its accelerator (``executor.py:134-161``): no kernel on any device. The EQ
+joins the LTI groups through its response, every LTI group takes the
+per-stage response path between ``torch.fft.rfft`` and ``irfft`` (where
+the JAX package applies a scalar or monomix group through its four-step FFT,
+``ops/mxfft.py``, in the mega and mx modes), and every "nl" stage runs op by
+op: the compressors' and the gate's detector as the doubling scans of
+``ops/dynamics.py ballistics_parallel``, the phaser's allpasses as
+``ops/iir.py linear_recurrence``. All of it is plain PyTorch under autograd.
+
 Semantics kept from the JAX package: the bypass rule (a stage is active when
 ``W[:, start] <= 0.5``), the mono -> stereo promotion before the first stereo
 stage, and the "tail-continuous" fused LTI group (the delay's tail past the
@@ -106,17 +116,18 @@ def build_render_fn(chain: ChainSpec, sample_rate: int, num_channels: int,
     return render
 
 
-def _plan(chain: ChainSpec,
-          fuse_lti: bool = True) -> list[tuple[str, list[int]]]:
-    """Group the chain's stages as the JAX package's TPU plan does: the EQ
-    is "fast", consecutive stages with a response form "lti" groups (one
-    per stage without ``fuse_lti``), the rest are "nl"; an EQ ->
-    compressor (-> distortion) run merges into one "eqcomp" head. Raises
-    for an "nl" stage with no batched function."""
+def _plan(chain: ChainSpec, fuse_lti: bool = True,
+          fast: bool = True) -> list[tuple[str, list[int]]]:
+    """Group the chain's stages as the JAX package's TPU plan does (with
+    ``fast``; without it, as its plan off the TPU): the EQ is "fast" (else
+    a stage with a response), consecutive stages with a response form "lti"
+    groups (one per stage without ``fuse_lti``), the rest are "nl"; with
+    ``fast`` an EQ -> compressor (-> distortion) run merges into one
+    "eqcomp" head. Raises for an "nl" stage with no batched function."""
     slices = chain.stage_slices()
     plan: list[tuple[str, list[int]]] = []
     for i, (stage, _, _) in enumerate(slices):
-        if stage.effect == "parametric_eq":
+        if fast and stage.effect == "parametric_eq":
             plan.append(("fast", [i]))
         elif stage.response_fn is not None:
             if fuse_lti and plan and plan[-1][0] == "lti":
@@ -165,7 +176,9 @@ def build_batched_render_fn(
     """The population renderer: render(W (B, P), x) -> (B, C_out, T), with
     x either (C, T) shared across candidates or (B, C, T) per-candidate.
 
-    Runs on ``device`` (default the card). ``fft_mode`` picks how the fused
+    Runs on ``device`` (default the card). ``fast=False`` renders without
+    any kernel, differentiably (module docstring); ``fft_mode`` has no
+    effect then. ``fft_mode`` picks how the fused
     LTI group is applied: "mega2" (K3 -> K4), "mega" (K5 -> K2 -> K4), "mx"
     (torch.fft -> K9 -> torch.fft), "fused" (K10 -> K9 -> K10; "mx3" is
     its JAX alias) or "xla" (the per-stage responses composed and applied
@@ -185,7 +198,7 @@ def build_batched_render_fn(
     ``fft_precision="high"``; the reduced-precision modes are TPU devices
     (bf16 dot passes) and are not ported."""
     if fft_mode == "auto":
-        fft_mode = "mega2"
+        fft_mode = "mega2" if fast else "xla"
     if fft_mode not in ("mega2", "mega", "mx", "fused", "mx3", "xla"):
         raise ValueError(
             f"fft_mode={fft_mode!r}: 'auto', 'mega2', 'mega', 'mx', "
@@ -194,9 +207,6 @@ def build_batched_render_fn(
         raise NotImplementedError(
             f"fft_precision={fft_precision!r}: reduced-precision FFTs are "
             f"not ported (ROADMAP §2); every transform is float32")
-    if not fast:
-        raise NotImplementedError(
-            "fast=False (the differentiable renderer) is ROADMAP §1 item 8")
     if out_rows_hop is not None:
         raise NotImplementedError(
             "out_rows_hop: the hop-blocked rows form is a TPU layout device "
@@ -205,7 +215,7 @@ def build_batched_render_fn(
     dev = resolve_device(device)
     slices = chain.stage_slices()
     bypass_off = 1 if chain.with_bypass else 0
-    plan = _plan(chain, fuse_lti)
+    plan = _plan(chain, fuse_lti, fast)
 
     def active_mask(W, start):
         return (W[:, start] <= 0.5).to(torch.float32)
@@ -294,10 +304,10 @@ def build_batched_render_fn(
             if max_lti_pad is not None:
                 pad = min(pad, max_lti_pad)
             n = next_pow2(T + pad)
-            if (fft_mode == "xla" or x.shape[1] != 2
+            if (not fast or fft_mode == "xla" or x.shape[1] != 2
                     or any(s.effect not in RP_BUNDLES for s, _, _ in stages)):
-                # the per-stage response path: the rp kernels are
-                # stereo-only, as in the JAX package
+                # the per-stage response path: the differentiable one, and
+                # the rp kernels are stereo-only, as in the JAX package
                 with phase_timer.span("lti_xla", dev):
                     x = response_group(x, stages, W, n)
                 continue

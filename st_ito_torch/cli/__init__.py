@@ -1,2 +1,3 @@
 """Command-line entry points of the port: ``run_optim``, the style-transfer
-CLI."""
+CLI; ``eval_psm`` and ``eval_sweep``, the metric evaluations; and
+``effect_info``, the effect registry's introspection."""

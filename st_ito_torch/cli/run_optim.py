@@ -3,7 +3,8 @@ entry point:
 
     python -m st_ito_torch.cli.run_optim input.wav target.wav \\
         --max-iters 300 --popsize 32 --max-length 262144 \\
-        [--normalize-stages] [--effect-type {vst,basic}] [--device cuda]
+        [--normalize-stages] [--effect-type {vst,basic}]
+        [--algorithm {es,autodiff}] [--device cuda]
 
 Pass ``None`` as target for the synthetic-target self test: a target is
 rendered from known parameters and the optimiser must recover it.
@@ -18,11 +19,14 @@ time (``run_staged_es``); ``--savepop`` writes every generation's renders,
 ranked, under the run directory; ``--chunked`` is the long-audio mode;
 ``--dropout`` is the embedding dropout. ``--metric mfcc`` scores by
 the MFCC feature metric (``models/registry.py get_mfcc_feature_embeds``)
-in place of the AFx-Rep encoder. ``--use-gpu`` and ``--parallel`` are
+in place of the AFx-Rep encoder. ``--algorithm autodiff`` is gradient ITO
+(``run_autodiff``, Adam at lr 1e-2 for ``--max-iters`` steps) through the
+51-parameter differentiable processor (``proc.py``), whose synthetic
+target is the JAX CLI's. ``--use-gpu`` and ``--parallel`` are
 accepted and do nothing: the population always renders in parallel on the
-device. Not ported, and raising with their ROADMAP item: ``--algorithm
-autodiff``, ``--metric clap`` and ``--num-devices`` above 1. The
-convergence plot is best effort (it needs matplotlib).
+device. Not ported, and raising with their ROADMAP item: ``--metric clap``
+and ``--num-devices`` above 1. The convergence plot is best effort (it
+needs matplotlib).
 """
 
 from __future__ import annotations
@@ -73,12 +77,22 @@ def synthetic_target_params(chain) -> np.ndarray:
     return w
 
 
+def synthetic_autodiff_target_params() -> np.ndarray:
+    """The 51-parameter processor's self-test target (bass cut, bright
+    shelf, compression), the JAX CLI's."""
+    from st_ito_torch import proc
+
+    w = np.full(proc.NUM_COMPLEX_PARAMS, 0.5, np.float32)
+    w[:3] = [0.1, 0.5, 0.2]
+    w[15:18] = [0.7, 0.5, 0.2]
+    w[18:24] = [0.8, 0.3, 0.1, 0.1, 0.5, 0.1]
+    return w
+
+
 def _refuse_unported(args) -> None:
     """Raise for a flag whose path is not ported, naming its ROADMAP §1
     item."""
     for flag, chosen, item in (
-            ("--algorithm autodiff (the differentiable path)",
-             args.algorithm == "autodiff", "8"),
             ("--metric clap", args.metric == "clap", "11"),
             ("--num-devices (a device mesh)", args.num_devices > 1, "13")):
         if chosen:
@@ -128,8 +142,9 @@ def main(argv=None):
     args = parser.parse_args(argv)
     _refuse_unported(args)
 
+    from st_ito_torch import proc
     from st_ito_torch.chain import build_render_fn
-    from st_ito_torch.ito import run_es, run_staged_es
+    from st_ito_torch.ito import run_autodiff, run_es, run_staged_es
     from st_ito_torch.models.registry import (get_mfcc_feature_embeds,
                                               get_param_embeds,
                                               load_mfcc_feature_extractor,
@@ -161,11 +176,16 @@ def main(argv=None):
 
     # ---- target ----
     if args.target in (None, "None", "none"):
-        w_target = synthetic_target_params(chain)
-        render = build_render_fn(chain, sample_rate, input_audio.shape[0],
-                                 device=dev)
-        target_audio = render(torch.as_tensor(w_target, dtype=torch.float32),
-                              input_audio)
+        if args.algorithm == "autodiff":
+            w_target = torch.from_numpy(synthetic_autodiff_target_params())
+            target_audio = proc.apply_complex_autodiff_processor(
+                input_audio[None], w_target.to(dev)[None], sample_rate)[0]
+        else:
+            w_target = synthetic_target_params(chain)
+            render = build_render_fn(chain, sample_rate,
+                                     input_audio.shape[0], device=dev)
+            target_audio = render(
+                torch.as_tensor(w_target, dtype=torch.float32), input_audio)
         target_name = "synthetic_target"
     else:
         target_np, target_sr = load_audio(args.target)
@@ -189,16 +209,22 @@ def main(argv=None):
 
     # ---- run ----
     sigma0 = args.sigma0
-    es_func = run_staged_es if args.staged else run_es
-    result = es_func(
-        input_audio[None], target_audio[None], sample_rate, chain, model,
-        embed_func=embed_func, max_iters=args.max_iters,
-        popsize=args.popsize, find_w0=True, sigma0=sigma0,
-        distance="cosine", dropout=args.dropout, savepop=args.savepop,
-        normalize_stages=args.normalize_stages, run_dir=run_dir,
-        seed=args.seed, chunked=args.chunked,
-        gens_per_dispatch=args.gens_per_dispatch,
-        pop_microbatch=args.pop_microbatch, device=dev)
+    if args.algorithm == "autodiff":
+        result = run_autodiff(
+            input_audio[None], target_audio[None], sample_rate, model,
+            embed_func=embed_func, lr=1e-2, n_iters=args.max_iters,
+            dropout=args.dropout, seed=args.seed, device=dev)
+    else:
+        es_func = run_staged_es if args.staged else run_es
+        result = es_func(
+            input_audio[None], target_audio[None], sample_rate, chain,
+            model, embed_func=embed_func, max_iters=args.max_iters,
+            popsize=args.popsize, find_w0=True, sigma0=sigma0,
+            distance="cosine", dropout=args.dropout, savepop=args.savepop,
+            normalize_stages=args.normalize_stages, run_dir=run_dir,
+            seed=args.seed, chunked=args.chunked,
+            gens_per_dispatch=args.gens_per_dispatch,
+            pop_microbatch=args.pop_microbatch, device=dev)
 
     # ---- save results ----
     out = result["output_audio"][0].cpu().numpy()

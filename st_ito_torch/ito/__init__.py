@@ -1,11 +1,12 @@
 """Inference-time optimisation: the host CMA-ES (``cmaes``), the
 device-resident one (``device_es``), ``run_es`` and its staged and
-multitrack forms, and the baselines. ``run_autodiff`` (ROADMAP §1 item 8)
-and ``run_learned_inference`` (item 10) are not ported yet."""
+multitrack forms, gradient ITO (``run_autodiff``), and the baselines.
+``run_learned_inference`` (ROADMAP §1 item 10) is not ported yet."""
 
 from st_ito_torch.ito.cmaes import CMAES
 from st_ito_torch.ito.engine import (
     make_fitness_fn,
+    run_autodiff,
     run_es,
     run_es_multitrack,
     run_input,
@@ -20,6 +21,7 @@ __all__ = [
     "run_es",
     "run_es_multitrack",
     "run_staged_es",
+    "run_autodiff",
     "run_input",
     "run_random",
     "run_rule_based",

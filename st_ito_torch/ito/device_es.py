@@ -218,6 +218,7 @@ def make_block_runner(fitness: Callable, consts: CMAConsts,
     ``BlockStats.packed``: [:, 0] the best fitness OF each generation,
     [:, 1] best-so-far AFTER it, [:, 2:] the best-so-far candidate."""
 
+    @torch.no_grad()
     def run(state: CMAState, x, target_embeds, k: int,
             generator: torch.Generator, crop_generator: torch.Generator,
             target_content_embeds=None, lift=None):

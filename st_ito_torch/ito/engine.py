@@ -1,8 +1,8 @@
 """Inference-time optimisation — port of ``st_ito_tpu/ito/engine.py``:
 the fitness (``_embedding_distance``, ``make_fitness_fn``), ``run_es`` with
 its host and device-resident CMA-ES loops, the long-audio mode, staged and
-multitrack ES, and the baselines ``run_input``, ``run_random`` and
-``run_rule_based``.
+multitrack ES, gradient ITO (``run_autodiff``), and the baselines
+``run_input``, ``run_random`` and ``run_rule_based``.
 
 Per generation: CMA-ES asks for a population, on the host (``ito/cmaes.py``,
 per generation, at ``gens_per_dispatch=1`` and under ``savepop``, as the JAX
@@ -34,6 +34,7 @@ from st_ito_torch.chain.executor import (build_batched_render_fn,
 from st_ito_torch.chain.params import ChainSpec
 from st_ito_torch.ito import device_es
 from st_ito_torch.ito.cmaes import CMAES
+from st_ito_torch.models.cnn14 import no_tf32
 from st_ito_torch.models.registry import embed_in_chunks, get_param_embeds
 from st_ito_torch.ops.iir import next_pow2
 from st_ito_torch.utils import (batch_peak_normalize, phase_timer,
@@ -159,6 +160,7 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
             fvals = torch.mean(dists, dim=0)
         return fvals, out, Y
 
+    @torch.no_grad()
     def fitness(W, x, target_embeds, target_content_embeds=None, rng=None):
         W = torch.as_tensor(W, dtype=torch.float32, device=dev)
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
@@ -583,6 +585,7 @@ def run_es_multitrack(input_audio, target_audio, sample_rate: int,
                for k, v in targets.items()}
     generator = torch.Generator(device=dev).manual_seed(seed)
 
+    @torch.no_grad()
     def fitness(W_flat):
         Y = render(W_flat, x_flat)
         with phase_timer.span("embed", dev):
@@ -698,6 +701,127 @@ def run_staged_es(input_audio, target_audio, sample_rate: int,
         "time_elapsed": elapsed,
         "total_evals": total_evals,
         "evals_per_sec": total_evals / max(elapsed, 1e-9),
+    }
+
+
+# --------------------------------------------------------------------------
+# gradient ITO
+# --------------------------------------------------------------------------
+
+
+def autodiff_loss_fn(input_audio, target_audio, sample_rate: int, model,
+                     embed_func: Callable = get_param_embeds,
+                     chain: ChainSpec | None = None, dropout: float = 0.0,
+                     seed: int = 0, device="cuda"):
+    """``(loss(theta (P,)) -> 0-d tensor, P, render(w (P,)) -> (1, C, T))``
+    of gradient ITO on ``device``: theta through a sigmoid to w in (0, 1),
+    rendered by the 51-parameter complex processor (``proc.py``) when
+    ``chain`` is None, else by the chain's per-candidate renderer
+    (``build_render_fn``), embedded, and scored as the mean embedding
+    distance to the target's. Both inputs are peak-normalised first.
+    With ``dropout`` > 0 the embed's masks come from a ``torch.Generator``
+    on the device seeded with ``seed``."""
+    from st_ito_torch import proc
+
+    dev = resolve_device(device)
+    input_audio = _peak_norm(input_audio, dev)
+    with torch.no_grad():
+        target_embed = embed_func(_peak_norm(target_audio, dev), model,
+                                  sample_rate)
+
+    if chain is None:
+        num_params = proc.NUM_COMPLEX_PARAMS
+
+        def render_batch(w):
+            return proc.apply_complex_autodiff_processor(
+                input_audio, w[None], sample_rate)
+    else:
+        num_params = chain.num_params
+        render = build_render_fn(chain, sample_rate, input_audio.shape[1],
+                                 device=dev)
+
+        def render_batch(w):
+            return render(w, input_audio[0])[None]
+
+    kw = {}
+    if dropout > 0:
+        kw = {"dropout": dropout,
+              "generator": torch.Generator(device=dev).manual_seed(seed)}
+
+    def loss_fn(theta):
+        y = render_batch(torch.sigmoid(theta))
+        out_embeds = embed_func(y, model, sample_rate, **kw)
+        return torch.mean(_embedding_distance(out_embeds, target_embed))
+
+    return loss_fn, num_params, render_batch
+
+
+def autodiff_step(loss_fn, theta: torch.Tensor) -> torch.Tensor:
+    """One forward and backward pass of ``loss_fn`` at ``theta`` (a leaf
+    that requires grad), both with TF32 off (``no_tf32``): cuDNN's
+    convolution gradients run inside ``backward``, where its default would
+    round them to TF32 on the card. Returns the loss; ``theta.grad`` holds
+    the gradient."""
+    with no_tf32():
+        loss = loss_fn(theta)
+        loss.backward()
+    return loss
+
+
+def run_autodiff(input_audio, target_audio, sample_rate: int, model,
+                 embed_func: Callable = get_param_embeds,
+                 chain: ChainSpec | None = None, lr: float = 1e-2,
+                 n_iters: int = 300, dropout: float = 0.0, seed: int = 0,
+                 verbose: bool = True, device="cuda", **kwargs):
+    """Gradient ITO on ``device`` (default the card): Adam at ``lr`` on
+    theta, from theta = 0 (w = 0.5), through ``autodiff_loss_fn``'s
+    differentiable render and embed; any chain, or the 51-parameter
+    processor with ``chain=None``. torch's Adam (eps 1e-8) is optax's
+    ``adam`` up to float32 rounding. Each step is ``autodiff_step``, so
+    the encoder's convolutions and their gradients are float32 on the
+    card. ``kwargs`` are accepted and ignored, as in the JAX package.
+
+    Returns the JAX package's keys: output_audio (on the device), params,
+    fopt (the last step's loss), wopt, fval_history (each step's loss, at
+    theta before its update), wopt_history, time_elapsed, total_evals (one
+    per step) and evals_per_sec."""
+    del kwargs
+    dev = resolve_device(device)
+    loss_fn, num_params, render_batch = autodiff_loss_fn(
+        input_audio, target_audio, sample_rate, model, embed_func, chain,
+        dropout, seed, dev)
+    theta = torch.zeros(num_params, device=dev, requires_grad=True)
+    opt = torch.optim.Adam([theta], lr=lr, eps=1e-8)
+
+    fval_history: list[float] = []
+    wopt_history: list[np.ndarray] = []
+    t_start = time.time()
+    for i in range(n_iters):
+        opt.zero_grad(set_to_none=True)
+        loss = autodiff_step(loss_fn, theta)
+        opt.step()
+        fval_history.append(loss.item())
+        wopt_history.append(torch.sigmoid(theta).detach().cpu().numpy())
+        if verbose and (i % 25 == 0 or i == n_iters - 1):
+            print(f"iter {i:4d}  loss {fval_history[-1]:+.6f}")
+    elapsed = time.time() - t_start
+
+    with torch.no_grad():
+        w = torch.sigmoid(theta)
+        output_audio = render_batch(w)
+    w = w.cpu().numpy()
+    params = (parameters_to_dict(w, chain) if chain is not None
+              else {f"{i}": float(v) for i, v in enumerate(w)})
+    return {
+        "output_audio": output_audio,
+        "params": params,
+        "fopt": fval_history[-1],
+        "wopt": w,
+        "fval_history": fval_history,
+        "wopt_history": wopt_history,
+        "time_elapsed": elapsed,
+        "total_evals": n_iters,
+        "evals_per_sec": n_iters / max(elapsed, 1e-9),
     }
 
 

@@ -16,7 +16,15 @@ for the power spectrum, as the JAX float32 path does; its bfloat16 mode
 uses a DFT matrix product instead). ``compute_dtype="bfloat16"`` runs the
 conv stack with bfloat16 activations (cuDNN accumulates in float32), as the
 JAX fast path does on its accelerator. The float32 conv stack runs with
-cuDNN's and cuBLAS's TF32 off, so "float32" means float32 on the card too.
+cuDNN's and cuBLAS's TF32 off, so "float32" means float32 on the card too;
+a caller that differentiates through the module keeps TF32 off around its
+backward pass as well (``no_tf32``), where cuDNN's convolution gradients
+run.
+
+The encoder is frozen (its parameters do not require grad): a forward pass
+records an autograd graph only when its input requires grad, as gradient
+ITO's does (the JAX package differentiates with respect to the effect
+parameters alone), and never on the ES paths, whose inputs do not.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ class Cnn14Config:
 
 
 @contextlib.contextmanager
-def _no_tf32():
+def no_tf32():
     """float32 convolutions and matrix products in full float32 on the card
     (cuDNN's convolutions default to TF32); restores the caller's flags."""
     conv, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
@@ -125,6 +133,7 @@ class Cnn14(nn.Module):
         self.register_buffer("window", hann_window(config.window_size),
                              persistent=False)
         self.eval()
+        self.requires_grad_(False)
 
     def logmel(self, x: torch.Tensor) -> torch.Tensor:
         """(N, T) -> (N, 1, frames, mel_bins) in float32."""
@@ -134,7 +143,6 @@ class Cnn14(nn.Module):
         mel = S @ self.mel_matrix
         return power_to_db(mel, ref=1.0, amin=1e-10)[:, None]
 
-    @torch.no_grad()
     def forward(self, x: torch.Tensor, compute_dtype: str | None = None):
         cfg = self.config
         dtype = getattr(torch, compute_dtype or cfg.compute_dtype)
@@ -149,7 +157,7 @@ class Cnn14(nn.Module):
         if chs == 2:
             x = torch.stack([(x[:, 0] + x[:, 1]) / 2.0,
                              (x[:, 0] - x[:, 1]) / 2.0], dim=1)
-        with _no_tf32():
+        with no_tf32():
             h = self.logmel(x.reshape(batch * chs, seq_len))
             if cfg.input_norm == "batchnorm":
                 h = F.batch_norm(h.transpose(1, 3), self.bn0.running_mean,

@@ -3,7 +3,8 @@ st_ito_tpu's: the same chains and synthetic target, a whole run on the CPU
 that writes its WAVs and parameter JSON, ``--staged``, ``--savepop``,
 ``--chunked`` and ``--dropout`` passed through as the JAX CLI passes them,
 ``--metric mfcc`` against the JAX CLI, and the flags that are not ported
-raising with their ROADMAP item."""
+raising with their ROADMAP item. ``--algorithm autodiff`` is held in
+``test_torch_autodiff.py``."""
 
 import json
 import os
@@ -185,9 +186,8 @@ def test_cli_metric_mfcc_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--algorithm", "autodiff"], "8"), (["--metric", "clap"], "11"),
-    (["--num-devices", "4"], "13"),
-], ids=["flags0-8", "flags2-11", "flags6-13"])  # as they were
+    (["--metric", "clap"], "11"), (["--num-devices", "4"], "13"),
+], ids=["flags2-11", "flags6-13"])  # as they were
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
         run_optim.main(["in.wav", "None", "--device", "cpu"] + flags)

@@ -25,10 +25,10 @@ from st_ito_torch import features as tfeat
 from st_ito_torch.eval import metrics as tmetrics
 from st_ito_torch.models import registry as treg
 from st_ito_torch.ops import losses as tloss
-from st_ito_torch.ops import stft as tstft
 
-# the module (``st_ito_tpu.ops`` exports a function of its name)
+# the modules (each package's ``ops`` exports a function of their name)
 jstft = importlib.import_module("st_ito_tpu.ops.stft")
+tstft = importlib.import_module("st_ito_torch.ops.stft")
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

@@ -167,14 +167,14 @@ def test_get_param_embeds_chunked_matches_jax(models):
     assert all(torch.equal(short[k], plain[k]) for k in plain)
 
 
-def test_ito_exports_the_jax_list_but_two():
-    """st_ito_torch.ito exports the JAX package's list but run_autodiff
-    (ROADMAP item 8) and run_learned_inference (item 10)."""
+def test_ito_exports_the_jax_list_but_one():
+    """st_ito_torch.ito exports the JAX package's list but
+    run_learned_inference (ROADMAP item 10)."""
     import st_ito_tpu.ito as jax_ito
     import st_ito_torch.ito as ito
 
     assert set(ito.__all__) == set(jax_ito.__all__) - {
-        "run_autodiff", "run_learned_inference"}
+        "run_learned_inference"}
     assert all(callable(getattr(ito, name)) for name in ito.__all__)
 
 

@@ -185,8 +185,8 @@ def test_unsupported_shape_takes_the_mx_path(fft_mode):
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"fast": False}, {"out_rows_hop": 1024}, {"fft_precision": "mixed"},
-], ids=["kwargs1", "kwargs3", "kwargs4"])  # as they were
+    {"out_rows_hop": 1024}, {"fft_precision": "mixed"},
+], ids=["kwargs3", "kwargs4"])  # as they were
 def test_unported_options_raise(kwargs):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_batched_render_fn(basic_chain(), SR, 2, device="cpu", **kwargs)

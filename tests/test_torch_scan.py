@@ -68,12 +68,20 @@ def k6_case(B, C, T, seed, shared):
 
 def k8_case(lanes, T, seed):
     """Gain-computer-like dB values (<= 0, a third exactly 0) and per-lane
-    attack/release coefficients over the style chain's time ranges."""
+    attack/release coefficients over the style chain's time ranges, each
+    float32 exp(-1 / (ms x 0.001 x SR)) (torch's float32 exp on the CPU:
+    the inputs this case has always had; ``_time_constant_alpha`` now
+    rounds a float64 exp, one ulp away on one of these lanes)."""
     rng = np.random.default_rng(seed)
     c = -np.abs(rng.standard_normal((lanes, T)) * 12.0)
     c[rng.random((lanes, T)) < 0.33] = 0.0
-    aa = _time_constant_alpha(rng.uniform(0.05, 100.0, lanes), SR).numpy()
-    ar = _time_constant_alpha(rng.uniform(10.0, 1000.0, lanes), SR).numpy()
+
+    def alpha(ms):
+        ms = torch.as_tensor(ms, dtype=torch.float32)
+        return torch.exp(-1.0 / (ms * 0.001 * SR)).numpy()
+
+    aa = alpha(rng.uniform(0.05, 100.0, lanes))
+    ar = alpha(rng.uniform(10.0, 1000.0, lanes))
     return c.astype(np.float32), aa, ar
 
 
