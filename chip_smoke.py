@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--record PATH]
                           [--phases k1,k9,fft,scan,main,style,comp,fx,cli,
                                     mfcc,long,multitrack,dtype,autodiff,
-                                    nofast,eval]
+                                    nofast,eval,pst]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -116,7 +116,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``run_autodiff`` (3 iterations), the ``eval_psm`` CLI on 4 examples,
    ``eval_sweep`` on 5 points and ``effect_info --test``; finite scores
    and written JSON;
-19. the ``kernels`` JSON line, then the card line and the result line.
+19. ``pst``: the PST benchmark CLI (``st_ito_torch.cli.eval_pst``) at
+   its defaults (the general chain, two synthesized stereo pairs at T
+   262144, popsize 128, 32 iterations, the random-weight deployed Cnn14,
+   the param and MFCC metrics), its launch counts held: K1, K3 and K4 once
+   per generation of its ``style-es`` runs and no other kernel; the four
+   baseline encoders (FX-encoder, VGGish, Wav2CLIP, BEATs, each at its
+   published config with random weights) held on a (4, 2, 262144) batch
+   against their CPU runs (cosine per head), timed at batches of 1 and 8,
+   with their peak memory, and scoring ``run_pst_benchmark``'s input and
+   rule-based methods on one synthesized pair; the style-classification
+   CLI (``eval_cls``) at its defaults; ``cli/embed.py`` with random
+   weights, and the AFx-Rep ``.ckpt`` converter on a Lightning checkpoint
+   of the random Cnn14 that the phase writes (the converted model's
+   embeddings within 1e-6 of the source's). No kernel but the three is
+   launched by any of it;
+20. the ``kernels`` JSON line, then the card line and the result line.
    A kernel's launches there come from the timed run of a path that
    launches it: K11's from ``fx``, the one path that does.
 Each phase logs the card's SM and memory clocks, power draw and
@@ -213,9 +228,18 @@ EVAL_ES_GENS = 3
 EVAL_AD_ITERS = 3
 EVAL_PSM_EXAMPLES = 4
 EVAL_SWEEP_STEPS = 5
+# the pst phase: each baseline encoder held on a batch of this many stereo
+# items at the headline T against its CPU run (cosine per head above
+# 1 - ENCODER_COS), and timed at these batches
+ENCODER_CHECK_B = 4
+ENCODER_COS = 1e-3
+ENCODER_TIMED_B = (1, 8)
+# the .ckpt round trip: the converted model's embeddings within this of
+# the source model's
+CKPT_TOL = 1e-6
 PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "fx", "cli",
           "mfcc", "long", "multitrack", "dtype", "autodiff", "nofast",
-          "eval")
+          "eval", "pst")
 
 
 def log(*a):
@@ -2264,6 +2288,227 @@ def phase_eval(dev, model, rec):
         f"effect_info reverb: {stats}")
 
 
+def encoder_cases(dev):
+    """(name, the model on dev, embed_fn) of each baseline encoder at its
+    published config with random weights."""
+    from st_ito_torch.models import (get_beats_embeds, get_fx_encoder_embeds,
+                                     get_vggish_embeds, get_wav2clip_embeds,
+                                     load_beats_model, load_fx_encoder_model,
+                                     load_vggish_model, load_wav2clip_model)
+
+    return [
+        ("fx-encoder", load_fx_encoder_model(None, allow_random=True,
+                                             device=dev),
+         get_fx_encoder_embeds),
+        ("vggish", load_vggish_model(None, None, allow_random=True,
+                                     device=dev), get_vggish_embeds),
+        ("wav2clip", load_wav2clip_model(None, allow_random=True,
+                                         device=dev), get_wav2clip_embeds),
+        ("beats", load_beats_model(None, allow_random=True, device=dev),
+         get_beats_embeds)]
+
+
+def min_cosine(got: dict, want: dict) -> float:
+    """The least cosine over the items of every head."""
+    from st_ito_torch.eval.metrics import cosine
+
+    return min(float(cosine(got[k].cpu().double(),
+                            want[k].double()).min()) for k in want)
+
+
+def phase_pst(dev, rec):
+    """The PST benchmark, the baseline encoders, style classification, the
+    embed CLI and the .ckpt converter (the module docstring's item 19)."""
+    import copy
+    import dataclasses
+    import glob
+    import importlib.util
+    import tempfile
+
+    import st_ito_torch.ito as ito
+    from st_ito_torch.chain import chain_preset
+    from st_ito_torch.cli import embed, eval_cls, eval_pst
+    from st_ito_torch.eval.pst import default_methods, run_pst_benchmark
+    from st_ito_torch.models import (Cnn14, Cnn14Config, ParamModel,
+                                     get_param_embeds, load_param_model)
+    from st_ito_torch.models.cnn14 import init_cnn14_
+
+    t_phase = time.perf_counter()
+    generations = []
+    run_es = ito.run_es
+
+    def counted_run_es(*a, **k):
+        out = run_es(*a, **k)
+        generations.append((len(out["fval_history"]), out["time_elapsed"]))
+        return out
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # 1. the PST benchmark CLI at its defaults
+        out_dir = os.path.join(tmp, "pst")
+        ito.run_es = counted_run_es
+        try:
+            launch_counts(reset=True)
+            t0 = time.perf_counter()
+            res = eval_pst.main(["--allow-random-model", "--output-dir",
+                                 out_dir, "--device", dev.type])
+            torch.cuda.synchronize()
+            rec["eval_pst_s"] = time.perf_counter() - t0
+            launches = launch_counts()
+        finally:
+            ito.run_es = run_es
+        gens = sum(g for g, _ in generations)
+        want = {k: gens if k in ("k1", "k3", "k4") else 0 for k in launches}
+        if len(generations) != 2 or launches != want:
+            raise AssertionError(
+                f"eval_pst: launches {launches} over style-es runs of "
+                f"{generations} generations; expected {want}")
+        methods = ("input", "random", "rule-based", "style-es")
+        sims = {ex: {m: {k: v for k, v in e.items() if k.endswith("_sim")}
+                     for m, e in per.items()} for ex, per in res.items()}
+        flat = [v for per in sims.values() for e in per.values()
+                for v in e.values()]
+        if (set(res) != {"synthetic0", "synthetic1"}
+                or any(list(per) != list(methods) for per in res.values())
+                or len(flat) != 2 * len(methods) * 2
+                or not np.isfinite(flat).all()):
+            raise AssertionError(f"eval_pst: {sims}")
+        if len(glob.glob(os.path.join(out_dir, "results_*.json"))) != 1:
+            raise AssertionError("eval_pst wrote no results JSON")
+        # each method's output, and the input and the target
+        want_wavs = sorted({f"{n}.wav" for n in (*methods, "target")})
+        for ex in res:
+            wavs = sorted(os.listdir(os.path.join(out_dir, ex)))
+            if wavs != want_wavs:
+                raise AssertionError(f"eval_pst {ex}: WAVs {wavs}")
+        plotted = os.path.isfile(os.path.join(out_dir, "pst_plot.png"))
+        if plotted != (importlib.util.find_spec("matplotlib") is not None):
+            raise AssertionError(f"eval_pst: pst_plot.png written {plotted}")
+        rec.update(
+            launches=launches, sims=sims, pst_plot_written=plotted,
+            style_es_generations=[g for g, _ in generations],
+            ms_per_style_es_generation=[1e3 * t / g for g, t in generations],
+            method_s={ex: {m: e["time_elapsed"] for m, e in per.items()}
+                      for ex, per in res.items()})
+        log(f"eval_pst at its defaults: {rec['eval_pst_s']!r} s, launches "
+            f"{launches} ({rec['style_es_generations']} style-es "
+            f"generations), ms per style-es generation "
+            f"{rec['ms_per_style_es_generation']}, s per method "
+            f"{json.dumps(rec['method_s'])}, pst_plot.png written "
+            f"{plotted}; similarities {json.dumps(sims)}")
+
+        # 2. the baseline encoders on the card against their CPU runs
+        x = torch.cat([program_audio(70 + i, T_HEAD)
+                       for i in range(max(ENCODER_CHECK_B,
+                                          *ENCODER_TIMED_B))]).to(dev)
+        metrics, enc = {}, {}
+        for name, model, embed_fn in encoder_cases(dev):
+            r = enc[name] = {}
+            cpu_model = dataclasses.replace(
+                model, net=copy.deepcopy(model.net).cpu())
+            batch = x[:ENCODER_CHECK_B]
+            got = embed_fn(batch, model, SR)
+            want = embed_fn(batch.cpu(), cpu_model, SR)
+            r["min_cosine"] = min_cosine(got, want)
+            if not r["min_cosine"] > 1.0 - ENCODER_COS:
+                raise AssertionError(
+                    f"{name}: the card's embeddings lie at cosine "
+                    f"{r['min_cosine']!r} of the CPU's")
+            del cpu_model
+            # the embed's own peak: above what is allocated before it (the
+            # four encoders' weights, the audio)
+            for b in ENCODER_TIMED_B:
+                torch.cuda.empty_cache()
+                base = torch.cuda.memory_allocated()
+                torch.cuda.reset_peak_memory_stats()
+                r[f"ms_b{b}"] = cuda_ms(
+                    lambda b=b: embed_fn(x[:b], model, SR), 3)
+                r[f"peak_bytes_b{b}"] = (torch.cuda.max_memory_allocated()
+                                         - base)
+            r["weight_bytes"] = sum(
+                t.numel() * t.element_size() for t in
+                (*model.net.parameters(), *model.net.buffers()))
+            r["dims"] = {k: int(v.shape[-1]) for k, v in got.items()}
+            metrics[name] = (model, embed_fn)
+            log(f"encoder {name}: min cosine to the CPU "
+                f"{r['min_cosine']!r}, weights {r['weight_bytes']} bytes, "
+                f"embed ms and peak bytes at batches {ENCODER_TIMED_B}: "
+                + ", ".join(f"{r[f'ms_b{b}']!r} ms, {r[f'peak_bytes_b{b}']}"
+                            for b in ENCODER_TIMED_B)
+                + f"; heads {r['dims']}")
+        chain = chain_preset("general")
+        example = eval_pst._synth_examples(chain, n=1, device=dev)
+        all_methods = default_methods(chain, None, get_param_embeds,
+                                      device=dev)
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        res = run_pst_benchmark(example, {m: all_methods[m] for m in (
+            "input", "rule-based")}, metrics, device=dev)
+        rec["encoders_benchmark_s"] = time.perf_counter() - t0
+        no_launches("pst encoders", launch_counts())
+        enc_sims = {m: {k: v for k, v in e.items() if k.endswith("_sim")}
+                    for m, e in res["synthetic0"].items()}
+        flat = [v for e in enc_sims.values() for v in e.values()]
+        if len(flat) != 2 * len(metrics) or not np.isfinite(flat).all():
+            raise AssertionError(f"pst encoders: {enc_sims}")
+        rec.update(encoders=enc, encoder_sims=enc_sims)
+        log(f"run_pst_benchmark with the four encoders (input, rule-based): "
+            f"{rec['encoders_benchmark_s']!r} s, {json.dumps(enc_sims)}")
+        del metrics, x
+        torch.cuda.empty_cache()
+
+        # 3. style classification at its defaults
+        out = os.path.join(tmp, "cls.json")
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        cls_res = eval_cls.main(["--allow-random-model", "--out", out,
+                                 "--device", dev.type])
+        rec["eval_cls_s"] = time.perf_counter() - t0
+        no_launches("eval_cls", launch_counts())
+        with open(out) as f:
+            written = json.load(f)
+        accs = [v for m in cls_res.values() for k, v in m.items()
+                if k.endswith("_acc")]
+        if written != cls_res or set(cls_res) != {"param", "mfcc"} or not (
+                len(accs) == 4 and all(0.0 <= a <= 1.0 for a in accs)):
+            raise AssertionError(f"eval_cls: {cls_res}")
+        rec["cls"] = cls_res
+        log(f"eval_cls at its defaults: {rec['eval_cls_s']!r} s, "
+            f"{json.dumps(cls_res)}")
+
+        # 4. the embed CLI, and the .ckpt converter on a Lightning
+        # checkpoint of a random Cnn14 written here
+        launch_counts(reset=True)
+        e = embed.main(["--allow-random", "--device", dev.type])
+        no_launches("embed", launch_counts())
+        if set(e) != {"mid", "side"} or not all(
+                torch.isfinite(v).all() and v.shape[0] == 1
+                for v in e.values()):
+            raise AssertionError(f"embed: {e}")
+        cfg = Cnn14Config()
+        src = ParamModel(net=init_cnn14_(Cnn14(cfg), torch.Generator()
+                                         .manual_seed(5)).to(dev),
+                         config=cfg)
+        path = os.path.join(tmp, "afx-rep.ckpt")
+        torch.save({"state_dict": {f"encoder.{k}": v.cpu() for k, v in
+                                   src.net.state_dict().items()}}, path)
+        conv = load_param_model(path, device=dev)
+        if not os.path.isfile(os.path.join(tmp, "afx-rep.npz")):
+            raise AssertionError("the .ckpt was not cached as .npz")
+        x_ckpt = program_audio(80, T_HEAD).to(dev)
+        got, want = (get_param_embeds(x_ckpt, m, SR) for m in (conv, src))
+        rec["ckpt_max_abs_err"] = max(float((got[k] - want[k]).abs().max())
+                                      for k in want)
+        if not rec["ckpt_max_abs_err"] <= CKPT_TOL:
+            raise AssertionError(
+                f".ckpt round trip: {rec['ckpt_max_abs_err']!r}")
+        log(f"embed CLI: mid {e['mid'][0, :4].tolist()}; the .ckpt "
+            f"converter's embeddings within {rec['ckpt_max_abs_err']!r} "
+            f"of the source model's")
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"pst phase: {rec['phase_s']!r} s")
+    return rec["launches"]
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2363,7 +2608,7 @@ def main() -> int:
         run("long", phase_long, dev, model, long_rec)
     if "multitrack" in phases:
         run("multitrack", phase_multitrack, dev, model, mt_rec)
-    dtype_rec, ad_rec, nofast_rec, eval_rec = {}, {}, {}, {}
+    dtype_rec, ad_rec, nofast_rec, eval_rec, pst_rec = {}, {}, {}, {}, {}
     if "dtype" in phases:
         run("dtype", phase_dtype, dev, model, dtype_rec)
     if "autodiff" in phases:
@@ -2372,11 +2617,13 @@ def main() -> int:
         run("nofast", phase_nofast, dev, model, nofast_rec)
     if "eval" in phases:
         run("eval", phase_eval, dev, model, eval_rec)
+    if "pst" in phases:
+        run("pst", phase_pst, dev, pst_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
                   fx=fx_rec, cli=cli_rec, mfcc=mfcc_rec, long=long_rec,
                   multitrack=mt_rec, dtype=dtype_rec, autodiff=ad_rec,
-                  nofast=nofast_rec, eval=eval_rec)
+                  nofast=nofast_rec, eval=eval_rec, pst=pst_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -2443,7 +2690,7 @@ def main() -> int:
                     kernels[-1][f"long_{extra}"] = long_rec[f"{key}_{extra}"]
         for label, r in (("long", long_rec), ("multitrack", mt_rec),
                          ("fx", fx_rec), ("mfcc", mfcc_rec),
-                         ("nofast", nofast_rec)):
+                         ("nofast", nofast_rec), ("pst", pst_rec)):
             kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start

@@ -1,9 +1,13 @@
-"""AFx-Rep model loading and the embedding API — port of
-``st_ito_tpu/models/registry.py``'s ``ParamModel``, ``load_param_model``,
-``get_param_embeds``, ``get_param_embeds_chunked`` and the MFCC feature
-metric (``MFCCFeatureExtractor``, ``load_mfcc_feature_extractor``,
-``get_mfcc_feature_embeds``). The MIR features are ``features.py``; the
-other encoders (CLAP, ...) are ROADMAP §1 item 11."""
+"""The model registry and the embedding API — port of
+``st_ito_tpu/models/registry.py``: the AFx-Rep encoder (``ParamModel``,
+``load_param_model``, ``get_param_embeds``, ``get_param_embeds_chunked``),
+the MFCC feature metric (``MFCCFeatureExtractor``,
+``load_mfcc_feature_extractor``, ``get_mfcc_feature_embeds``) and the
+baselines' loaders and embeds: Wav2CLIP and VGGish (their modules in
+``wav2clip.py`` and ``vggish.py``) and wav2vec2 (transformers' model, from
+its local cache only). The MIR features are ``features.py``; the
+FX-encoder and BEATs are ``encoders.py`` and ``beats.py``; CLAP is ROADMAP
+§1 item 11."""
 
 from __future__ import annotations
 
@@ -15,7 +19,10 @@ import numpy as np
 import torch
 
 from st_ito_torch.models.cnn14 import Cnn14, Cnn14Config, init_cnn14_
-from st_ito_torch.models.convert import cnn14_state_dict_from_jax
+from st_ito_torch.models.convert import (cnn14_state_dict_from_jax,
+                                         load_torch_checkpoint)
+from st_ito_torch.models.vggish import get_vggish_embeds  # noqa: F401
+from st_ito_torch.models.wav2clip import get_wav2clip_embeds  # noqa: F401
 from st_ito_torch.ops.resample import resample
 from st_ito_torch.ops.stft import mfcc as _mfcc
 from st_ito_torch.utils import resolve_device
@@ -49,29 +56,52 @@ def _model_from_npz(path: str, device) -> ParamModel:
                       embed_dim=config.embed_dim)
 
 
+def export_encoder_npz(state_dict: dict, path: str,
+                       config: Cnn14Config | None = None) -> None:
+    """Save a Cnn14 ``state_dict`` (and its config) in the JAX package's
+    npz layout, which ``load_param_model`` of either package serves:
+    dotted keys without the BatchNorm step counters, the config as JSON
+    under ``__config__``."""
+    flat = {k: v.detach().cpu().numpy() for k, v in state_dict.items()
+            if not k.endswith("num_batches_tracked")}
+    if config is not None:
+        flat["__config__"] = np.frombuffer(
+            json.dumps(dataclasses.asdict(config)).encode(), dtype=np.uint8)
+    np.savez(path, **flat)
+
+
 def load_param_model(ckpt_path: str | None = None, allow_random: bool = False,
                      seed: int = 0, device="cuda") -> ParamModel:
     """Load the AFx-Rep encoder onto ``device`` (default the card).
 
-    Search order: explicit ckpt_path -> ./tmp/afx-rep.npz ->
-    $STITO_CKPT_DIR/afx-rep.npz. A torch ``.ckpt`` is converted by the JAX
-    package's converter, which is not ported (ROADMAP §1 item 11): export
-    it to npz first. With allow_random=True and no checkpoint, the weights
-    are drawn from a ``torch.Generator`` seeded with ``seed``."""
+    Search order, as in the JAX package: the explicit ckpt_path, then
+    ./tmp/afx-rep.{npz,ckpt}, then $STITO_CKPT_DIR/afx-rep.{npz,ckpt}. A
+    Lightning ``.ckpt`` is converted (``convert.load_torch_checkpoint``)
+    and cached as ``.npz`` beside it where that directory is writable.
+    With allow_random=True and no checkpoint, the weights are drawn from a
+    ``torch.Generator`` seeded with ``seed``."""
     dev = resolve_device(device)
     candidates = [] if ckpt_path is None else [ckpt_path]
     for root in (os.path.join(os.getcwd(), "tmp"),
                  os.environ.get("STITO_CKPT_DIR", "")):
         if root:
             candidates.append(os.path.join(root, "afx-rep.npz"))
+            candidates.append(os.path.join(root, "afx-rep.ckpt"))
     for path in candidates:
         if not os.path.isfile(path):
             continue
-        if not path.endswith(".npz"):
-            raise NotImplementedError(
-                f"{path}: only the npz layout loads in st_ito_torch; the "
-                f".ckpt converter is ROADMAP §1 item 11")
-        return _model_from_npz(path, dev)
+        if path.endswith(".npz"):
+            return _model_from_npz(path, dev)
+        sd, config = load_torch_checkpoint(path)
+        try:
+            export_encoder_npz(sd, os.path.splitext(path)[0] + ".npz",
+                               config)
+        except OSError:
+            pass
+        net = Cnn14(config)
+        net.load_state_dict(sd)
+        return ParamModel(net=net.to(dev), config=config,
+                          embed_dim=config.embed_dim)
     if allow_random:
         config = Cnn14Config()
         net = init_cnn14_(Cnn14(config), torch.Generator().manual_seed(seed))
@@ -194,3 +224,65 @@ def get_mfcc_feature_embeds(x: torch.Tensor, model: MFCCFeatureExtractor,
     feats = torch.cat([M.mean(dim=-1), M.std(dim=-1, correction=0),
                        M.amax(dim=-1)], dim=-1).reshape(bs, -1)
     return {"mono": _l2_normalize(feats)}
+
+
+# ------------------------------------------- wav2vec2, Wav2CLIP and VGGish
+
+
+@dataclasses.dataclass
+class Wav2Vec2Handle:
+    model: object
+    embed_dim: int = 768
+
+
+def load_wav2vec2_model(model_id: str = "facebook/wav2vec2-base",
+                        device="cuda") -> Wav2Vec2Handle:
+    """transformers' Wav2Vec2Model from the local Hugging Face cache only
+    (no download is attempted), on ``device``. Raises FileNotFoundError
+    where transformers or the cached weights are missing."""
+    try:
+        from transformers import Wav2Vec2Model
+
+        model = Wav2Vec2Model.from_pretrained(model_id, local_files_only=True)
+    except (OSError, ImportError) as e:
+        raise FileNotFoundError(
+            f"wav2vec2 weights for {model_id} not in the local Hugging Face "
+            f"cache. Original error: {e}") from e
+    model.eval()
+    model.requires_grad_(False)
+    return Wav2Vec2Handle(model=model.to(resolve_device(device)))
+
+
+def get_wav2vec2_embeds(x: torch.Tensor, model: Wav2Vec2Handle,
+                        sample_rate: float, **kwargs) -> dict:
+    """{"mono": (B, 768)}: x resampled to 16 kHz, mixed to mono, the mean
+    of the last hidden states, L2-normalised."""
+    from st_ito_torch.models.cnn14 import no_tf32
+
+    x = x.to(torch.float32)
+    if int(sample_rate) != 16000:
+        x = resample(x, int(sample_rate), 16000)
+    with no_tf32(), torch.no_grad():
+        out = model.model(x.mean(dim=1)).last_hidden_state
+    return {"mono": _l2_normalize(out.mean(dim=1))}
+
+
+def load_wav2clip_model(ckpt_path: str | None = "checkpoints/Wav2CLIP.pt",
+                        allow_random: bool = False, device="cuda"):
+    """Wav2CLIP (``wav2clip.py``) from the release checkpoint's usual
+    path."""
+    from st_ito_torch.models.wav2clip import load_wav2clip_model as _load
+
+    return _load(ckpt_path=ckpt_path, allow_random=allow_random,
+                 device=device)
+
+
+def load_vggish_model(ckpt_path: str | None = "checkpoints/vggish.pth",
+                      pca_path: str | None = (
+                          "checkpoints/vggish_pca_params.pth"),
+                      allow_random: bool = False, device="cuda"):
+    """VGGish (``vggish.py``) from the upstream files' usual paths."""
+    from st_ito_torch.models.vggish import load_vggish_model as _load
+
+    return _load(ckpt_path=ckpt_path, pca_path=pca_path,
+                 allow_random=allow_random, device=device)

@@ -5,6 +5,7 @@ the card, and kernel wrappers that raise rather than fall back."""
 import ast
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -192,3 +193,37 @@ def test_unlinked_fast_compressor_off_the_cpu_takes_k7(monkeypatch):
                             link_channels=False)
     assert y.shape == x.shape and y.device.type == "cpu"
     assert len(hits) == 1
+
+
+def _new_entry_points():
+    """The benchmarks', CLIs' and encoders' entry points, each called as a
+    user would call it without naming a device."""
+    from st_ito_torch.cli import embed, eval_cls, eval_pst
+    from st_ito_torch.eval import cls, listen, pst, pst_examples
+    from st_ito_torch.models import (load_beats_model, load_fx_encoder_model,
+                                     load_vggish_model, load_wav2clip_model)
+
+    x = [np.zeros((2, 4096), np.float32)]
+    return {
+        "eval_pst": lambda: eval_pst.main(["--allow-random-model"]),
+        "eval_cls": lambda: eval_cls.main(["--allow-random-model"]),
+        "embed": lambda: embed.main(["--allow-random"]),
+        "run_pst_benchmark": lambda: pst.run_pst_benchmark([], {}, {}),
+        "default_methods": lambda: pst.default_methods(basic_chain(), None,
+                                                       None),
+        "make_style_dataset": lambda: cls.make_style_dataset(x),
+        "synthesize_contrived_examples": lambda: (
+            pst_examples.synthesize_contrived_examples(x)),
+        "evaluate_listening_correlation": lambda: (
+            listen.evaluate_listening_correlation([], {})),
+        "fx-encoder": lambda: load_fx_encoder_model(allow_random=True),
+        "vggish": lambda: load_vggish_model(allow_random=True),
+        "wav2clip": lambda: load_wav2clip_model(allow_random=True),
+        "beats": lambda: load_beats_model(allow_random=True),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_new_entry_points()))
+def test_benchmark_entry_points_default_to_the_card(name, no_card):
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        _new_entry_points()[name]()
