@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--record PATH]
                           [--phases k1,k9,fft,scan,main,style,comp,fx,cli,
                                     mfcc,long,multitrack,dtype,autodiff,
-                                    nofast,eval,pst]
+                                    nofast,eval,pst,clap]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -15,7 +15,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    against its plain PyTorch version on the card, mixed bypass throughout:
    B=37, stereo, T=20011 (ragged lane blocks, tiles and chunks), shared and
    per-candidate input, and B=64, stereo, T=65536; then the main path's
-   shape, B=512, stereo, T=262144, shared input, in full; each also against
+   shape, B=512, stereo, T=262144, shared input, the kernel run over the
+   whole of T and its first 65536 output samples held against the plain
+   runs on the input's first 65536 (the scan is causal); each also against
    a float64 run of the plain version; then K1's time there;
 4. ``k9``: K9 (fused delay + reverb response and packed apply) against its
    plain version, fractional delays and mixed bypass: n=2^19 at B=100 (a
@@ -41,8 +43,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    recurrence), all four chunked scans, against their plain versions:
    74 lanes (B=37, stereo; K8 37 lanes), T=20011, K6 with mixed bypass on
    a shared and a per-candidate input, K7 with and without its bypass row;
-   then each at its headline shape in full: K6 at the CLI's 1024 lanes x
-   262144 on the shared input, K7 at the compressor-led chain's 1024 lanes
+   then each at its headline shape: K6 at the CLI's 1024 lanes x 262144 on
+   the shared input (its first 65536 output samples held against the
+   plain runs on the input's first 65536), and in full K7 at the compressor-led chain's 1024 lanes
    x 262144 with and without the bypass row, K8 at the style chain's 512
    lanes x 262144, K11 at 1024 lanes x 262144; each also against a
    float64 run of its plain version (K6's, K7's and K8's at the headline
@@ -131,7 +134,25 @@ Phases, in order; any failure raises and the script exits non-zero:
    of the random Cnn14 that the phase writes (the converted model's
    embeddings within 1e-6 of the source's). No kernel but the three is
    launched by any of it;
-20. the ``kernels`` JSON line, then the card line and the result line.
+20. ``clap``: the LAION-CLAP tower at its published config
+   (``laion/clap-htsat-unfused``) with random weights, written under
+   transformers' names to ``checkpoints/clap-htsat-unfused.pt`` in a
+   temporary directory and loaded by ``load_clap_laion_model``: its
+   mid/side embeddings of a (4, 2, 262144) batch against the CPU's (cosine
+   per head), timed at batches of 1 and 8, with peak and weight bytes; the
+   training backbones at their ``cfg/pretext-*.yaml`` widths (HTS-AT, the
+   CLAP-ft tower, DeepGCN-t with BatchNorm statistics from a train-mode
+   pass over the batch on the CPU): an eval forward on that batch against
+   the CPU (DeepGCN's CPU run given the card's k-NN picks, the picks that
+   differ counted), a train-mode forward at batch 32 timed with its peak,
+   DeepGCN's BatchNorm buffers after a train-mode forward against the
+   CPU's (DeepGCN's picks again held); ``run_optim --metric clap`` from that directory on the vst
+   chain at popsize 32 (K6, K3 and K4 once per fitness call and nothing
+   else); ``run_es`` with the tower's mid/side metric on the basic chain
+   at popsize 128 in mega2, a warm-up and a timed block (K1, K3 and K4 once
+   a generation); the tower's forward with TF32 let through once, which
+   must fail the phase's cosine limit (so that the limit sees TF32);
+21. the ``kernels`` JSON line, then the card line and the result line.
    A kernel's launches there come from the timed run of a path that
    launches it: K11's from ``fx``, the one path that does.
 Each phase logs the card's SM and memory clocks, power draw and
@@ -141,7 +162,7 @@ Tolerances: K1, a chunked scan whose carries round differently from the
 serial chain, (a) where a lane's distortion is bypassed within 1e-4 x
 max(1, the lane's peak) of the float32 plain version (B 37 x T 20011,
 128 lanes x T 65536 and the long path's lanes x T_K1_LONG in that path's
-chunks; logged at the headline, where the float32 plain run itself lies
+chunks; logged at the headline, where the float32 plain run itself can lie
 farther than that from float64), and (b) on every lane of every
 set no farther from a float64 run of the plain version than 4x the float32
 one is, plus 1e-5 x max(1, peak); K6, K7, K8 and K11, chunked scans too,
@@ -153,7 +174,13 @@ counts such lanes (at K6's headline also where the kernel lies at most
 every other kernel 1e-4 x max|want|
 per output array on the valid bins (K9 and K2, which divide approximately
 as K3 does, and the FFTs, which cannot match cuFFT bitwise); the groups
-atol 5e-5, rtol 1e-4 against the mx path on a peak-normalised input.
+atol 5e-5, rtol 1e-4 against the mx path on a peak-normalised input;
+the baseline encoders at cosine 1 - 1e-3 of the CPU per item and head,
+the CLAP tower and the backbones at 1 - 1e-8 (sound runs read 1 - 1e-10
+to 1 - 1e-13; TF32 reads farther), DeepGCN's BatchNorm buffers 1e-4
+(relative, floored at 1); a DeepGCN node whose k-NN picks differ between
+the card and the CPU only at a near tie (its k-th and (k+1)-th float64
+distances within 1e-5, relative) and at most 1% of a graph conv's nodes.
 
 ``--record PATH`` also writes the full record, compiler reports included,
 as JSON. ``--phases`` runs a subset (a development aid: a partial run
@@ -214,6 +241,10 @@ GENS_LONG = 4
 # K1 is held at the long path's chunk length on this much audio: its plain
 # loop takes about 0.6 ms a sample step
 T_K1_LONG = 65536
+# K1 and K6 run on the whole headline and are held on their first T_HELD
+# output samples against the plain runs on the input's first T_HELD (each
+# plain loop takes one launch a sample step)
+T_HELD = 65536
 # the multitrack phase: 4 tracks x popsize 128 at the headline T
 TRACKS = 4
 POP_TRACK = 128
@@ -237,9 +268,25 @@ ENCODER_TIMED_B = (1, 8)
 # the .ckpt round trip: the converted model's embeddings within this of
 # the source model's
 CKPT_TOL = 1e-6
+# the clap phase: the CLI at its default popsize, run_es at this popsize
+# (mega2, blocks of GENS), the backbones' train-mode forward at the
+# cfg/pretext-*.yaml batch; the tower's and the backbones' embeddings at
+# cosine above 1 - CLAP_COS of the CPU's (a few decades above the 1 - 1e-10
+# to 1 - 1e-13 of sound runs, so that a forward with TF32 fails it);
+# DeepGCN's BatchNorm buffers within BN_REL (relative, floored at 1) of the
+# CPU's; a node's k-NN picks differing from the CPU's only at a near tie
+# (its k-th and (k+1)-th float64 distances within KNN_TIE, relative), at
+# most KNN_FLIP_SHARE of a graph conv's nodes
+CLAP_CLI_POP = 32
+CLAP_ES_POP = 128
+BACKBONE_TRAIN_B = 32
+CLAP_COS = 1e-8
+BN_REL = 1e-4
+KNN_TIE = 1e-5
+KNN_FLIP_SHARE = 0.01
 PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "fx", "cli",
           "mfcc", "long", "multitrack", "dtype", "autodiff", "nofast",
-          "eval", "pst")
+          "eval", "pst", "clap")
 
 
 def log(*a):
@@ -365,20 +412,28 @@ def k1_inputs(B, C, T, seed, shared, dev):
     )[:5]
 
 
-def k1_plain64_job(path, B, T, seed, shared):
+def head_of(args, T):
+    """A scan's input set (its signal first, per-lane tables after) cut to
+    its first T samples."""
+    return (args[0][..., :T].contiguous(),) + tuple(args[1:])
+
+
+def k1_plain64_job(path, B, T, seed, shared, t_held=None):
     """The float64 plain run of the K1 set ``k1_inputs(B, 2, T, seed,
-    shared)``, written to ``path``: run in a process of its own (spawned),
-    beside the float32 run in the main one, since each is bound by one
-    core's rate of launches."""
+    shared)`` (on its first ``t_held`` samples, where given), written to
+    ``path``: run in a process of its own (spawned), beside the float32 run
+    in the main one, since each is bound by one core's rate of launches."""
     from st_ito_torch.ops.kernels import eqcomp
 
     args = k1_inputs(B, 2, T, seed, shared, torch.device("cuda"))
+    if t_held is not None:
+        args = head_of(args, t_held)
     torch.save(eqcomp.eqcomp_plain(*args, dtype=torch.float64).cpu(),
                path + ".tmp")
     os.replace(path + ".tmp", path)
 
 
-def k1_check(args, label, rule_a=True, want64=None, L=None):
+def k1_check(args, label, rule_a=True, want64=None, L=None, got=None):
     """K1 against its plain version on one input set, under the kernel's
     two rules (``eqcomp.gate_excess``): (a) where a lane's distortion is
     bypassed, |kernel - plain float32| <= 1e-4 x max(1, the lane's peak);
@@ -388,13 +443,17 @@ def k1_check(args, label, rule_a=True, want64=None, L=None):
     is logged and not held. ``want64`` returns the float64 run when it was
     made elsewhere. ``L``: launch the kernel in chunks of L samples (as
     ``tools/k1_chunks.py`` does) in place of the wrapper's own chunk for
-    this shape. Returns (max |kernel - plain float32|, the plain version's
-    ms)."""
+    this shape. ``got``: the kernel's output on a longer input of which
+    ``args`` holds the head, launched in chunks of ``L`` (the scan is
+    causal: its first samples depend on those of the input alone). Returns
+    (max |kernel - plain float32|, the plain version's ms)."""
     from st_ito_torch.ops.kernels import eqcomp
     from st_ito_torch.tools.k1_chunks import k1_launch
 
     lanes, T = args[1].shape[1], args[0].shape[-1]
-    if L is None:
+    if got is not None:
+        got = got[:, :T]
+    elif L is None:
         L = eqcomp.chunk_len(lanes, T)
         got = eqcomp.eqcomp_cuda(*args)
     else:
@@ -429,27 +488,32 @@ def phase_k1(dev, rec):
               for shared in (True, False))
     err = max(err, k1_check(k1_inputs(64, 2, 65536, 3, False, dev),
                             "B 64, T 65536, shared=False")[0])
-    # the main path's own shape: every block, over the whole of T. Rule (a)
-    # is logged, not held: over 262144 samples the float32 plain run itself
-    # lies up to 2.5e-4 x peak from the float64 one on lanes whose
-    # distortion is bypassed (the EQ's low, high-gain sections), so no
-    # float32 order of rounding other than its own can meet (a) there
+    # the main path's own shape: every block, over the whole of T, its
+    # first T_HELD samples held against the plain runs on the input's first
+    # T_HELD. Rule (a) is logged, not held: over the headline's samples the
+    # float32 plain run itself lies up to 2.5e-4 x peak from the float64
+    # one on lanes whose distortion is bypassed (the EQ's low, high-gain
+    # sections), so no float32 order of rounding other than its own can
+    # meet (a) there
     from st_ito_torch.ops.kernels import _build
 
+    lanes = POP * 2
+    rec["chunk"] = eqcomp.chunk_len(lanes, T_HEAD)
     path = _build.BUILD_DIR.parent / "k1_plain64.pt"
     path.parent.mkdir(parents=True, exist_ok=True)
-    job = spawn(k1_plain64_job, str(path), POP, T_HEAD, 2, True)
+    job = spawn(k1_plain64_job, str(path), POP, T_HEAD, 2, True, T_HELD)
     try:
         head = k1_inputs(POP, 2, T_HEAD, 2, True, dev)
         rec["ms"] = cuda_ms(lambda: eqcomp.eqcomp_cuda(*head), 3)
+        rec["plain_shape"] = (f"headline B {POP}, shared, the first "
+                              f"{T_HELD} of its {T_HEAD} samples")
         e, rec["plain_ms"] = k1_check(
-            head, f"headline B {POP}, T {T_HEAD}, shared=True",
-            rule_a=False, want64=lambda: await_saved(str(path), job))
+            head_of(head, T_HELD), rec["plain_shape"], rule_a=False,
+            want64=lambda: await_saved(str(path), job), L=rec["chunk"],
+            got=eqcomp.eqcomp_cuda(*head))
     finally:
         stop(job)
     rec["max_abs_err"] = max(err, e)
-    lanes = POP * 2
-    rec["chunk"] = eqcomp.chunk_len(lanes, T_HEAD)
     rec["bytes"] = 4 * (lanes * T_HEAD + head[0].numel() + head[1].numel())
     rec["operations"] = K1_OPS_PER_SAMPLE * lanes * T_HEAD
     log(f"K1 headline (lanes {lanes}, T {T_HEAD}, chunk {rec['chunk']}, "
@@ -975,7 +1039,8 @@ def scan_plain64_job(folder):
     saved under ``folder`` as soon as it is made: run in a process of its
     own (spawned), beside the float32 runs of the main one."""
     for name, make in scan_heads(torch.device("cuda")).items():
-        out = scan_plain(name)(*make(), dtype=torch.float64).cpu()
+        args = head_of(make(), T_HELD) if name == "k6" else make()
+        out = scan_plain(name)(*args, dtype=torch.float64).cpu()
         tmp = os.path.join(folder, f"{name}.tmp")
         torch.save(out, tmp)
         os.replace(tmp, os.path.join(folder, f"{name}.pt"))
@@ -984,7 +1049,7 @@ def scan_plain64_job(folder):
 
 
 def chunked_check(name, kernel, plain, args, label, L, want64=None,
-                  excuse=False):
+                  excuse=False, got=None):
     """K6, K7, K8 or K11, chunked scans in chunks of L samples, against the
     plain version on one input set: the first chunk bitwise, then the two
     rules of ``chunked.gate_excess``: (b) on every lane; (a) on every lane,
@@ -993,12 +1058,14 @@ def chunked_check(name, kernel, plain, args, label, L, want64=None,
     in the log, and the lanes past (a) listed). With ``excuse`` a lane may
     also miss it where the kernel lies at most ``chunked.A_EXCUSE`` times
     as far from float64 as the float32 plain run does. ``want64`` returns the
-    float64 run when it was made elsewhere. Returns (max |kernel - plain
-    float32|, the plain version's ms, the excess)."""
+    float64 run when it was made elsewhere. ``got``: the kernel's output on
+    a longer input of which ``args`` holds the head (the scans are causal).
+    Returns (max |kernel - plain float32|, the plain version's ms, the
+    excess)."""
     from st_ito_torch.ops.kernels import chunked
 
-    got = kernel(*args)
-    T = got.shape[-1]
+    T = args[0].shape[-1]
+    got = kernel(*args) if got is None else got[:, :T]
     want, plain_ms = once_ms(lambda: plain(*args))
     want64 = (plain(*args, dtype=torch.float64) if want64 is None
               else want64().to(got.device))
@@ -1048,14 +1115,17 @@ def detector_check(name, kernel, plain, args, label, want64=None):
     return chunked_check(name, kernel, plain, args, label, L, want64)
 
 
-def k6_check(args, label, want64=None, excuse=False):
-    """K6 by ``chunked_check``, in the wrapper's chunks."""
+def k6_check(args, label, want64=None, excuse=False, full=None):
+    """K6 by ``chunked_check``, in the wrapper's chunks; with ``full``, the
+    kernel runs on that input set, of which ``args`` holds the head."""
     from st_ito_torch.ops.kernels import scan
 
-    L = scan.cascade_chunk_len(args[1].shape[1], args[0].shape[-1])
+    launch = args if full is None else full
+    L = scan.cascade_chunk_len(launch[1].shape[1], launch[0].shape[-1])
+    got = None if full is None else scan.biquad_cascade_cuda(*full)
     return chunked_check("K6", scan.biquad_cascade_cuda,
                          scan.biquad_cascade_plain, args, label, L, want64,
-                         excuse)
+                         excuse, got)
 
 
 def phase_scan(dev, recs):
@@ -1098,9 +1168,11 @@ def scan_checks(dev, recs, want64):
     # the other
     lanes = 2 * POP
     head = heads["k6"]()
-    k6["plain_shape"] = f"headline lanes {lanes}, T {T_HEAD}, shared input"
-    e, k6["plain_ms"], ex = k6_check(head, k6["plain_shape"], want64("k6"),
-                                     excuse=True)
+    k6["plain_shape"] = (f"headline lanes {lanes}, shared input, the first "
+                         f"{T_HELD} of its {T_HEAD} samples")
+    e, k6["plain_ms"], ex = k6_check(head_of(head, T_HELD),
+                                     k6["plain_shape"], want64("k6"),
+                                     excuse=True, full=head)
     k6["a_miss_plain_near"] = ex["a_miss_plain_near"]
     k6["a_miss_unexcused"] = ex["a_miss_unexcused"]
     k6["max_abs_err"] = max(errs + [e])
@@ -1392,12 +1464,14 @@ MODE_KERNELS = {"mega2": {"k1": 1, "k3": 1, "k4": 1},
 
 
 def phase_main(dev, model, rec, fft_mode, chain=None, label=None,
-               want_per_gen=None):
-    """One warm-up and one timed block of ``run_es``; the timed block's
-    launch counts must equal ``want_per_gen`` x GENS (default: the
-    fft_mode's kernels, ``MODE_KERNELS``) and every other kernel's 0."""
+               want_per_gen=None, embed_func=None, popsize=POP):
+    """One warm-up and one timed block of ``run_es`` (at ``popsize``, with
+    ``embed_func``, default the AFx-Rep's); the timed block's launch counts
+    must equal ``want_per_gen`` x GENS (default: the fft_mode's kernels,
+    ``MODE_KERNELS``) and every other kernel's 0."""
     from st_ito_torch.chain import basic_chain
     from st_ito_torch.ito import run_es
+    from st_ito_torch.models import get_param_embeds
     from st_ito_torch.utils import phase_timer
 
     chain = basic_chain() if chain is None else chain
@@ -1406,9 +1480,11 @@ def phase_main(dev, model, rec, fft_mode, chain=None, label=None,
         want_per_gen = MODE_KERNELS[fft_mode]
     x = program_audio(0, T_HEAD)
     y = styled_target(x, chain, dev, 1)
-    common = dict(popsize=POP, find_w0=False, sigma0=0.33, crop_len=T_HEAD,
-                  seed=0, verbose=False, early_stop_patience=10**9,
-                  gens_per_dispatch=GENS, fft_mode=fft_mode, device=dev)
+    common = dict(popsize=popsize, find_w0=False, sigma0=0.33,
+                  crop_len=T_HEAD, seed=0, verbose=False,
+                  early_stop_patience=10**9, gens_per_dispatch=GENS,
+                  fft_mode=fft_mode,
+                  embed_func=embed_func or get_param_embeds, device=dev)
     t0 = time.perf_counter()
     run_es(x, y, SR, chain, model, max_iters=GENS, **common)  # warm-up
     torch.cuda.synchronize()
@@ -2509,6 +2585,275 @@ def phase_pst(dev, rec):
     return rec["launches"]
 
 
+def shared_knn(run):
+    """(run's result, the k-NN picks of every DeepGCN graph conv in it) with
+    ``gcn.knn_indices`` recorded; ``replay`` picks serve a later run those
+    picks in the same order, wherever its tensors lie."""
+    from st_ito_torch.models import gcn
+
+    real, picks = gcn.knn_indices, []
+
+    def record(feat, cand, k):
+        picks.append(real(feat, cand, k))
+        return picks[-1]
+
+    gcn.knn_indices = record
+    try:
+        return run(), picks
+    finally:
+        gcn.knn_indices = real
+
+
+def replay_knn(run, picks):
+    """run() with ``gcn.knn_indices`` serving ``picks`` in order; returns
+    (run's result, the nodes whose own picks differ from those served,
+    their largest k-th/(k+1)-th relative gap of float64 distances, the
+    largest share of a graph conv's nodes that differ). Raises where a
+    node differs but holds no near tie (KNN_TIE) or a conv's share passes
+    KNN_FLIP_SHARE."""
+    from st_ito_torch.models import gcn
+
+    real, order, flips, worst, share = gcn.knn_indices, iter(picks), [0], \
+        [0.0], [0.0]
+
+    def serve(feat, cand, k):
+        given = next(order).to(feat.device)
+        own = real(feat, cand, k)
+        flipped = (own.sort(-1).values != given.sort(-1).values).any(-1)
+        if flipped.any():
+            d = torch.cdist(feat.transpose(1, 2).double(),
+                            cand.transpose(1, 2).double()) ** 2
+            top = -torch.topk(-d, k + 1, dim=-1).values
+            gaps = ((top[..., k] - top[..., k - 1])
+                    / top[..., k].clamp_min(1e-300))[flipped]
+            flips[0] += int(flipped.sum())
+            worst[0] = max(worst[0], float(gaps.max()))
+            share[0] = max(share[0], float(flipped.double().mean()))
+            if not (worst[0] < KNN_TIE and share[0] <= KNN_FLIP_SHARE):
+                raise AssertionError(
+                    f"gcn: {int(flipped.sum())} nodes' k-NN picks differ "
+                    f"from the card's, gaps up to {worst[0]!r}, a share "
+                    f"{share[0]!r} of the conv's nodes")
+        return given
+
+    gcn.knn_indices = serve
+    try:
+        return run(), flips[0], worst[0], share[0]
+    finally:
+        gcn.knn_indices = real
+
+
+def phase_clap(dev, rec):
+    """The LAION-CLAP metric and the training backbones (the module
+    docstring's item 20)."""
+    import contextlib
+    import copy
+    import tempfile
+
+    import st_ito_torch.models.clap_laion as clap_laion_mod
+    from st_ito_torch.models import clap, gcn, htsat
+    from st_ito_torch.models.clap_laion import (ClapAudioTower,
+                                                ClapLaionConfig,
+                                                get_clap_laion_embeds_midside,
+                                                init_clap_laion_,
+                                                load_clap_laion_model)
+    from st_ito_torch.utils import save_audio
+
+    t_phase = time.perf_counter()
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) the tower at its published config, random weights written
+        # under transformers' names where the CLI's loader looks
+        cfg = ClapLaionConfig()
+        ckpt = os.path.join(tmp, "checkpoints", "clap-htsat-unfused.pt")
+        os.makedirs(os.path.dirname(ckpt))
+        torch.save(init_clap_laion_(ClapAudioTower(cfg), torch.Generator()
+                                    .manual_seed(14)).state_dict(), ckpt)
+        model = load_clap_laion_model(ckpt, device=dev)
+        cpu_model = load_clap_laion_model(ckpt, device="cpu")
+        x = torch.cat([program_audio(90 + i, T_HEAD)
+                       for i in range(max(ENCODER_CHECK_B,
+                                          *ENCODER_TIMED_B))]).to(dev)
+        batch = x[:ENCODER_CHECK_B]
+        tower = rec["tower"] = {}
+        got = get_clap_laion_embeds_midside(batch, model, SR)
+        want = get_clap_laion_embeds_midside(batch.cpu(), cpu_model, SR)
+        tower["min_cosine"] = min_cosine(got, want)
+        if not tower["min_cosine"] > 1.0 - CLAP_COS:
+            raise AssertionError(f"clap: the card's embeddings lie at cosine "
+                                 f"{tower['min_cosine']!r} of the CPU's")
+        # the limit sees TF32: the same forward with TF32 let through
+        flags = (torch.backends.cuda.matmul.allow_tf32,
+                 torch.backends.cudnn.allow_tf32)
+        guard = clap_laion_mod.no_tf32
+        clap_laion_mod.no_tf32 = contextlib.nullcontext
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32 = get_clap_laion_embeds_midside(batch, model, SR)
+        finally:
+            clap_laion_mod.no_tf32 = guard
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = flags
+        tower["tf32_min_cosine"] = min_cosine(tf32, want)
+        tower["tf32_max_abs_err"] = max(
+            float((tf32[k].cpu() - want[k]).abs().max()) for k in want)
+        if tower["tf32_min_cosine"] > 1.0 - CLAP_COS:
+            raise AssertionError(f"clap: a TF32 forward lies at cosine "
+                                 f"{tower['tf32_min_cosine']!r} of the CPU's,"
+                                 f" inside the limit")
+        del cpu_model, tf32
+        for b in ENCODER_TIMED_B:
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            tower[f"ms_b{b}"] = cuda_ms(
+                lambda b=b: get_clap_laion_embeds_midside(x[:b], model, SR), 3)
+            tower[f"peak_bytes_b{b}"] = (torch.cuda.max_memory_allocated()
+                                         - base)
+        # the state_dict's tensors: the constant buffers are not weights
+        tower["weight_bytes"] = sum(
+            t.numel() * t.element_size()
+            for t in model.net.state_dict().values())
+        log(f"clap tower (published config, mid/side of {ENCODER_CHECK_B} x "
+            f"2 x {T_HEAD}): min cosine to the CPU {tower['min_cosine']!r} "
+            f"(with TF32 {tower['tf32_min_cosine']!r}, max abs error "
+            f"{tower['tf32_max_abs_err']!r}), weights "
+            f"{tower['weight_bytes']} bytes, embed ms and peak bytes "
+            f"at batches {ENCODER_TIMED_B}: "
+            + ", ".join(f"{tower[f'ms_b{b}']!r} ms, "
+                        f"{tower[f'peak_bytes_b{b}']}"
+                        for b in ENCODER_TIMED_B))
+
+        # (b) the backbones at their cfg/pretext-*.yaml widths (the
+        # configs' defaults): eval on the check batch against the CPU, a
+        # train-mode forward at the configs' batch (autograd recording, as
+        # a training step's forward does), timed, with its peak
+        g = torch.Generator(device=dev).manual_seed(15)
+        x_train = torch.randn((BACKBONE_TRAIN_B, 2, T_HEAD), generator=g,
+                              device=dev) * 0.1
+        nets = {
+            "htsat": htsat.init_htsat_(htsat.HTSAT(htsat.HTSATConfig()),
+                                       torch.Generator().manual_seed(16)),
+            "clap-ft": clap.init_clap_audio_(
+                clap.CLAPAudio(clap.CLAPAudioConfig()),
+                torch.Generator().manual_seed(17)),
+            "gcn": gcn.init_deepgcn_(gcn.DeepGCN(gcn.DeepGCNConfig()),
+                                     torch.Generator().manual_seed(18))}
+        backbones = rec["backbones"] = {}
+        for name, net in nets.items():
+            r = backbones[name] = {}
+            cpu_net = net.eval()
+            if name == "gcn":
+                # random weights with BatchNorm statistics as trained ones
+                # have them: a train-mode pass over the check batch with a
+                # cumulative average (momentum None), on the CPU
+                for m in cpu_net.modules():
+                    if isinstance(m, torch.nn.BatchNorm2d):
+                        m.momentum = None
+                with torch.no_grad():
+                    cpu_net.train()(batch.cpu())
+                for m in cpu_net.modules():
+                    if isinstance(m, torch.nn.BatchNorm2d):
+                        m.momentum = 0.1
+                cpu_net.eval()
+            card_net = copy.deepcopy(cpu_net).to(dev)
+            with torch.no_grad():
+                if name == "gcn":
+                    # the CPU aggregates the card's k-NN picks: a pick the
+                    # two roundings decide apart is counted, not compared
+                    got, picks = shared_knn(lambda: card_net(batch))
+                    (want, r["knn_flips"], r["knn_gap"],
+                     r["knn_share"]) = replay_knn(
+                        lambda: cpu_net(batch.cpu()), picks)
+                else:
+                    got, want = card_net(batch), cpu_net(batch.cpu())
+            heads = ("mid", "side") if name == "clap-ft" else ("mono",)
+            r["min_cosine"] = min_cosine(
+                dict(zip(heads, got)), dict(zip(heads, want)))
+            if not r["min_cosine"] > 1.0 - CLAP_COS:
+                raise AssertionError(f"{name}: the card's embeddings lie at "
+                                     f"cosine {r['min_cosine']!r} of the "
+                                     f"CPU's")
+            if name == "gcn":
+                # BatchNorm buffers after one train-mode forward on the
+                # check batch, on each side from the same state
+                card_bn, cpu_bn = copy.deepcopy(card_net), copy.deepcopy(
+                    cpu_net)
+                with torch.no_grad():
+                    _, picks = shared_knn(lambda: card_bn.train()(batch))
+                    (_, r["train_knn_flips"], r["train_knn_gap"],
+                     _) = replay_knn(lambda: cpu_bn.train()(batch.cpu()),
+                                     picks)
+                errs = [float(((a.cpu().double() - b.double()).abs()
+                               / b.double().abs().clamp_min(1.0)).max())
+                        for (k, a), b in zip(card_bn.state_dict().items(),
+                                             cpu_bn.state_dict().values())
+                        if k.endswith(("running_mean", "running_var"))]
+                r["bn_max_rel_err"] = max(errs)
+                if not r["bn_max_rel_err"] <= BN_REL:
+                    raise AssertionError(f"gcn: BatchNorm buffers "
+                                         f"{r['bn_max_rel_err']!r} from the "
+                                         f"CPU's")
+                del card_bn, cpu_bn
+            del cpu_net
+            card_net.train().requires_grad_(True)
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            r["train_forward_ms"] = cuda_ms(lambda: card_net(x_train), 2)
+            r["train_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+            r["weight_bytes"] = sum(
+                t.numel() * t.element_size()
+                for t in card_net.state_dict().values())
+            log(f"backbone {name}: min cosine to the CPU "
+                f"{r['min_cosine']!r}"
+                + (f" (the card's k-NN picks served to the CPU; "
+                   f"{r['knn_flips']} of the CPU's own picks differ, their "
+                   f"largest relative gap {r['knn_gap']!r}, in train mode "
+                   f"{r['train_knn_flips']}; BatchNorm buffers "
+                   f"{r['bn_max_rel_err']!r} from the CPU's after a "
+                   f"train-mode forward)" if name == "gcn" else "")
+                + f"; train-mode forward at batch {BACKBONE_TRAIN_B} "
+                f"{r['train_forward_ms']!r} ms, peak "
+                f"{r['train_peak_bytes']} bytes; weights "
+                f"{r['weight_bytes']} bytes")
+            del card_net, got, want
+        nets.clear()
+        del x_train, x, batch
+        torch.cuda.empty_cache()
+
+        # (c) the CLI with --metric clap from the checkpoint's directory:
+        # K6, K3 and K4 once per fitness call and no other kernel
+        wav = os.path.join(tmp, "program.wav")
+        save_audio(wav, program_audio(3, T_HEAD)[0], SR)
+        os.chdir(tmp)
+        try:
+            res, launches, wall, calls, _ = cli_run(
+                dev, tmp, wav, "clap", CLAP_CLI_POP, CLI_ITERS,
+                ["--metric", "clap"])
+        finally:
+            os.chdir(cwd)
+        if calls != CLI_ITERS + 1:
+            raise AssertionError(f"clap cli: {calls} fitness calls")
+        rec["cli"] = dict(evals_per_sec=res["evals_per_sec"],
+                          time_elapsed=res["time_elapsed"], wall_s=wall,
+                          launches=launches,
+                          fval_history=list(res["fval_history"]))
+
+        # (d) run_es with the tower's mid/side metric on the basic chain
+        es = rec["es"] = {}
+        rec["launches"] = phase_main(
+            dev, model, es, "mega2", label="clap",
+            embed_func=get_clap_laion_embeds_midside, popsize=CLAP_ES_POP)
+
+        del model
+        torch.cuda.empty_cache()
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"clap phase: {rec['phase_s']!r} s")
+    return rec["launches"]
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2619,11 +2964,15 @@ def main() -> int:
         run("eval", phase_eval, dev, model, eval_rec)
     if "pst" in phases:
         run("pst", phase_pst, dev, pst_rec)
+    clap_rec = {}
+    if "clap" in phases:
+        run("clap", phase_clap, dev, clap_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
                   fx=fx_rec, cli=cli_rec, mfcc=mfcc_rec, long=long_rec,
                   multitrack=mt_rec, dtype=dtype_rec, autodiff=ad_rec,
-                  nofast=nofast_rec, eval=eval_rec, pst=pst_rec)
+                  nofast=nofast_rec, eval=eval_rec, pst=pst_rec,
+                  clap=clap_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -2690,7 +3039,8 @@ def main() -> int:
                     kernels[-1][f"long_{extra}"] = long_rec[f"{key}_{extra}"]
         for label, r in (("long", long_rec), ("multitrack", mt_rec),
                          ("fx", fx_rec), ("mfcc", mfcc_rec),
-                         ("nofast", nofast_rec), ("pst", pst_rec)):
+                         ("nofast", nofast_rec), ("pst", pst_rec),
+                         ("clap", clap_rec)):
             kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start

@@ -19,14 +19,16 @@ time (``run_staged_es``); ``--savepop`` writes every generation's renders,
 ranked, under the run directory; ``--chunked`` is the long-audio mode;
 ``--dropout`` is the embedding dropout. ``--metric mfcc`` scores by
 the MFCC feature metric (``models/registry.py get_mfcc_feature_embeds``)
-in place of the AFx-Rep encoder. ``--algorithm autodiff`` is gradient ITO
+in place of the AFx-Rep encoder; ``--metric clap`` by LAION-CLAP's
+mid/side embeddings (``load_clap_model``: the native tower of
+``models/clap_laion.py`` on the device, its weights from a local file or
+the local Hugging Face cache only). ``--algorithm autodiff`` is gradient ITO
 (``run_autodiff``, Adam at lr 1e-2 for ``--max-iters`` steps) through the
 51-parameter differentiable processor (``proc.py``), whose synthetic
 target is the JAX CLI's. ``--use-gpu`` and ``--parallel`` are
 accepted and do nothing: the population always renders in parallel on the
-device. Not ported, and raising with their ROADMAP item: ``--metric clap``
-and ``--num-devices`` above 1. The convergence plot is best effort (it
-needs matplotlib).
+device. Not ported, and raising with its ROADMAP item: ``--num-devices``
+above 1. The convergence plot is best effort (it needs matplotlib).
 """
 
 from __future__ import annotations
@@ -92,13 +94,10 @@ def synthetic_autodiff_target_params() -> np.ndarray:
 def _refuse_unported(args) -> None:
     """Raise for a flag whose path is not ported, naming its ROADMAP §1
     item."""
-    for flag, chosen, item in (
-            ("--metric clap", args.metric == "clap", "11"),
-            ("--num-devices (a device mesh)", args.num_devices > 1, "13")):
-        if chosen:
-            raise NotImplementedError(
-                f"{flag} is not ported to st_ito_torch yet (ROADMAP §1 item "
-                f"{item})")
+    if args.num_devices > 1:
+        raise NotImplementedError(
+            "--num-devices (a device mesh) is not ported to st_ito_torch yet "
+            "(ROADMAP §1 item 13)")
 
 
 def main(argv=None):
@@ -169,6 +168,13 @@ def main(argv=None):
     if args.metric == "mfcc":
         model = load_mfcc_feature_extractor()
         embed_func = get_mfcc_feature_embeds
+    elif args.metric == "clap":
+        from st_ito_torch.models.clap_laion import \
+            get_clap_laion_embeds_midside
+        from st_ito_torch.models.registry import load_clap_model
+
+        model = load_clap_model(device=dev)
+        embed_func = get_clap_laion_embeds_midside
     else:
         model = load_param_model(allow_random=args.allow_random_model,
                                  device=dev)

@@ -3,10 +3,10 @@ metric is a (load_fn, embed_fn) pair, ``load_metric`` loads one, and
 ``style_similarity`` is the mean cosine over the embedding heads that
 scores outputs against targets. "param" (the AFx-Rep Cnn14), "mfcc",
 "mir" and the checkpoint-gated baselines "fx-encoder", "beats",
-"wav2vec2", "wav2clip" and "vggish" are ported: each baseline's loader
-reads its weights from the JAX package's path and raises
-FileNotFoundError where they are missing. "clap" raises, naming ROADMAP §1
-item 11."""
+"wav2vec2", "wav2clip", "vggish" and "clap" are ported: each baseline's
+loader reads its weights from the JAX package's path (CLAP's, or
+transformers' local cache) and raises FileNotFoundError where they are
+missing."""
 
 from __future__ import annotations
 
@@ -17,25 +17,18 @@ from st_ito_torch.features import (get_mir_feature_embeds,
 from st_ito_torch.models.beats import get_beats_embeds, load_beats_model
 from st_ito_torch.models.encoders import (get_fx_encoder_embeds,
                                           load_fx_encoder_model)
-from st_ito_torch.models.registry import (get_mfcc_feature_embeds,
+from st_ito_torch.models.registry import (get_clap_embeds,
+                                          get_mfcc_feature_embeds,
                                           get_param_embeds,
                                           get_vggish_embeds,
                                           get_wav2clip_embeds,
                                           get_wav2vec2_embeds,
+                                          load_clap_model,
                                           load_mfcc_feature_extractor,
                                           load_param_model,
                                           load_vggish_model,
                                           load_wav2clip_model,
                                           load_wav2vec2_model)
-
-
-def _not_ported(name: str):
-    def refuse(*args, **kwargs):
-        raise NotImplementedError(
-            f"the {name} metric's encoder is not ported to st_ito_torch yet "
-            f"(ROADMAP §1 item 11)")
-
-    return refuse, refuse
 
 
 def _load_fx_encoder():
@@ -50,7 +43,7 @@ METRICS = {
     "param": (load_param_model, get_param_embeds),
     "mfcc": (load_mfcc_feature_extractor, get_mfcc_feature_embeds),
     "mir": (load_mir_feature_extractor, get_mir_feature_embeds),
-    "clap": _not_ported("clap"),
+    "clap": (load_clap_model, get_clap_embeds),
     "fx-encoder": (_load_fx_encoder, get_fx_encoder_embeds),
     "beats": (_load_beats, get_beats_embeds),
     "wav2vec2": (load_wav2vec2_model, get_wav2vec2_embeds),

@@ -116,12 +116,13 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     ``max_lti_pad`` caps its tail guard. The renderer's output normalisation
     is skipped when every embed peak-normalises its input.
     ``normalize_stages`` renders each candidate through the per-candidate
-    ``build_render_fn`` instead (plain PyTorch, no kernel)."""
+    ``build_render_fn`` instead (plain PyTorch, no kernel). An
+    ``embed_func`` marked ``host_side`` (the JAX package's mark for an
+    embed its jitted program cannot trace) is scored as any other: the
+    port has no trace barrier."""
     dev = resolve_device(device)
     if mesh is not None:
         _not_ported("a device mesh", "13")
-    if getattr(embed_func, "host_side", False):
-        _not_ported("a host-side metric", "11")
     if return_audio or dropout > 0.0:
         pop_microbatch = None
     model = _model_dtype_variant(model,

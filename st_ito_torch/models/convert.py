@@ -9,14 +9,16 @@ computed) and the BatchNorm step counters, keep torch's layouts, read a
 ``config.yaml`` beside the checkpoint into the ``Cnn14Config``.
 
 The JAX models keep their parameters as nested dicts (and lists) whose
-dotted paths are, for the Cnn14, the dsTCN and VGGish, the torch
-``state_dict`` names; the FX-encoder, Wav2CLIP and BEATs pytrees differ
-from their releases' names in documented ways (``*_state_dict_from_jax``
-maps each). Conv weights are OIHW / OIW in both.
+dotted paths are, for the Cnn14, the dsTCN, VGGish, HTS-AT, the CLAP-ft
+encoder and DeepGCN, the torch ``state_dict`` names; the FX-encoder,
+Wav2CLIP, BEATs and LAION-CLAP pytrees differ from their releases' names
+in documented ways (``*_state_dict_from_jax`` maps each). Conv weights are
+OIHW / OIW in both.
 """
 
 from __future__ import annotations
 
+import math
 import os
 
 import numpy as np
@@ -110,6 +112,60 @@ def beats_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     sd["encoder.pos_conv.0.weight_v"] = w
     sd["encoder.pos_conv.0.weight_g"] = torch.linalg.vector_norm(
         w, dim=(0, 1), keepdim=True)
+    return sd
+
+
+def htsat_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX HTS-AT pytree -> a ``state_dict`` for ``htsat.HTSAT`` (the
+    same dotted names)."""
+    return _tensors(flatten_params(params))
+
+
+def clap_audio_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX CLAP-ft pytree (``tower``, ``projection``) -> a
+    ``state_dict`` for ``clap.CLAPAudio`` (the same dotted names)."""
+    return _tensors(flatten_params(params))
+
+
+def deepgcn_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX DeepGCN pytree -> a ``state_dict`` for ``gcn.DeepGCN`` (the
+    same dotted names, each BatchNorm's step counter added)."""
+    return _tensors(flatten_params(params))
+
+
+# the JAX LAION-CLAP block's names -> transformers'
+_CLAP_BLOCK_NAMES = {
+    "ln1": "layernorm_before", "q": "attention.self.query",
+    "k": "attention.self.key", "v": "attention.self.value",
+    "attn_out": "attention.output.dense",
+    "rel_bias": "attention.self.relative_position_bias_table",
+    "ln2": "layernorm_after", "fc1": "intermediate.dense",
+    "fc2": "output.dense"}
+
+
+def clap_laion_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX LAION-CLAP pytree -> transformers' names
+    (``audio_model.audio_encoder.*``, ``audio_projection.*``) for
+    ``clap_laion.ClapAudioTower``, with each block's relative position
+    index and the BatchNorm's step counter; the inverse of the JAX
+    package's ``convert_clap_laion_state_dict``."""
+    from st_ito_torch.models.clap_laion import _rel_index
+
+    enc = "audio_model.audio_encoder."
+    flat = {}
+    for k, v in flatten_params(params).items():
+        parts = k.split(".")
+        if parts[0] == "layers" and parts[2] == "blocks":
+            parts[4] = _CLAP_BLOCK_NAMES[parts[4]]
+        elif parts[0] == "proj":
+            flat["audio_projection." + ".".join(parts[1:])] = v
+            continue
+        flat[enc + ".".join(parts)] = v
+    sd = _tensors(flat)
+    for k in [k for k in sd if k.endswith("relative_position_bias_table")]:
+        window = (math.isqrt(sd[k].shape[0]) + 1) // 2
+        sd[k[:-len("bias_table")] + "index"] = torch.from_numpy(
+            _rel_index(window, window))
     return sd
 
 

@@ -5,9 +5,11 @@ the MFCC feature metric (``MFCCFeatureExtractor``,
 ``load_mfcc_feature_extractor``, ``get_mfcc_feature_embeds``) and the
 baselines' loaders and embeds: Wav2CLIP and VGGish (their modules in
 ``wav2clip.py`` and ``vggish.py``) and wav2vec2 (transformers' model, from
-its local cache only). The MIR features are ``features.py``; the
-FX-encoder and BEATs are ``encoders.py`` and ``beats.py``; CLAP is ROADMAP
-§1 item 11."""
+its local cache only) and the LAION-CLAP metric (``load_clap_model``,
+``get_clap_embeds``: the native tower of ``clap_laion.py``, its weights
+from a local file or transformers' local cache only). The
+MIR features are ``features.py``; the FX-encoder and BEATs are
+``encoders.py`` and ``beats.py``."""
 
 from __future__ import annotations
 
@@ -286,3 +288,55 @@ def load_vggish_model(ckpt_path: str | None = "checkpoints/vggish.pth",
 
     return _load(ckpt_path=ckpt_path, pca_path=pca_path,
                  allow_random=allow_random, device=device)
+
+
+# ------------------------------------------------------------- CLAP metric
+
+
+def load_clap_model(model_id: str = "laion/clap-htsat-unfused",
+                    ckpt_path: str | None = (
+                        "checkpoints/clap-htsat-unfused.pt"),
+                    device="cuda"):
+    """LAION-CLAP's native tower (``clap_laion.py``) on ``device`` (default
+    the card), its weights from a transformers ``ClapModel`` state_dict at
+    ``ckpt_path``, else from transformers' ``ClapModel`` in the local
+    Hugging Face cache (``local_files_only=True``: no download is
+    attempted); without either, FileNotFoundError. A state_dict whose
+    names do not fit the tower raises as ``load_state_dict`` does."""
+    from st_ito_torch.models.clap_laion import (ClapAudioTower,
+                                                ClapLaionModel,
+                                                hf_state_dict,
+                                                load_clap_laion_model)
+    from st_ito_torch.models.encoders import frozen
+
+    try:
+        return load_clap_laion_model(ckpt_path=ckpt_path, device=device)
+    except FileNotFoundError:
+        pass
+    try:
+        from transformers import ClapModel
+
+        m = ClapModel.from_pretrained(model_id, local_files_only=True)
+    except (OSError, ImportError) as e:
+        raise FileNotFoundError(
+            f"CLAP weights for {model_id} not available locally. "
+            f"Pre-populate the Hugging Face cache, drop a state_dict at "
+            f"{ckpt_path}, or use --metric param/mfcc. Original error: {e}"
+        ) from e
+    net = ClapAudioTower()
+    net.load_state_dict(hf_state_dict(m.state_dict()))
+    return ClapLaionModel(net=frozen(net.to(resolve_device(device))))
+
+
+def get_clap_embeds(x: torch.Tensor, model, sample_rate: float,
+                    midside: bool = False, **kwargs
+                    ) -> dict[str, torch.Tensor]:
+    """CLAP audio embeddings of x (bs, chs, T) by the native tower on x's
+    device, L2-normalised: {"mono"}, or with ``midside`` on stereo {"mid",
+    "side"} of x0 + x1 and x0 - x1 (``clap_laion.get_clap_laion_embeds``).
+    The ITO engine scores it as any other embed: the port has no trace
+    barrier that would send it to the host."""
+    from st_ito_torch.models.clap_laion import get_clap_laion_embeds
+
+    return get_clap_laion_embeds(x, model, sample_rate, midside=midside,
+                                 **kwargs)

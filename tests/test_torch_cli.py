@@ -2,8 +2,8 @@
 st_ito_tpu's: the same chains and synthetic target, a whole run on the CPU
 that writes its WAVs and parameter JSON, ``--staged``, ``--savepop``,
 ``--chunked`` and ``--dropout`` passed through as the JAX CLI passes them,
-``--metric mfcc`` against the JAX CLI, and the flags that are not ported
-raising with their ROADMAP item. ``--algorithm autodiff`` is held in
+``--metric mfcc`` against the JAX CLI, ``--metric clap`` reaching its
+loader, and the flag that is not ported raising with its ROADMAP item. ``--algorithm autodiff`` is held in
 ``test_torch_autodiff.py``."""
 
 import json
@@ -186,8 +186,22 @@ def test_cli_metric_mfcc_matches_jax(tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--metric", "clap"], "11"), (["--num-devices", "4"], "13"),
-], ids=["flags2-11", "flags6-13"])  # as they were
+    (["--num-devices", "4"], "13"),
+], ids=["flags6-13"])  # as it was
 def test_unported_flags_raise(flags, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
         run_optim.main(["in.wav", "None", "--device", "cpu"] + flags)
+
+
+def test_cli_metric_clap_reaches_its_loader(cli_inputs, monkeypatch):
+    """``--metric clap`` is ported: with no CLAP checkpoint and no
+    transformers the CLI reaches ``load_clap_model``, which raises
+    FileNotFoundError, as the JAX CLI's does offline. The path itself runs
+    in ``tests/test_torch_clap_cli.py``."""
+    import sys
+
+    monkeypatch.setitem(sys.modules, "transformers", None)
+    wav, out = cli_inputs
+    with pytest.raises(FileNotFoundError, match="CLAP weights"):
+        run_optim.main([wav, "None", "--metric", "clap", "--device", "cpu",
+                        "--max-length", "8192", "--output-dir", out])

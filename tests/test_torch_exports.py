@@ -12,6 +12,9 @@ NOT_EXPORTED = {
         # idiom: the Cnn14 is an nn.Module with its init in place
         "cnn14_apply": "Cnn14.forward",
         "init_cnn14_params": "init_cnn14_",
+        # transformers' model behind a handle that the JAX engine scores on
+        # the host: the port serves the native tower alone
+        "ClapModelHandle": None,
     },
     "ito": {"run_learned_inference": "ROADMAP §1 item 10"},
 }
@@ -70,11 +73,19 @@ MODULE_COUNTERPARTS = {
         "save_params_npz": "registry.export_encoder_npz",
         "load_params_npz": "registry.load_param_model",
     },
-    "models.registry": {
-        "ClapModelHandle": "ROADMAP §1 item 11",
-        "load_clap_model": "ROADMAP §1 item 11",
-        "get_clap_embeds": "ROADMAP §1 item 11",
+    "models.registry": {"ClapModelHandle": None},
+    "models.clap_laion": {
+        "init_clap_laion_params": "init_clap_laion_",
+        "clap_audio_tower": "ClapAudioTower.forward",
+        # the module loads transformers' state_dict by its own names
+        "convert_clap_laion_state_dict": "hf_state_dict",
     },
+    "models.htsat": {"init_htsat_params": "init_htsat_",
+                     "htsat_apply": "HTSAT.forward"},
+    "models.clap": {"init_clap_audio_params": "init_clap_audio_",
+                    "clap_audio_apply": "CLAPAudio.forward"},
+    "models.gcn": {"init_deepgcn_params": "init_deepgcn_",
+                   "deepgcn_apply": "DeepGCN.forward"},
     "eval.pst": {}, "eval.pst_examples": {}, "eval.cls": {},
     "eval.listen": {}, "eval.visualize": {}, "eval.metrics": {},
     "cli.eval_pst": {}, "cli.eval_cls": {},

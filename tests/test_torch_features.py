@@ -206,15 +206,10 @@ def test_param_metric_loads_on_the_cpu():
                                   "wav2clip", "vggish"])
 def test_checkpoint_gated_metrics_raise(name, tmp_path, monkeypatch):
     """Without their weights the baselines' loaders raise
-    FileNotFoundError, as the JAX package's do (wav2vec2: no local
-    Hugging Face cache, which the loader alone reads); CLAP is ROADMAP §1
-    item 11 and raises NotImplementedError."""
+    FileNotFoundError, as the JAX package's do (wav2vec2 and CLAP: no
+    local Hugging Face cache, which the loaders alone read)."""
     monkeypatch.chdir(tmp_path)  # no checkpoints/ directory
     monkeypatch.setenv("HF_HOME", str(tmp_path / "hf"))
     monkeypatch.setenv("HF_HUB_OFFLINE", "1")
-    if name == "clap":
-        with pytest.raises(NotImplementedError, match="ROADMAP §1 item 11"):
-            tmetrics.load_metric(name)
-    else:
-        with pytest.raises(FileNotFoundError):
-            tmetrics.load_metric(name)
+    with pytest.raises(FileNotFoundError):
+        tmetrics.load_metric(name)
