@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--record PATH]
                           [--phases k1,k9,fft,scan,main,style,comp,fx,cli,
                                     mfcc,long,multitrack,dtype,autodiff,
-                                    nofast,eval,pst,clap]
+                                    nofast,eval,pst,clap,train]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -152,7 +152,37 @@ Phases, in order; any failure raises and the script exits non-zero:
    at popsize 128 in mega2, a warm-up and a timed block (K1, K3 and K4 once
    a generation); the tower's forward with TF32 let through once, which
    must fail the phase's cosine limit (so that the limit sees TF32);
-21. the ``kernels`` JSON line, then the card line and the result line.
+21. ``train``: training (ROADMAP §1 item 10) at full width. The preset
+   bank over the 12 registry effects (10 presets, probe 32768) and
+   ``generate_pretext_dataset`` of 256 examples at T 262144 in shards of
+   64 on the card: each instance's sub-batch render through
+   ``build_batched_render_fn(fast=True)`` (K6 the EQ, K7 the compressor,
+   K8 the gate's, the multiband's 3 and the limiter's detectors, K11 x 6
+   the phaser, K3 -> K4 delay, reverb, gain and widener), the launches
+   held against the instances' sub-batch counts, 3 examples of each
+   instance rendered again on their first T_HELD samples by the card and
+   by the CPU and held (1e-4 x peak, the scans' floored at 1); the
+   pretext CLI (``st_ito_torch.cli.train``) at ``cfg/pretext-panns.yaml``
+   (Cnn14 512-d, batch 32, stereo T 262144, logging every step) for 8
+   steps, then ``--resume`` to 10: ms a step after the first, examples/s,
+   peak bytes, finite losses, the decode that ran; the exported
+   ``encoder.npz`` loaded by ``load_param_model`` and used by a warm-up
+   and a timed 2-generation ``run_es`` (K1, K3, K4 once a generation); the
+   first pretext step (loss, gradient, BatchNorm buffers) of one weight
+   set and batch of 2 on the card and on the CPU with the card's
+   SpecAugment and dropout draws and each time max's frame replayed
+   (loss 1e-5 relative; the gradient (a) within 1e-3 relative L2 of the
+   CPU's, or (b) no farther from a float64 CPU run of the step than 4x
+   the CPU's float32 gradient is, the card's also run with cuDNN off and
+   every distance logged; buffers 1e-4; a frame the CPU would pick apart
+   from the card's only at a near tie, its gap under 1e-5 relative); the
+   style CLI at
+   ``cfg/style-audio-otf.yaml`` (batch 16, T 262144, on-the-fly targets,
+   the audio loss through the basic chain's differentiable renderer: no
+   kernel) for 4 steps on a ``generate_style_dataset`` of 32, ms a step
+   and peak; ``run_learned_inference`` from its state, timed, its
+   parameters within 1e-5 of the CPU's;
+22. the ``kernels`` JSON line, then the card line and the result line.
    A kernel's launches there come from the timed run of a path that
    launches it: K11's from ``fx``, the one path that does.
 Each phase logs the card's SM and memory clocks, power draw and
@@ -284,9 +314,46 @@ CLAP_COS = 1e-8
 BN_REL = 1e-4
 KNN_TIE = 1e-5
 KNN_FLIP_SHARE = 0.01
+# the train phase (ROADMAP §1 item 10)
+TRAIN_EXAMPLES = 256
+TRAIN_SHARD = 64
+TRAIN_PRESETS = 10
+TRAIN_PROBE = 32768
+TRAIN_SOURCES = 4
+PRETEXT_STEPS = 8
+PRETEXT_RESUME = 10
+STYLE_STEPS = 4
+STYLE_EXAMPLES = 32
+TRAIN_CHECK_ROWS = 3
+TRAIN_CHECK_B = 2
+TRAIN_LOSS_REL = 1e-5
+TRAIN_GRAD_REL = 1e-3
+# the float32 gradient of train-mode BatchNorm convs cancels (each
+# channel's backward sums to zero): on an H100 and its host the CPU's
+# float32 gradient read 7.7e-4 from float64 (PERF.md §6), so the card's is
+# held as the scans' rule (b) holds theirs: no farther from the float64
+# witness than this many times the CPU's float32 run, where the 1e-3
+# against the CPU misses
+TRAIN_GRAD_WITNESS = 4.0
+LEARNED_TOL = 1e-5
+# kernel launches of one sub-batch render of each registry effect alone
+# (build_batched_render_fn, fast=True, T 262144)
+DATAGEN_KERNELS = {
+    "parametric_eq": {"k6": 1}, "compressor": {"k7": 1},
+    "noise_gate": {"k8": 1}, "multiband_compressor": {"k8": 3},
+    "limiter": {"k8": 1}, "phaser": {"k11": 6},
+    "delay": {"k3": 1, "k4": 1}, "reverb": {"k3": 1, "k4": 1},
+    "gain": {"k3": 1, "k4": 1}, "stereo_widener": {"k3": 1, "k4": 1},
+    "chorus": {}, "distortion": {}}
+# the chorus has no kernel: its modulated delay (up to 480 samples) turns
+# one ulp of the card's or the CPU's float32 sine into 1e-3 x peak
+# (ROADMAP §3; 1.15e-3 read on 65536 samples on an H100, PERF.md §6)
+DATAGEN_CHORUS = 3e-3
+SCAN_EFFECTS = ("parametric_eq", "compressor", "noise_gate",
+                "multiband_compressor", "limiter", "phaser")
 PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "fx", "cli",
           "mfcc", "long", "multitrack", "dtype", "autodiff", "nofast",
-          "eval", "pst", "clap")
+          "eval", "pst", "clap", "train")
 
 
 def log(*a):
@@ -2854,6 +2921,426 @@ def phase_clap(dev, rec):
     return rec["launches"]
 
 
+class DrawLog:
+    """Records the Cnn14's SpecAugment stripes, dropout masks and each
+    time max's frame as a forward on the card takes them (``record``), and
+    serves them again, in order, to a forward on the CPU (``replay``), so
+    that both differentiate the same function. Replaying, it also counts
+    the time maxes whose CPU frame differs from the card's and the
+    largest relative gap between the two frames' values there."""
+
+    def __init__(self):
+        import st_ito_torch.models.cnn14 as cnn14
+
+        self.mod = cnn14
+        self.real = (cnn14.spec_augment_draws, cnn14.dropout_keep,
+                     cnn14.time_pool)
+        self.draws, self.frames = [], []
+        self.flips, self.flip_gap = 0, 0.0
+
+    def _set(self, spec, keep, pool):
+        (self.mod.spec_augment_draws, self.mod.dropout_keep,
+         self.mod.time_pool) = spec, keep, pool
+
+    def record(self):
+        real_spec, real_keep, real_pool = self.real
+
+        def spec(*a):
+            out = real_spec(*a)
+            self.draws.append(out)
+            return out
+
+        def keep(*a):
+            out = real_keep(*a)
+            self.draws.append(out)
+            return out
+
+        def pool(h):
+            self.frames.append(h.argmax(dim=2))
+            return real_pool(h)
+
+        self._set(spec, keep, pool)
+
+    def replay(self, dev):
+        draws, frames = list(self.draws), list(self.frames)
+
+        def spec(g, n, frames_, bins, device):
+            return [(s.to(dev), w.to(dev)) for s, w in draws.pop(0)]
+
+        def keep(g, shape, device):
+            m = draws.pop(0)
+            assert tuple(m.shape) == tuple(shape), (m.shape, shape)
+            return m.to(dev)
+
+        def pool(h):
+            idx = frames.pop(0).to(dev)
+            own = h.argmax(dim=2)
+            at = torch.gather(h, 2, idx[..., None])[..., 0]
+            differ = own != idx
+            if bool(differ.any()):
+                top = torch.gather(h, 2, own[..., None])[..., 0]
+                gap = ((top - at).abs() / top.abs().clamp_min(1e-30))[differ]
+                self.flips += int(differ.sum())
+                self.flip_gap = max(self.flip_gap, float(gap.max()))
+            return at + h.mean(dim=2)
+
+        self._set(spec, keep, pool)
+        return draws, frames
+
+    def restore(self):
+        self._set(*self.real)
+
+
+def pretext_first_step(cfg, batch, dev):
+    """The first pretext step's (loss, {name: gradient}, BatchNorm buffers,
+    s) of one weight set, run four ways, the card's draws and time-max
+    frames replayed in the last three: on the card ("card"), on the card
+    with cuDNN off ("card_native": torch's own float32 convolutions), on
+    the CPU ("cpu") and on the CPU in float64 ("cpu64", the witness)."""
+    import copy
+    import dataclasses
+
+    from st_ito_torch.models.cnn14 import no_tf32
+    from st_ito_torch.train.param import (ParamEstimator,
+                                          param_estimator_loss)
+
+    base = ParamEstimator(cfg, torch.Generator().manual_seed(5))
+    cpu = torch.device("cpu")
+    draws = DrawLog()
+    out = {}
+    try:
+        for label, where in (("card", dev), ("card_native", dev),
+                             ("cpu", cpu), ("cpu64", cpu)):
+            model = copy.deepcopy(base).to(where)
+            b = {k: v.to(where) for k, v in batch.items()}
+            if label == "cpu64":
+                model = model.double()
+                model.encoder.config = dataclasses.replace(
+                    model.encoder.config, compute_dtype="float64")
+                b = {k: v.double() if v.is_floating_point() else v
+                     for k, v in b.items()}
+            if label == "card":
+                draws.record()
+            else:
+                left = draws.replay(where)
+            gen = torch.Generator(device=where).manual_seed(0)
+            t0 = time.perf_counter()
+            with torch.backends.cudnn.flags(enabled=label != "card_native"):
+                loss, _ = param_estimator_loss(model, cfg, b, True, gen)
+                with no_tf32():
+                    loss.backward()
+            grads = {n: p.grad.double().cpu()
+                     for n, p in model.named_parameters()
+                     if p.grad is not None}
+            bufs = {k: v.double().cpu() for k, v in
+                    model.state_dict().items() if "running" in k}
+            out[label] = (float(loss.detach()), grads, bufs,
+                          time.perf_counter() - t0)
+            if label != "card" and (left[0] or left[1]):
+                raise AssertionError("card draws left unused")
+            del model
+    finally:
+        draws.restore()
+    out["flips"], out["flip_gap"] = draws.flips, draws.flip_gap
+    return out
+
+
+def grad_rel(got: dict, want: dict) -> float:
+    """Relative L2 distance of two gradients over all parameters."""
+    num = sum(float((got[k] - want[k]).norm()) ** 2 for k in want)
+    den = sum(float(want[k].norm()) ** 2 for k in want)
+    return math.sqrt(num / den)
+
+
+def held_rows(recorded, dev):
+    """Each instance's first TRAIN_CHECK_ROWS examples rendered again on
+    their first T_HELD samples by the card and by the CPU:
+    ({instance: max abs error}, {instance: error / limit}). The limit is
+    1e-4 x peak (the scans' floored at 1), the chorus's DATAGEN_CHORUS
+    x peak."""
+    from st_ito_torch.chain import build_batched_render_fn
+
+    errs, ratios = {}, {}
+    for name, (chain, W, X) in sorted(recorded.items()):
+        x = X[:TRAIN_CHECK_ROWS, :, :T_HELD].contiguous()
+        w = W[:TRAIN_CHECK_ROWS]
+        got = {}
+        for label, where in (("card", dev), ("cpu", torch.device("cpu"))):
+            render = build_batched_render_fn(
+                chain, SR, 2, fast=True, peak_normalize_output=False,
+                device=where)
+            with torch.no_grad():
+                got[label] = render(w.to(where), x.to(where)).cpu()
+        want = got["cpu"]
+        err = float((got["card"] - want).abs().max())
+        peak = float(want.abs().max())
+        rel = DATAGEN_CHORUS if name == "chorus" else 1e-4
+        limit = rel * (max(1.0, peak) if name in SCAN_EFFECTS else peak)
+        errs[name] = err
+        ratios[name] = err / max(limit, 1e-30)
+    return errs, ratios
+
+
+def train_config(name, tmp, **changes):
+    """``cfg/<name>`` read by the CLI's YAML reader, with ``changes``,
+    written to ``tmp``: the path."""
+    from st_ito_torch.cli import yaml_subset
+
+    cfg = yaml_subset.load(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "cfg", name))
+    cfg.update(changes)
+    path = os.path.join(tmp, name)
+    with open(path, "w") as f:
+        f.write(yaml_subset.dumps(cfg))
+    return path, cfg
+
+
+def phase_train(dev, rec):
+    """Training at full width: datagen on the card's kernels, the pretext
+    and style CLIs, the first pretext step against the CPU, the exported
+    encoder in ``run_es``, ``run_learned_inference`` against the CPU."""
+    import copy
+    import tempfile
+    import types
+
+    import st_ito_torch.data.datagen as datagen
+    from st_ito_torch.chain import basic_chain
+    from st_ito_torch.cli import train as train_cli
+    from st_ito_torch.data import (NpzShardDataset, generate_pretext_dataset,
+                                   generate_style_dataset, sample_preset_bank)
+    from st_ito_torch.ito import run_learned_inference
+    from st_ito_torch.models import load_param_model
+    from st_ito_torch.train import ParamEstimatorConfig
+    from st_ito_torch.train.style import StyleTransferSystem
+
+    t_phase = time.perf_counter()
+    sources = [program_audio(10 + i, 2 * T_HEAD)[0].numpy()
+               for i in range(TRAIN_SOURCES)]
+    t0 = time.perf_counter()
+    bank = sample_preset_bank(num_presets=TRAIN_PRESETS,
+                              probe_len=TRAIN_PROBE, seed=0, device=dev)
+    torch.cuda.synchronize()
+    rec["preset_bank_s"] = time.perf_counter() - t0
+    log(f"train: preset bank of {bank.num_instances} x {bank.num_presets} "
+        f"in {rec['preset_bank_s']!r} s")
+
+    recorded = {}
+    real_build = datagen.build_batched_render_fn
+
+    def watched(chain, *a, **k):
+        render = real_build(chain, *a, **k)
+
+        def run(W, X):
+            name = chain.stages[0].effect
+            if name not in recorded:
+                recorded[name] = (chain, W.clone(), X.clone())
+            return render(W, X)
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        shard_dir = os.path.join(tmp, "pretext")
+        datagen.build_batched_render_fn = watched
+        try:
+            launch_counts(reset=True)
+            t0 = time.perf_counter()
+            paths = generate_pretext_dataset(
+                sources, bank, shard_dir, TRAIN_EXAMPLES, length=T_HEAD,
+                examples_per_shard=TRAIN_SHARD, seed=0, device=dev)
+            torch.cuda.synchronize()
+            rec["datagen_s"] = time.perf_counter() - t0
+            gen_launches = launch_counts()
+        finally:
+            datagen.build_batched_render_fn = real_build
+        inst = np.concatenate([np.load(p)["instance_index"] for p in paths])
+        want = {k: 0 for k in gen_launches}
+        for i, name in enumerate(bank.instance_names):
+            subs = -(-int((inst == i).sum()) // TRAIN_SHARD)
+            for k, n in DATAGEN_KERNELS[name].items():
+                want[k] += subs * n
+        if gen_launches != want:
+            raise AssertionError(f"datagen launches {gen_launches}; "
+                                 f"expected {want}")
+        for k in ("k3", "k4", "k6", "k7", "k8", "k11"):
+            if not gen_launches[k]:
+                raise AssertionError(f"datagen launched no {k}")
+        rec.update(datagen_launches=gen_launches, shards=len(paths),
+                   instance_counts=np.bincount(
+                       inst, minlength=bank.num_instances).tolist())
+        log(f"train: datagen of {TRAIN_EXAMPLES} x {T_HEAD} in "
+            f"{rec['datagen_s']!r} s, launches {gen_launches}")
+        t0 = time.perf_counter()
+        errs, ratios = held_rows(recorded, dev)
+        rec.update(datagen_max_abs_err=errs, datagen_of_limit=ratios,
+                   datagen_check_s=time.perf_counter() - t0)
+        log(f"train: datagen renders, card against CPU on {T_HELD} samples "
+            f"of {TRAIN_CHECK_ROWS} examples each, max abs "
+            f"{json.dumps(errs)}; of the limit {json.dumps(ratios)}")
+        # held at the phase's end, so that one run reads every gate
+        failed = {f"datagen {k}": r for k, r in ratios.items()
+                  if not r <= 1.0}
+
+        # the pretext CLI at the canonical config, logging every step
+        path, cfg = train_config("pretext-panns.yaml", tmp, log_every=1)
+        run_dir = os.path.join(tmp, "run-pretext")
+        args = ["--config", path, "--shard-dir", shard_dir, "--run-dir",
+                run_dir]
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out = train_cli.main(args + ["--max-steps", str(PRETEXT_STEPS)])
+        first_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        out2 = train_cli.main(args + ["--max-steps", str(PRETEXT_RESUME),
+                                      "--resume"])
+        if out2["state"].step != PRETEXT_RESUME:
+            raise AssertionError(f"resumed to step {out2['state'].step}")
+        metrics = [json.loads(line) for line in
+                   open(os.path.join(run_dir, "metrics.jsonl"))]
+        losses = [m["train_loss"] for m in metrics]
+        if len(losses) != PRETEXT_RESUME or not np.isfinite(losses).all():
+            raise AssertionError(f"pretext losses {losses}")
+        # each run's first step (allocation, the loader's start) left out
+        step_ms = [1e3 * s for s in out["step_s"][1:] + out2["step_s"][1:]]
+        eps = [m["train_examples_per_sec"] for m in metrics]
+        eps_steady = [e for m, e in zip(metrics, eps)
+                      if m["step"] not in (1, PRETEXT_STEPS + 1)]
+        rec["pretext"] = dict(
+            ms_per_step=float(np.mean(step_ms)), ms_steps=step_ms,
+            examples_per_sec=float(np.mean(eps_steady)),
+            examples_per_sec_steps=eps,
+            max_memory_allocated_bytes=peak, losses=losses,
+            native_decode=out["use_native"], first_run_s=first_s,
+            steps_after_resume=out2["state"].step)
+        log(f"train: pretext {rec['pretext']['ms_per_step']!r} ms/step "
+            f"after the first, {rec['pretext']['examples_per_sec']!r} "
+            f"examples/s, peak {peak} bytes, decode "
+            f"{'native' if out['use_native'] else 'numpy'}, losses "
+            f"{losses}")
+        del out, out2
+
+        model = load_param_model(os.path.join(run_dir, "encoder.npz"),
+                                 device=dev)
+        es_rec = {}
+        es_launches = phase_main(dev, model, es_rec, "mega2", label="train")
+        rec["es"] = es_rec
+        del model
+
+        # the first step on the card and on the CPU
+        enc = train_cli._encoder_config(cfg["model"]["encoder"])
+        mcfg = {k: v for k, v in cfg["model"].items() if k != "encoder"}
+        pcfg = ParamEstimatorConfig(encoder=enc, **mcfg)
+        ds = NpzShardDataset(shard_dir, length=T_HEAD,
+                             batch_size=TRAIN_CHECK_B, seed=1)
+        batch = train_cli.to_device(next(iter(ds)), torch.device("cpu"))
+        torch.cuda.empty_cache()
+        steps = pretext_first_step(pcfg, batch, dev)
+        l_c, l_h = steps["card"][0], steps["cpu"][0]
+        loss_rel = abs(l_c - l_h) / abs(l_h)
+        g = {k: v[1] for k, v in steps.items() if k in (
+            "card", "card_native", "cpu", "cpu64")}
+        rel = {"card_cpu": grad_rel(g["card"], g["cpu"]),
+               "card_native_cpu": grad_rel(g["card_native"], g["cpu"]),
+               "cpu_cpu64": grad_rel(g["cpu"], g["cpu64"]),
+               "card_cpu64": grad_rel(g["card"], g["cpu64"]),
+               "card_native_cpu64": grad_rel(g["card_native"], g["cpu64"])}
+        b_c, b_h = steps["card"][2], steps["cpu"][2]
+        bn_rel = max(float((b_c[k] - b_h[k]).norm()
+                           / max(float(b_h[k].norm()), 1.0)) for k in b_h)
+        # each tensor's distance from the witness, relative to the whole
+        # gradient's norm: where the cards' and the CPU's roundings go
+        norm64 = math.sqrt(sum(float(v.norm()) ** 2
+                               for v in g["cpu64"].values()))
+        per_tensor = {
+            label: dict(sorted(
+                ((k, float((g[label][k] - g["cpu64"][k]).norm()) / norm64)
+                 for k in g["cpu64"]), key=lambda kv: -kv[1])[:4])
+            for label in ("card", "card_native", "cpu")}
+        rec["first_step"] = dict(
+            loss_card=l_c, loss_cpu=l_h, loss_cpu64=steps["cpu64"][0],
+            loss_rel=loss_rel, grad_rel_l2=rel, bn_rel=bn_rel,
+            seconds={k: steps[k][3] for k in g},
+            worst_tensors_from_cpu64=per_tensor,
+            time_max_flips=steps["flips"],
+            time_max_flip_gap=steps["flip_gap"])
+        log(f"train: first pretext step: loss card {l_c!r}, CPU {l_h!r} "
+            f"({loss_rel!r} relative), float64 {steps['cpu64'][0]!r}; "
+            f"gradient relative L2 {json.dumps(rel)}; BatchNorm buffers "
+            f"{bn_rel!r}; the CPU's own time-max frame differs in "
+            f"{steps['flips']} of the card's, gap at most "
+            f"{steps['flip_gap']!r}; the tensors farthest from float64 "
+            f"{json.dumps(per_tensor)}")
+        grad_ok = (rel["card_cpu"] <= TRAIN_GRAD_REL
+                   or rel["card_cpu64"]
+                   <= TRAIN_GRAD_WITNESS * rel["cpu_cpu64"])
+        rec["first_step"]["grad_rule"] = (
+            "a" if rel["card_cpu"] <= TRAIN_GRAD_REL else
+            "b" if grad_ok else "missed")
+        if not (loss_rel <= TRAIN_LOSS_REL and grad_ok and bn_rel <= BN_REL
+                and steps["flip_gap"] <= KNN_TIE):
+            failed["first_step"] = rec["first_step"]
+        del steps, batch
+
+        # the style CLI on the DeepAFx-ST+ analog
+        style_dir = os.path.join(tmp, "style")
+        generate_style_dataset(sources, basic_chain(with_bypass=False),
+                               style_dir, STYLE_EXAMPLES, length=T_HEAD,
+                               examples_per_shard=STYLE_EXAMPLES, seed=0,
+                               device=dev)
+        path, scfg = train_config("style-audio-otf.yaml", tmp, log_every=1)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        out = train_cli.main(["--config", path, "--shard-dir", style_dir,
+                              "--run-dir", os.path.join(tmp, "run-style"),
+                              "--max-steps", str(STYLE_STEPS)])
+        style_launches = launch_counts()
+        if any(style_launches.values()):
+            raise AssertionError(f"style training launched "
+                                 f"{style_launches}")
+        smetrics = [json.loads(line) for line in open(os.path.join(
+            tmp, "run-style", "metrics.jsonl"))]
+        slosses = [m["train_loss"] for m in smetrics]
+        if not np.isfinite(slosses).all():
+            raise AssertionError(f"style losses {slosses}")
+        rec["style"] = dict(
+            ms_per_step=float(np.mean([1e3 * s for s in out["step_s"][1:]])),
+            ms_steps=[1e3 * s for s in out["step_s"]], losses=slosses,
+            examples_per_sec=float(np.mean(
+                [m["train_examples_per_sec"] for m in smetrics[1:]])),
+            max_memory_allocated_bytes=torch.cuda.max_memory_allocated())
+        log(f"train: style {rec['style']['ms_per_step']!r} ms/step after "
+            f"the first, peak {rec['style']['max_memory_allocated_bytes']} "
+            f"bytes, losses {slosses}")
+
+        system, state = out["system"], out["state"]
+        x, y = program_audio(3, T_HEAD), program_audio(4, T_HEAD)
+        run_learned_inference(x, y, SR, system, state)  # warm-up
+        (res, learned_ms) = once_ms(
+            lambda: run_learned_inference(x, y, SR, system, state))
+        cpu_system = StyleTransferSystem(system.cfg, chain=system.chain,
+                                         device="cpu")
+        cpu_state = types.SimpleNamespace(
+            model=copy.deepcopy(state.model).cpu())
+        want = run_learned_inference(x, y, SR, cpu_system, cpu_state)
+        err = max(abs(res["params"][k] - want["params"][k])
+                  for k in want["params"])
+        out_ok = bool(torch.isfinite(res["output_audio"]).all())
+        rec["learned"] = dict(ms=learned_ms, params_max_abs_err=err,
+                              output_finite=out_ok)
+        log(f"train: run_learned_inference {learned_ms!r} ms, parameters "
+            f"{err!r} from the CPU's")
+        if not (err <= LEARNED_TOL and out_ok):
+            failed["learned"] = rec["learned"]
+        del out, system, state
+
+    rec["launches"] = {k: gen_launches[k] + es_launches[k]
+                       for k in gen_launches}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    log(f"train: phase {rec['phase_s']!r} s, launches {rec['launches']}")
+    if failed:
+        raise AssertionError(f"train phase gates missed: {failed}")
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -2967,12 +3454,15 @@ def main() -> int:
     clap_rec = {}
     if "clap" in phases:
         run("clap", phase_clap, dev, clap_rec)
+    train_rec = {}
+    if "train" in phases:
+        run("train", phase_train, dev, train_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
                   fx=fx_rec, cli=cli_rec, mfcc=mfcc_rec, long=long_rec,
                   multitrack=mt_rec, dtype=dtype_rec, autodiff=ad_rec,
                   nofast=nofast_rec, eval=eval_rec, pst=pst_rec,
-                  clap=clap_rec)
+                  clap=clap_rec, train=train_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -3040,7 +3530,7 @@ def main() -> int:
         for label, r in (("long", long_rec), ("multitrack", mt_rec),
                          ("fx", fx_rec), ("mfcc", mfcc_rec),
                          ("nofast", nofast_rec), ("pst", pst_rec),
-                         ("clap", clap_rec)):
+                         ("clap", clap_rec), ("train", train_rec)):
             kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start

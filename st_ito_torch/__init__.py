@@ -20,6 +20,12 @@ The package mirrors ``st_ito_tpu``'s layout and public names:
 - ``eval``    the metric registry and the recovery evaluations (synthetic,
               sweep, case study, PSM) with their figures.
 - ``proc``    the 51-parameter differentiable processor of gradient ITO.
+- ``train``   the pretext ParameterEstimator and the StyleTransferSystem
+              (``torch.optim``), with the training CLI
+              ``python -m st_ito_torch.cli.train``.
+- ``data``    preset banks, dataset synthesis on the card's kernels, the
+              shard and tar-of-FLAC datasets (``native/io.py`` binds the
+              loader's C++ engine); ``augment`` the paired transforms.
 
 It imports torch, numpy and the standard library only. Entry points run on
 the card (``device="cuda"``) unless the caller passes ``device="cpu"``; on a

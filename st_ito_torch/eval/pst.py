@@ -103,28 +103,33 @@ def run_pst_benchmark(examples: list[dict], methods: dict, metrics: dict,
 def default_methods(chain, model, embed_func, popsize=128, max_iters=32,
                     sigma0=0.33, seed=0, style_systems: dict | None = None,
                     gens_per_dispatch: int = 1, device="cuda"):
-    """The reference benchmark's methods: input, random, rule-based and
-    style-es (``run_es`` with a random crop and no w0 search), each on
-    ``device``. The learned baselines (deepafx-st, deepafx-st+) need
-    ``run_learned_inference``, which is ROADMAP §1 item 10: a non-empty
-    ``style_systems`` raises."""
-    from st_ito_torch.ito import run_es, run_input, run_random, run_rule_based
+    """The reference benchmark's methods: input, random, rule-based, the
+    learned baselines and style-es (``run_es`` with a random crop and no
+    w0 search), each on ``device``.
 
-    if style_systems:
-        raise NotImplementedError(
-            f"style_systems {sorted(style_systems)}: the learned-inference "
-            f"baselines (run_learned_inference) are ROADMAP §1 item 10, not "
-            f"ported to st_ito_torch yet")
+    ``style_systems``: {"deepafx-st": (system, state), "deepafx-st+":
+    (system, state)}, trained ``train.style.StyleTransferSystem``s run by
+    ``run_learned_inference`` on their own device (the reference loads two
+    pretrained Lightning checkpoints, eval_pst.py:957-973). Omitted
+    entries are skipped."""
+    from st_ito_torch.ito import (run_es, run_input, run_learned_inference,
+                                  run_random, run_rule_based)
+
     dev = resolve_device(device)
-    return {
+    methods = {
         "input": {"func": lambda x, y, sr: run_input(x, y, sr)},
         "random": {"func": lambda x, y, sr: run_random(
             x, y, sr, chain, model, seed=seed, device=dev)},
         "rule-based": {"func": lambda x, y, sr: run_rule_based(
             x, y, sr, device=dev)},
-        "style-es": {"func": lambda x, y, sr: run_es(
+    }
+    for name, (system, state) in (style_systems or {}).items():
+        methods[name] = {
+            "func": lambda x, y, sr, _s=system, _t=state:
+                run_learned_inference(x, y, sr, _s, _t)}
+    methods["style-es"] = {"func": lambda x, y, sr: run_es(
             x, y, sr, chain, model, embed_func=embed_func,
             max_iters=max_iters, popsize=popsize, sigma0=sigma0,
             random_crop=True, find_w0=False, seed=seed, verbose=False,
-            gens_per_dispatch=gens_per_dispatch, device=dev)},
-    }
+            gens_per_dispatch=gens_per_dispatch, device=dev)}
+    return methods

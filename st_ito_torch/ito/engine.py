@@ -855,6 +855,33 @@ def run_random(input_audio, target_audio, sample_rate, chain: ChainSpec,
             "time_elapsed": time.time() - t0}
 
 
+def run_learned_inference(input_audio, target_audio, sample_rate, system,
+                          state, chain=None, model=None, **kwargs):
+    """DeepAFx-ST-style learned inference as a benchmark method (reference:
+    st_ito/style_transfer.py:281-318): one forward pass of a trained
+    ``train.style.StyleTransferSystem`` (``state`` its
+    ``StyleTrainState``) predicts the parameters and renders the input,
+    on the system's device (default the card); mono input and target are
+    duplicated to stereo."""
+    dev = system.device
+    t0 = time.time()
+    x = torch.as_tensor(input_audio, dtype=torch.float32, device=dev)
+    y = torch.as_tensor(target_audio, dtype=torch.float32, device=dev)
+    if x.shape[1] == 1:
+        x = torch.cat([x, x], dim=1)
+    if y.shape[1] == 1:
+        y = torch.cat([y, y], dim=1)
+    with torch.no_grad():
+        output_audio, w, _ = system.forward(state.model, x, y,
+                                            render_audio=True)
+    w = w[0].cpu().numpy()
+    return {
+        "output_audio": output_audio,
+        "params": {f"{i}": float(v) for i, v in enumerate(w)},
+        "time_elapsed": time.time() - t0,
+    }
+
+
 def _rb_lufs(sig: torch.Tensor, sample_rate: int) -> torch.Tensor:
     from st_ito_torch.ops.loudness import integrated_loudness
 

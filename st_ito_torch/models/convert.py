@@ -169,6 +169,120 @@ def clap_laion_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
     return sd
 
 
+# ------------------------------------------------- trained states
+
+
+_ENCODER_FROM_JAX = {
+    "cnn14": cnn14_state_dict_from_jax, "dstcn": dstcn_state_dict_from_jax,
+    "gcn": deepgcn_state_dict_from_jax, "htsat": htsat_state_dict_from_jax,
+    "clap": clap_audio_state_dict_from_jax,
+    "clap-laion": clap_laion_state_dict_from_jax}
+
+
+def _prefixed(sd: dict, prefix: str) -> dict:
+    return {f"{prefix}.{k}": v for k, v in sd.items()}
+
+
+def param_estimator_state_dict_from_jax(params: dict,
+                                        encoder_type: str = "cnn14"
+                                        ) -> dict[str, torch.Tensor]:
+    """The JAX ``ParamTrainState.params`` ({"encoder", "instance_estimator",
+    ["preset_estimator"], ["discriminator"]}) -> a ``state_dict`` for
+    ``train.param.ParamEstimator``: the encoder by its converter, the
+    heads by name."""
+    sd = _prefixed(_ENCODER_FROM_JAX[encoder_type](params["encoder"]),
+                   "encoder")
+    for head in ("instance_estimator", "preset_estimator", "discriminator"):
+        if head in params:
+            sd.update(_prefixed(_tensors(flatten_params(params[head])), head))
+    return sd
+
+
+def style_system_state_dict_from_jax(params: dict) -> dict[str, torch.Tensor]:
+    """The JAX ``StyleTrainState.params`` ({"encoder", "estimator"}, the
+    regressor or the stacked classifier) -> a ``state_dict`` for
+    ``train.style.StyleModel``."""
+    sd = _prefixed(cnn14_state_dict_from_jax(params["encoder"]), "encoder")
+    sd.update(_prefixed(_tensors(flatten_params(params["estimator"])),
+                        "estimator"))
+    return sd
+
+
+def unflatten_params(flat: dict) -> dict:
+    """{"a.0.c": array} -> nested dicts, a level whose keys are all
+    indices a list: the JAX pytrees' layout."""
+    tree: dict = {}
+    for key, v in flat.items():
+        node = tree
+        *head, leaf = key.split(".")
+        for k in head:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+
+    def lists(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: lists(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+
+    return lists(tree)
+
+
+def _arrays(sd: dict) -> dict[str, np.ndarray]:
+    return {k: v.detach().cpu().numpy() for k, v in sd.items()
+            if not k.endswith(("num_batches_tracked",
+                               "relative_position_index"))}
+
+
+def _clap_laion_to_jax(flat: dict) -> dict:
+    """transformers' names -> the JAX LAION-CLAP pytree's (the inverse of
+    ``clap_laion_state_dict_from_jax``)."""
+    back = {v: k for k, v in _CLAP_BLOCK_NAMES.items()}
+    enc = "audio_model.audio_encoder."
+    out = {}
+    for k, v in flat.items():
+        if k.startswith("audio_projection."):
+            out["proj." + k[len("audio_projection."):]] = v
+            continue
+        parts = k[len(enc):].split(".")
+        if parts[0] == "layers" and parts[2] == "blocks":
+            rest = ".".join(parts[4:])
+            for name, jax_name in back.items():
+                if rest == name:  # a leaf of its own (the bias table)
+                    parts = parts[:4] + [jax_name]
+                    break
+                if rest.startswith(name + "."):
+                    parts = parts[:4] + [jax_name, rest[len(name) + 1:]]
+                    break
+        out[".".join(parts)] = v
+    return out
+
+
+def param_estimator_params_to_jax(state_dict: dict,
+                                  encoder_type: str = "cnn14") -> dict:
+    """The other direction: a ``ParamEstimator`` state_dict -> the JAX
+    params pytree (numpy leaves) that ``st_ito_tpu``'s trainer holds. The
+    encoders other than the LAION-CLAP tower keep the JAX dotted names."""
+    flat = _arrays(state_dict)
+    enc = {k[len("encoder."):]: v for k, v in flat.items()
+           if k.startswith("encoder.")}
+    if encoder_type == "clap-laion":
+        enc = _clap_laion_to_jax(enc)
+    elif encoder_type not in _ENCODER_FROM_JAX:
+        raise ValueError(f"unknown encoder_type: {encoder_type}")
+    tree = unflatten_params({k: v for k, v in flat.items()
+                             if not k.startswith("encoder.")})
+    tree["encoder"] = unflatten_params(enc)
+    return tree
+
+
+def style_system_params_to_jax(state_dict: dict) -> dict:
+    """A ``StyleModel`` state_dict -> the JAX style params pytree."""
+    return unflatten_params(_arrays(state_dict))
+
+
 # ------------------------------------------------- the AFx-Rep checkpoint
 
 

@@ -69,6 +69,8 @@ def frozen(net: nn.Module) -> nn.Module:
 # dsTCN
 # --------------------------------------------------------------------------
 
+DSTCN_KEEP = 0.5  # the pooled features' dropout in train mode
+
 
 @dataclasses.dataclass(frozen=True)
 class DsTCNConfig:
@@ -130,7 +132,10 @@ class DsTCN(nn.Module):
         self.fc = nn.Linear(config.block_channels()[-1][1], config.embed_dim)
         frozen(self)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: torch.Generator | None = None):
+        """In train mode with a ``generator``: dropout at keep 0.5 on the
+        pooled features before ``fc`` (the JAX apply with an rng)."""
         cfg = self.config
         x = x.to(torch.float32)
         if x.shape[1] != cfg.ninputs:
@@ -140,7 +145,12 @@ class DsTCN(nn.Module):
         with no_tf32():
             for block in self.blocks:
                 x = block(x)
-            e = self.fc(x.amax(dim=2) + x.mean(dim=2))
+            e = x.amax(dim=2) + x.mean(dim=2)
+            if self.training and generator is not None:
+                keep = torch.rand(e.shape, generator=generator,
+                                  device=e.device) < DSTCN_KEEP
+                e = torch.where(keep, e / DSTCN_KEEP, torch.zeros_like(e))
+            e = self.fc(e)
         return e, e
 
 

@@ -1,6 +1,7 @@
 """Every name of st_ito_tpu's subpackages' ``__all__`` (``chain``, ``ops``,
-``models``, ``ito``, ``eval``) resolves in st_ito_torch's, but for the few
-written out in ``NOT_EXPORTED`` with the reason each has."""
+``models``, ``ito``, ``eval``, ``train``, ``data``) resolves in
+st_ito_torch's, but for the few written out in ``NOT_EXPORTED`` with the
+reason each has."""
 
 import importlib
 
@@ -16,12 +17,11 @@ NOT_EXPORTED = {
         # the host: the port serves the native tower alone
         "ClapModelHandle": None,
     },
-    "ito": {"run_learned_inference": "ROADMAP §1 item 10"},
 }
 
 
 @pytest.mark.parametrize("package", ["chain", "ops", "models", "ito",
-                                     "eval"])
+                                     "eval", "train", "data"])
 def test_jax_exports_resolve_in_the_port(package):
     jax_pkg = importlib.import_module(f"st_ito_tpu.{package}")
     pkg = importlib.import_module(f"st_ito_torch.{package}")
@@ -86,6 +86,14 @@ MODULE_COUNTERPARTS = {
                     "clap_audio_apply": "CLAPAudio.forward"},
     "models.gcn": {"init_deepgcn_params": "init_deepgcn_",
                    "deepgcn_apply": "DeepGCN.forward"},
+    # the heads are modules with their init in place
+    "train.style": {"init_regressor": "Regressor",
+                    "regressor_apply": "Regressor.forward",
+                    "init_classifier": "Classifier",
+                    "classifier_apply": "Classifier.forward"},
+    "train.param": {}, "data.presets": {}, "data.datagen": {},
+    "data.datasets": {}, "data.tar_flac": {}, "data.sim": {},
+    "augment": {}, "native.io": {}, "cli.train": {},
     "eval.pst": {}, "eval.pst_examples": {}, "eval.cls": {},
     "eval.listen": {}, "eval.visualize": {}, "eval.metrics": {},
     "cli.eval_pst": {}, "cli.eval_cls": {},

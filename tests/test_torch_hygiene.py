@@ -220,6 +220,40 @@ def _new_entry_points():
         "vggish": lambda: load_vggish_model(allow_random=True),
         "wav2clip": lambda: load_wav2clip_model(allow_random=True),
         "beats": lambda: load_beats_model(allow_random=True),
+        **_training_entry_points(),
+    }
+
+
+def _training_entry_points():
+    """Training's entry points: the CLI, the trainers (a StyleTransferSystem
+    is where ``run_learned_inference`` runs), the data synthesis."""
+    from st_ito_torch.cli import train
+    from st_ito_torch.data import (PresetBank, generate_pretext_dataset,
+                                   generate_style_dataset,
+                                   sample_preset_bank)
+    from st_ito_torch.data.sim import SimilarityDataset
+    from st_ito_torch.train import ParamEstimatorConfig, init_param_estimator
+    from st_ito_torch.train.style import (StyleTransferConfig,
+                                          StyleTransferSystem)
+
+    x = [np.zeros((2, 4096), np.float32)]
+    bank = PresetBank(["gain"], np.zeros((1, 1, 1), np.float32),
+                      np.ones(1, np.int32))
+    cfg = str(ROOT / "cfg" / "pretext-panns.yaml")
+    return {
+        "train_cli_pretext": lambda: train.main(["--config", cfg]),
+        "train_cli_style": lambda: train.main(
+            ["--config", str(ROOT / "cfg" / "style-audio-otf.yaml")]),
+        "init_param_estimator": lambda: init_param_estimator(
+            ParamEstimatorConfig()),
+        "StyleTransferSystem": lambda: StyleTransferSystem(
+            StyleTransferConfig(), chain=basic_chain(with_bypass=False)),
+        "sample_preset_bank": lambda: sample_preset_bank(["gain"]),
+        "generate_pretext_dataset": lambda: generate_pretext_dataset(
+            x, bank, "unused", 1),
+        "generate_style_dataset": lambda: generate_style_dataset(
+            x, basic_chain(), "unused", 1),
+        "SimilarityDataset": lambda: SimilarityDataset(x, ["gain"]),
     }
 
 

@@ -168,13 +168,12 @@ def test_get_param_embeds_chunked_matches_jax(models):
 
 
 def test_ito_exports_the_jax_list_but_one():
-    """st_ito_torch.ito exports the JAX package's list but
-    run_learned_inference (ROADMAP item 10)."""
+    """st_ito_torch.ito exports the JAX package's list, run_learned_inference
+    included since training was ported (the one name it once lacked)."""
     import st_ito_tpu.ito as jax_ito
     import st_ito_torch.ito as ito
 
-    assert set(ito.__all__) == set(jax_ito.__all__) - {
-        "run_learned_inference"}
+    assert set(ito.__all__) == set(jax_ito.__all__)
     assert all(callable(getattr(ito, name)) for name in ito.__all__)
 
 

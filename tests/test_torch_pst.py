@@ -200,11 +200,18 @@ def test_pst_benchmark_matches_jax(tmp_path):
 
 
 def test_learned_systems_raise():
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 10"):
-        pst.default_methods(chain_preset("guitar"), None,
-                            get_mfcc_feature_embeds,
-                            style_systems={"deepafx-st": (None, None)},
-                            device="cpu")
+    """The learned baselines are methods now (``run_learned_inference``,
+    tests/test_torch_learned.py); a system that is no StyleTransferSystem
+    raises when its method runs, not when the methods are built."""
+    methods = pst.default_methods(chain_preset("guitar"), None,
+                                  get_mfcc_feature_embeds,
+                                  style_systems={"deepafx-st": (None, None)},
+                                  device="cpu")
+    assert list(methods) == ["input", "random", "rule-based", "deepafx-st",
+                             "style-es"]
+    x = torch.zeros(1, 2, 64)
+    with pytest.raises(AttributeError):
+        methods["deepafx-st"]["func"](x, x, 48000)
 
 
 def test_eval_pst_cli_matches_jax(tmp_path, monkeypatch, capsys):
