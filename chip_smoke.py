@@ -4,7 +4,7 @@
     python3 chip_smoke.py [--record PATH]
                           [--phases k1,k9,fft,scan,main,style,comp,fx,cli,
                                     mfcc,long,multitrack,dtype,autodiff,
-                                    nofast,eval,pst,clap,train]
+                                    nofast,eval,pst,clap,train,mesh]
 
 Phases, in order; any failure raises and the script exits non-zero:
 
@@ -182,7 +182,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    kernel) for 4 steps on a ``generate_style_dataset`` of 32, ms a step
    and peak; ``run_learned_inference`` from its state, timed, its
    parameters within 1e-5 of the CPU's;
-22. the ``kernels`` JSON line, then the card line and the result line.
+22. ``mesh``: the device mesh (``st_ito_torch.parallel``). (a) An NCCL
+   group of world size 1 on the card: ``run_es`` at the headline (the
+   ``main`` phase's run in mega2, one block of 2 generations) held bit for
+   bit against the same run without a group, its launches counted; then 2
+   pretext steps at ``cfg/pretext-panns.yaml`` (batch 32) on the "data"
+   mesh, each against the same step without a group from the same state,
+   by the ``train`` phase's rules (loss 1e-5 relative, the gradient within
+   1e-3 relative L2: cuDNN's float32 backward sums differ from run to
+   run). (b) 2 gloo ranks on the
+   one card, started by the phase (NCCL refuses two ranks on one card):
+   the headline population split at 256 a rank, the fitness in float32
+   (the split population's K1, K3 and K4 at B 256, the fitness
+   all-gathered through host memory) within 1e-5 of one process's on the
+   same population, then a block of ``run_es`` whose first generation's
+   best lies within 1e-5 of one process's; both ranks return the same;
+23. the ``kernels`` JSON line, then the card line and the result line.
    A kernel's launches there come from the timed run of a path that
    launches it: K11's from ``fx``, the one path that does.
 Each phase logs the card's SM and memory clocks, power draw and
@@ -336,6 +351,15 @@ TRAIN_GRAD_REL = 1e-3
 # against the CPU misses
 TRAIN_GRAD_WITNESS = 4.0
 LEARNED_TOL = 1e-5
+# the mesh phase: (a) an NCCL group of world size 1, held bit for bit
+# (run_es) and by the train phase's rules (MESH_STEPS pretext steps);
+# (b) 2 gloo ranks on the one card at MESH_POP_RANK candidates a rank, the
+# fitness in float32 held within MESH_FIT_ABS of one process's, and the
+# first pretext step on their "data" mesh by the train phase's rules
+MESH_STEPS = 2
+MESH_RANKS = 2
+MESH_POP_RANK = 256
+MESH_FIT_ABS = 1e-5
 # kernel launches of one sub-batch render of each registry effect alone
 # (build_batched_render_fn, fast=True, T 262144)
 DATAGEN_KERNELS = {
@@ -353,7 +377,7 @@ SCAN_EFFECTS = ("parametric_eq", "compressor", "noise_gate",
                 "multiband_compressor", "limiter", "phaser")
 PHASES = ("k1", "k9", "fft", "scan", "main", "style", "comp", "fx", "cli",
           "mfcc", "long", "multitrack", "dtype", "autodiff", "nofast",
-          "eval", "pst", "clap", "train")
+          "eval", "pst", "clap", "train", "mesh")
 
 
 def log(*a):
@@ -3341,6 +3365,411 @@ def phase_train(dev, rec):
         raise AssertionError(f"train phase gates missed: {failed}")
 
 
+# ------------------------------------------------------------------ mesh
+
+
+def mesh_inputs(dev):
+    """The headline's basic chain, input, styled target and a population
+    of POP candidates (numpy seed 3)."""
+    from st_ito_torch.chain import basic_chain
+
+    chain = basic_chain()
+    x = program_audio(0, T_HEAD)
+    y = styled_target(x, chain, dev, 1)
+    W = torch.from_numpy(np.random.default_rng(3).uniform(
+        0.1, 0.9, (POP, chain.num_params)).astype(np.float32))
+    return chain, x, y, W
+
+
+def mesh_es_args(dev, **changes):
+    """``run_es``'s arguments at the headline, one block of GENS
+    generations in mega2."""
+    return dict(dict(popsize=POP, find_w0=False, sigma0=0.33,
+                     crop_len=T_HEAD, seed=0, verbose=False,
+                     early_stop_patience=10**9, gens_per_dispatch=GENS,
+                     fft_mode="mega2", max_iters=GENS, device=dev),
+                **changes)
+
+
+def mesh_pretext(dev):
+    """The estimator's config at ``cfg/pretext-panns.yaml`` and MESH_STEPS
+    global batches of its size (numpy seed 7) on ``dev``."""
+    from st_ito_torch.cli import train as train_cli
+    from st_ito_torch.cli import yaml_subset
+    from st_ito_torch.train import ParamEstimatorConfig
+
+    cfg = yaml_subset.load(os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "cfg", "pretext-panns.yaml"))
+    enc = train_cli._encoder_config(cfg["model"]["encoder"])
+    mcfg = {k: v for k, v in cfg["model"].items() if k != "encoder"}
+    pcfg = ParamEstimatorConfig(encoder=enc, **mcfg)
+    bs, T = cfg["data"]["batch_size"], cfg["data"]["length"]
+    rng = np.random.default_rng(7)
+
+    def batch():
+        audio = lambda: torch.from_numpy((rng.standard_normal(
+            (bs, 2, T)) * 0.3).astype(np.float32)).to(dev)
+        return {"inputs": audio(), "outputs": audio(),
+                "instance_index": torch.from_numpy(rng.integers(
+                    0, pcfg.num_instances, bs)).to(dev),
+                "preset_index": torch.from_numpy(rng.integers(
+                    0, pcfg.num_presets, bs)).to(dev),
+                "tar_index": torch.zeros(bs, dtype=torch.long, device=dev)}
+
+    return pcfg, [batch() for _ in range(MESH_STEPS)]
+
+
+def state_digest(state) -> str:
+    """sha256 of a trainer's state: the model's parameters and buffers and
+    the optimisers' moments."""
+    import hashlib
+
+    tensors = list(state.model.state_dict().values())
+    for opt in (state.opt, state.d_opt):
+        if opt is not None:
+            for st in opt.state.values():
+                tensors += [v for v in st.values() if torch.is_tensor(v)]
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def pretext_step_witness(pcfg, batch, dev):
+    """The first pretext step without a group on the card, from
+    ``init_param_estimator``'s seed 0 and generator seed 0, in float32 and
+    again in float64 (the witness) with the float32 run's draws and
+    time-max frames replayed (``DrawLog``): (loss, {name: gradient}, ms)
+    of each, and the float64 run's time maxes whose own frame differs."""
+    import dataclasses
+
+    from st_ito_torch.train import init_param_estimator, make_param_train_step
+
+    draws = DrawLog()
+    out = []
+    try:
+        for f64 in (False, True):
+            state = init_param_estimator(pcfg, seed=0, device=dev)
+            b = batch
+            if f64:
+                model = state.model.double()
+                model.encoder.config = dataclasses.replace(
+                    model.encoder.config, compute_dtype="float64")
+                b = {k: v.double() if v.is_floating_point() else v
+                     for k, v in batch.items()}
+                left = draws.replay(dev)
+            else:
+                draws.record()
+            gen = torch.Generator(device=dev).manual_seed(0)
+            step = make_param_train_step(pcfg)
+            (state, metrics), ms = once_ms(lambda: step(state, b, gen))
+            if f64 and (left[0] or left[1]):
+                raise AssertionError("float32 draws left unused")
+            out.append((float(metrics["loss"]),
+                        {n: p.grad.double().cpu() for n, p in
+                         state.model.named_parameters()
+                         if p.grad is not None}, ms))
+            del state, metrics
+            torch.cuda.empty_cache()
+    finally:
+        draws.restore()
+    return out[0], out[1], draws.flips
+
+
+def mesh_rank_job(rank, folder):
+    """One of MESH_RANKS gloo ranks on the one card (NCCL refuses two
+    ranks on one GPU): the float32 fitness of the headline population
+    split over the ranks, then a block of ``run_es``, then the first
+    pretext step on the same ranks as a "data" mesh (the global-batch
+    BatchNorm, the gathered draws and the gradients averaged through host
+    memory); its results saved to ``folder/rank{rank}.pt``."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from st_ito_torch.ito import make_fitness_fn, run_es
+    from st_ito_torch.models import get_param_embeds, load_param_model
+    from st_ito_torch.parallel import make_mesh
+    from st_ito_torch.train import init_param_estimator, make_param_train_step
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{os.path.join(folder, 'store')}",
+        rank=rank, world_size=MESH_RANKS,
+        timeout=datetime.timedelta(seconds=600))
+    try:
+        mesh = make_mesh(MESH_RANKS, "pop", device="cuda", backend="gloo")
+        dev = mesh.device
+        model = load_param_model(allow_random=True, seed=0, device=dev)
+        chain, x, y, W = mesh_inputs(dev)
+        fit = make_fitness_fn(chain, model, SR, 2, mesh=mesh,
+                              compute_dtype="float32", fft_mode="mega2",
+                              device=dev)
+        tgt = get_param_embeds(y, model, SR)
+        launch_counts(reset=True)
+        fv, fit_ms = once_ms(lambda: fit(W, x[0], tgt))
+        fit_launches = launch_counts()
+        del fit
+        torch.cuda.empty_cache()
+        args = mesh_es_args(dev, mesh=mesh, fitness_dtype="float32")
+        run_es(x, y, SR, chain, model, **args)  # warm-up
+        torch.cuda.synchronize()
+        launch_counts(reset=True)
+        res = run_es(x, y, SR, chain, model, **args)
+        out = {"fitness": fv.cpu(), "fitness_ms": fit_ms,
+               "fitness_launches": fit_launches,
+               "launches": launch_counts(),
+               "fval_history": [float(v) for v in res["fval_history"]],
+               "wopt": torch.from_numpy(np.asarray(res["wopt"])),
+               "ms_per_generation": 1e3 * res["time_elapsed"] / GENS,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated(dev)}
+        del model, x, y, W, tgt, res
+        torch.backends.cuda.cufft_plan_cache.clear()
+        torch.cuda.empty_cache()
+
+        pcfg, batches = mesh_pretext(dev)
+        state = init_param_estimator(pcfg, seed=0, device=dev)
+        step = make_param_train_step(
+            pcfg, make_mesh(MESH_RANKS, "data", device="cuda",
+                            backend="gloo"))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        (state, metrics), out["pretext_ms"] = once_ms(
+            lambda: step(state, batches[0], gen))
+        out["pretext_loss"] = float(metrics["loss"])
+        out["pretext_digest"] = state_digest(state)
+        if rank == 0:
+            out["pretext_grads"] = {n: p.grad.cpu() for n, p in
+                                    state.model.named_parameters()
+                                    if p.grad is not None}
+        torch.save(out, os.path.join(folder, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def mesh_pretext_steps(pcfg, batches, dev, mesh):
+    """MESH_STEPS pretext steps from one seed, each run twice from the same
+    state and generator state, without a group and on ``mesh``: per step
+    (loss, gradients, ms) of each. The run goes on from the step without a
+    group: a later step held against a state that cuDNN's float32 backward
+    sums had already moved apart would measure them, not the mesh."""
+    import copy
+
+    from st_ito_torch.train import init_param_estimator, make_param_train_step
+
+    state = init_param_estimator(pcfg, seed=0, device=dev)
+    steps = {"ref": make_param_train_step(pcfg),
+             "mesh": make_param_train_step(pcfg, mesh)}
+    gen = torch.Generator(device=dev).manual_seed(0)
+    out = []
+    for batch in batches:
+        start = gen.get_state()
+        twin = copy.deepcopy(state)
+        row = {}
+        for label, st in (("ref", state), ("mesh", twin)):
+            gen.set_state(start)
+            (st, metrics), ms = once_ms(
+                lambda: steps[label](st, batch, gen))
+            row[label] = (float(metrics["loss"]),
+                          {n: p.grad.double().cpu() for n, p in
+                           st.model.named_parameters()
+                           if p.grad is not None}, ms)
+        out.append(row)
+        del twin
+    del state
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_mesh(dev, model, rec):
+    """The device mesh (ROADMAP §1 item 13). (a) An NCCL group of world
+    size 1 on the card: ``run_es`` at the headline (popsize 512, stereo T
+    262144, the basic chain in mega2, the deployed Cnn14) for one block of
+    GENS generations, held bit for bit against the same run without a
+    group, its launches counted (K1, K3, K4 once a generation); then
+    MESH_STEPS pretext steps at ``cfg/pretext-panns.yaml`` on the "data"
+    mesh, each against the same step without a group from the same state
+    (``mesh_pretext_steps``), by the train phase's rules: the loss within
+    TRAIN_LOSS_REL, the gradient within TRAIN_GRAD_REL (relative L2, rule
+    (a); cuDNN's float32 backward sums differ from run to run, so not bit
+    for bit). (b) MESH_RANKS gloo ranks on the one card,
+    started here: the headline population split at MESH_POP_RANK a rank
+    (the split population's K1, K3 and K4 at B 256 and the fitness
+    all-gathered), the fitness in float32 within MESH_FIT_ABS of one
+    process's on the same population, then a block of ``run_es``, its
+    first generation's best within MESH_FIT_ABS of one process's; then the
+    first pretext step on the same ranks as a "data" mesh (16 rows a rank,
+    the global-batch BatchNorm, the gradients all-reduced over gloo through
+    host memory), held against the same step in one process by the train
+    phase's rules: the loss within TRAIN_LOSS_REL, the gradient by rule (a)
+    (within TRAIN_GRAD_REL) or rule (b) (no farther from the float64
+    witness, ``pretext_step_witness``, than TRAIN_GRAD_WITNESS times the
+    one process's float32 gradient); both ranks return the same results
+    and end in the same state."""
+    import tempfile
+
+    from st_ito_torch.ito import make_fitness_fn, run_es
+    from st_ito_torch.models import get_param_embeds
+    from st_ito_torch.parallel import make_mesh
+
+    chain, x, y, W = mesh_inputs(dev)
+    # (a) run_es, world size 1 over NCCL, against no group (after a
+    # warm-up run)
+    run_es(x, y, SR, chain, model, **mesh_es_args(dev))
+    ref = run_es(x, y, SR, chain, model, **mesh_es_args(dev))
+    mesh = make_mesh(1, "pop", device="cuda")
+    try:
+        if mesh.backend != "nccl" or mesh.world_size != 1:
+            raise AssertionError(f"mesh {mesh}")
+        launch_counts(reset=True)
+        got = run_es(x, y, SR, chain, model, **mesh_es_args(dev, mesh=mesh))
+        launches = launch_counts()
+        want = {name: GENS * MODE_KERNELS["mega2"].get(name, 0)
+                for name in launches}
+        if launches != want:
+            raise AssertionError(f"mesh (a): launches {launches}; expected "
+                                 f"{want}")
+        for k in ("fval_history", "wopt", "wopt_history"):
+            if not np.array_equal(np.asarray(got[k]), np.asarray(ref[k])):
+                raise AssertionError(f"mesh (a): run_es {k} differs from "
+                                     f"the run without a group")
+        rec.update(launches=launches,
+                   es_ms_per_generation=1e3 * got["time_elapsed"] / GENS,
+                   es_ref_ms_per_generation=1e3 * ref["time_elapsed"] / GENS,
+                   fval_history=list(got["fval_history"]))
+        log(f"mesh (a): run_es over an NCCL group of 1 bit for bit the "
+            f"run without one: {rec['es_ms_per_generation']!r} ms/generation"
+            f" ({rec['es_ref_ms_per_generation']!r} without), launches "
+            f"{launches}")
+
+        # (a) pretext steps on the "data" mesh (the same group)
+        pcfg, batches = mesh_pretext(dev)
+        steps = mesh_pretext_steps(pcfg, batches, dev,
+                                   make_mesh(1, "data", device="cuda"))
+        del batches
+        rec["pretext"] = []
+        for i, row in enumerate(steps):
+            (l, g, ms), (l0, g0, ms0) = row["mesh"], row["ref"]
+            loss_rel = abs(l - l0) / abs(l0)
+            rel = grad_rel(g, g0)
+            rec["pretext"].append({"loss": l, "loss_rel": loss_rel,
+                                   "grad_rel": rel, "ms": ms,
+                                   "ref_ms": ms0})
+            log(f"mesh (a): pretext step {i + 1}: loss {l!r} ({loss_rel!r} "
+                f"relative from no group), gradient {rel!r} relative L2, "
+                f"{ms!r} ms ({ms0!r} without)")
+            if not (math.isfinite(l) and loss_rel <= TRAIN_LOSS_REL
+                    and rel <= TRAIN_GRAD_REL):
+                raise AssertionError(f"mesh (a): pretext step {i + 1} off "
+                                     f"the run without a group")
+        del steps
+    finally:
+        mesh.close()
+
+    # (b) MESH_RANKS gloo ranks on the card, then one process on the same
+    # work, float32; the ranks run first, with this process's cached
+    # memory (allocator blocks, cuFFT plans) given back to the card
+    torch.backends.cuda.cufft_plan_cache.clear()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info(dev)
+    log(f"mesh (b): {free / 2**30!r} GiB of {total / 2**30!r} free before "
+        f"the ranks start")
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = [spawn(mesh_rank_job, r, tmp) for r in range(MESH_RANKS)]
+        try:
+            t0 = time.perf_counter()
+            while any(job.is_alive() for job in jobs):
+                failed = [job.exitcode for job in jobs
+                          if job.exitcode not in (None, 0)]
+                if failed:
+                    raise AssertionError(f"mesh (b): a rank exited "
+                                         f"{failed[0]}")
+                if time.perf_counter() - t0 > 600:
+                    raise AssertionError("mesh (b): the ranks ran 600 s")
+                time.sleep(0.5)
+            if any(job.exitcode != 0 for job in jobs):
+                raise AssertionError(f"mesh (b): the ranks exited "
+                                     f"{[job.exitcode for job in jobs]}")
+            outs = [torch.load(os.path.join(tmp, f"rank{r}.pt"))
+                    for r in range(MESH_RANKS)]
+        finally:
+            for job in jobs:
+                stop(job)
+    tgt = get_param_embeds(y, model, SR)
+    fit = make_fitness_fn(chain, model, SR, 2, compute_dtype="float32",
+                          fft_mode="mega2", device=dev)
+    fv_ref = fit(W, x[0], tgt).cpu()
+    ref32 = run_es(x, y, SR, chain, model,
+                   **mesh_es_args(dev, fitness_dtype="float32"))
+    del fit, tgt
+    torch.cuda.empty_cache()
+    r0 = outs[0]
+    for r in outs[1:]:
+        if not (torch.equal(r["fitness"], r0["fitness"])
+                and r["fval_history"] == r0["fval_history"]
+                and torch.equal(r["wopt"], r0["wopt"])
+                and r["pretext_loss"] == r0["pretext_loss"]
+                and r["pretext_digest"] == r0["pretext_digest"]):
+            raise AssertionError("mesh (b): the ranks' results or pretext "
+                                 "states differ")
+    per_rank = {name: GENS * MODE_KERNELS["mega2"].get(name, 0)
+                for name in r0["launches"]}
+    for r in outs:
+        if r["launches"] != per_rank or r["fitness_launches"] != {
+                k: v // GENS for k, v in per_rank.items()}:
+            raise AssertionError(f"mesh (b): launches {r['launches']}, "
+                                 f"{r['fitness_launches']}")
+    fit_err = float((r0["fitness"] - fv_ref).abs().max())
+    gen1_err = abs(r0["fval_history"][0] - ref32["fval_history"][0])
+    rec.update(ranks=MESH_RANKS, pop_per_rank=MESH_POP_RANK,
+               fitness_max_abs_err=fit_err, gen1_abs_err=gen1_err,
+               rank_fitness_ms=r0["fitness_ms"],
+               rank_ms_per_generation=r0["ms_per_generation"],
+               ref32_ms_per_generation=1e3 * ref32["time_elapsed"] / GENS,
+               rank_launches=r0["launches"],
+               rank_max_memory_allocated_bytes=[
+                   r["max_memory_allocated_bytes"] for r in outs],
+               fval_history_ranks=r0["fval_history"],
+               fval_history_one=list(ref32["fval_history"]))
+    log(f"mesh (b): {MESH_RANKS} gloo ranks x {MESH_POP_RANK}: float32 "
+        f"fitness {fit_err!r} max abs from one process (limit "
+        f"{MESH_FIT_ABS}), first generation's best {gen1_err!r}; "
+        f"{r0['ms_per_generation']!r} ms/generation "
+        f"({rec['ref32_ms_per_generation']!r} in one process), fitness call "
+        f"{r0['fitness_ms']!r} ms, launches a rank {r0['launches']}")
+    if not (fit_err <= MESH_FIT_ABS and gen1_err <= MESH_FIT_ABS
+            and np.isfinite(r0["fval_history"]).all()):
+        raise AssertionError("mesh (b): the split population's fitness "
+                             "is off one process's")
+    pcfg, batches = mesh_pretext(dev)
+    (l0, g0, ms0), (l64, g64, ms64), flips = pretext_step_witness(
+        pcfg, batches[0], dev)
+    del batches
+    l, g = r0["pretext_loss"], {k: v.double()
+                                for k, v in r0["pretext_grads"].items()}
+    loss_rel = abs(l - l0) / abs(l0)
+    rel = {"ranks_one": grad_rel(g, g0), "ranks_f64": grad_rel(g, g64),
+           "one_f64": grad_rel(g0, g64)}
+    rule = ("a" if rel["ranks_one"] <= TRAIN_GRAD_REL else
+            "b" if rel["ranks_f64"] <= TRAIN_GRAD_WITNESS * rel["one_f64"]
+            else "missed")
+    rec["pretext_ranks"] = {"loss": l, "loss_one": l0, "loss_f64": l64,
+                            "loss_rel": loss_rel, "grad_rel_l2": rel,
+                            "grad_rule": rule, "f64_time_max_flips": flips,
+                            "ms": r0["pretext_ms"], "one_ms": ms0,
+                            "f64_ms": ms64, "states_equal": True}
+    log(f"mesh (b): pretext step 1 on {MESH_RANKS} gloo ranks: loss {l!r} "
+        f"({loss_rel!r} relative from one process's {l0!r}; float64 "
+        f"{l64!r}), gradient relative L2 {json.dumps(rel)}, rule {rule}; "
+        f"the float64 run's own time-max frame differs in {flips}; "
+        f"{r0['pretext_ms']!r} ms ({ms0!r} in one process); the ranks' "
+        f"states equal")
+    if not (math.isfinite(l) and loss_rel <= TRAIN_LOSS_REL
+            and rule != "missed" and set(g) == set(g0)):
+        raise AssertionError("mesh (b): the pretext step on the ranks is "
+                             "off one process's")
+    return rec["launches"]
+
+
 def write_record(path, record):
     if path:
         os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
@@ -3405,7 +3834,7 @@ def main() -> int:
     model = main_rec = None
     launches = {}
     if {"main", "style", "comp", "fx", "long", "multitrack", "dtype",
-            "autodiff", "nofast", "eval"} & set(phases):
+            "autodiff", "nofast", "eval", "mesh"} & set(phases):
         model = load_param_model(allow_random=True, seed=0, device=dev)
     if "main" in phases:
         main_rec = {mode: {} for mode in MODE_KERNELS}
@@ -3457,12 +3886,15 @@ def main() -> int:
     train_rec = {}
     if "train" in phases:
         run("train", phase_train, dev, train_rec)
+    mesh_rec = {}
+    if "mesh" in phases:
+        run("mesh", phase_mesh, dev, model, mesh_rec)
 
     record.update(recs=recs, main=main_rec, style=style_rec, comp=comp_rec,
                   fx=fx_rec, cli=cli_rec, mfcc=mfcc_rec, long=long_rec,
                   multitrack=mt_rec, dtype=dtype_rec, autodiff=ad_rec,
                   nofast=nofast_rec, eval=eval_rec, pst=pst_rec,
-                  clap=clap_rec, train=train_rec)
+                  clap=clap_rec, train=train_rec, mesh=mesh_rec)
     if set(phases) != set(PHASES):
         log(f"partial run (phases {sorted(phases)}): no result line")
         write_record(args.record, record)
@@ -3530,7 +3962,8 @@ def main() -> int:
         for label, r in (("long", long_rec), ("multitrack", mt_rec),
                          ("fx", fx_rec), ("mfcc", mfcc_rec),
                          ("nofast", nofast_rec), ("pst", pst_rec),
-                         ("clap", clap_rec), ("train", train_rec)):
+                         ("clap", clap_rec), ("train", train_rec),
+                         ("mesh", mesh_rec)):
             kernels[-1][f"launches_{label}"] = r["launches"][key]
     record["kernels"] = kernels
     record["script_s"] = time.perf_counter() - t_start

@@ -27,8 +27,13 @@ the local Hugging Face cache only). ``--algorithm autodiff`` is gradient ITO
 51-parameter differentiable processor (``proc.py``), whose synthetic
 target is the JAX CLI's. ``--use-gpu`` and ``--parallel`` are
 accepted and do nothing: the population always renders in parallel on the
-device. Not ported, and raising with its ROADMAP item: ``--num-devices``
-above 1. The convergence plot is best effort (it needs matplotlib).
+device. ``--num-devices N`` above 1 splits the ES population over N ranks
+(``parallel.make_mesh(N, "pop")``): the CLI starts them itself (one
+process each, NCCL with one card a rank, or gloo ranks with ``--device
+cpu``), or, started by ``torchrun``, joins torchrun's group of N; every
+rank computes the same result and rank 0 writes the outputs. As in the
+JAX CLI, gradient ITO does not use the mesh. The convergence plot is best
+effort (it needs matplotlib).
 """
 
 from __future__ import annotations
@@ -91,13 +96,10 @@ def synthetic_autodiff_target_params() -> np.ndarray:
     return w
 
 
-def _refuse_unported(args) -> None:
-    """Raise for a flag whose path is not ported, naming its ROADMAP §1
-    item."""
-    if args.num_devices > 1:
-        raise NotImplementedError(
-            "--num-devices (a device mesh) is not ported to st_ito_torch yet "
-            "(ROADMAP §1 item 13)")
+def _rank_main(argv):
+    """One rank of ``--num-devices``, in a process ``parallel.launch``
+    started."""
+    main(argv)
 
 
 def main(argv=None):
@@ -134,12 +136,30 @@ def main(argv=None):
                         help="use a randomly initialized encoder when no "
                              "checkpoint is available (offline testing)")
     parser.add_argument("--num-devices", type=int, default=0,
-                        help="shard the population over this many devices "
-                             "(not ported: 0 or 1)")
+                        help="shard the population over this many ranks, "
+                             "one device each")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (the default) or cpu")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
-    _refuse_unported(args)
+
+    import torch.distributed as dist
+
+    from st_ito_torch.parallel import launch, make_mesh
+    from st_ito_torch.parallel.mesh import default_backend
+    from st_ito_torch.utils import resolve_device
+
+    mesh = None
+    if args.num_devices > 1:
+        resolve_device(args.device)
+        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            from st_ito_torch.cli import run_optim
+
+            launch(run_optim._rank_main, (argv,), args.num_devices,
+                   default_backend(args.device))
+            return None
+        mesh = make_mesh(args.num_devices, "pop", device=args.device)
+    lead = mesh is None or mesh.rank == 0
 
     from st_ito_torch import proc
     from st_ito_torch.chain import build_render_fn
@@ -149,11 +169,12 @@ def main(argv=None):
                                               load_mfcc_feature_extractor,
                                               load_param_model)
     from st_ito_torch.ops.resample import resample
-    from st_ito_torch.utils import load_audio, resolve_device, save_audio
+    from st_ito_torch.utils import load_audio, save_audio
 
-    dev = resolve_device(args.device)
+    dev = mesh.device if mesh is not None else resolve_device(args.device)
     sample_rate = 48000
-    os.makedirs(args.output_dir, exist_ok=True)
+    if lead:
+        os.makedirs(args.output_dir, exist_ok=True)
 
     chain = build_chain(args.effect_type, args.algorithm)
 
@@ -205,13 +226,13 @@ def main(argv=None):
 
     run_name = f"{input_name}_to_{target_name}_{args.algorithm}"
     run_dir = os.path.join(args.output_dir, run_name)
-    os.makedirs(run_dir, exist_ok=True)
-
-    save_audio(os.path.join(run_dir, "input_audio.wav"), input_audio,
-               sample_rate)
-    t = target_audio.cpu().numpy()
-    save_audio(os.path.join(run_dir, "target_audio.wav"),
-               t / max(np.abs(t).max(), 1e-8), sample_rate)
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        save_audio(os.path.join(run_dir, "input_audio.wav"), input_audio,
+                   sample_rate)
+        t = target_audio.cpu().numpy()
+        save_audio(os.path.join(run_dir, "target_audio.wav"),
+                   t / max(np.abs(t).max(), 1e-8), sample_rate)
 
     # ---- run ----
     sigma0 = args.sigma0
@@ -228,9 +249,13 @@ def main(argv=None):
             popsize=args.popsize, find_w0=True, sigma0=sigma0,
             distance="cosine", dropout=args.dropout, savepop=args.savepop,
             normalize_stages=args.normalize_stages, run_dir=run_dir,
-            seed=args.seed, chunked=args.chunked,
+            seed=args.seed, mesh=mesh, chunked=args.chunked,
             gens_per_dispatch=args.gens_per_dispatch,
             pop_microbatch=args.pop_microbatch, device=dev)
+    if mesh is not None:
+        mesh.close()
+    if not lead:
+        return result
 
     # ---- save results ----
     out = result["output_audio"][0].cpu().numpy()

@@ -21,8 +21,14 @@ the reference got from Lightning:
 - ``encoder.npz`` exported after pretext training through
   ``export_encoder_npz``, which ``load_param_model`` reads.
 
-One card: ``--num-devices`` above 1 (data parallelism) is ROADMAP §1 item
-13 and raises.
+``--num-devices N`` above 1 (or ``num_devices`` in the YAML) is data
+parallelism over N ranks (``parallel.make_mesh(N, "data")``): the CLI
+starts them itself (NCCL with one card a rank, or gloo ranks with
+``--device cpu``), or, started by ``torchrun``, joins torchrun's group of
+N. Every rank reads the same global batches with the same seed and steps
+on its rows of each; rank 0 alone writes the config copy, the
+checkpoints, ``encoder.npz`` and the metrics, and runs the pretext
+validation; ``--resume`` reads the checkpoint on every rank.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import sys
 import time
 
 import numpy as np
@@ -169,20 +176,17 @@ def to_device(batch: dict, dev: torch.device) -> dict:
     return out
 
 
-def _run_dir(cfg, args, default):
+def _run_dir(cfg, args, default, lead=True):
     run_dir = args.run_dir or os.path.join("runs", cfg.get("name", default))
-    os.makedirs(run_dir, exist_ok=True)
-    with open(os.path.join(run_dir, "config.yaml"), "w") as f:
-        f.write(yaml_subset.dumps(cfg))
+    if lead:
+        os.makedirs(run_dir, exist_ok=True)
+        with open(os.path.join(run_dir, "config.yaml"), "w") as f:
+            f.write(yaml_subset.dumps(cfg))
     return run_dir
 
 
-def _no_mesh(cfg, args):
-    n_dev = args.num_devices or cfg.get("num_devices", 0)
-    if n_dev and n_dev > 1:
-        raise NotImplementedError(
-            f"--num-devices {n_dev}: data parallelism over several devices "
-            f"is ROADMAP §1 item 13, not ported; the port trains on one card")
+def _device(args, mesh):
+    return mesh.device if mesh is not None else resolve_device(args.device)
 
 
 def _took_a_step(step: int, epoch_start: int) -> None:
@@ -196,7 +200,7 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def train_pretext(cfg: dict, args) -> dict:
+def train_pretext(cfg: dict, args, mesh=None) -> dict:
     from st_ito_torch.data import NpzShardDataset, prefetch_batches
     from st_ito_torch.models.registry import export_encoder_npz
     from st_ito_torch.train import (ParamEstimatorConfig,
@@ -204,24 +208,26 @@ def train_pretext(cfg: dict, args) -> dict:
                                     make_param_train_step)
     from st_ito_torch.train.param import param_estimator_loss
 
-    _no_mesh(cfg, args)
-    dev = resolve_device(args.device)
+    dev = _device(args, mesh)
+    lead = mesh is None or mesh.rank == 0
     model_cfg = dict(cfg.get("model", {}))
     encoder_type = model_cfg.get("encoder_type", "cnn14")
     enc = _encoder_config(model_cfg.pop("encoder", {}), encoder_type)
     pcfg = ParamEstimatorConfig(encoder=enc, **model_cfg)
 
-    run_dir = _run_dir(cfg, args, "pretext")
-    logger = MetricsLogger(run_dir)
+    run_dir = _run_dir(cfg, args, "pretext", lead)
+    logger = MetricsLogger(run_dir) if lead else None
     seed = cfg.get("seed", 0)
     state = init_param_estimator(pcfg, seed=seed, device=dev)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
     if args.resume:
         state, start_step = restore_checkpoint(ckpt_dir, state)
-        print(f"resumed from step {start_step}", flush=True)
+        if lead:
+            print(f"resumed from step {start_step}", flush=True)
 
-    step_fn = make_param_train_step(pcfg)
+    step_fn = make_param_train_step(pcfg, mesh)
     data_cfg = cfg.get("data", {})
     shard_dir = args.shard_dir or data_cfg["shard_dir"]
     ds = NpzShardDataset(
@@ -230,11 +236,13 @@ def train_pretext(cfg: dict, args) -> dict:
         batch_size=data_cfg.get("batch_size", 32),
         seed=seed,
     )
-    print(f"decode: {'native' if ds.use_native else 'numpy'}", flush=True)
+    if lead:
+        print(f"decode: {'native' if ds.use_native else 'numpy'}",
+              flush=True)
 
     val_ds = None
     val_dir = args.val_shard_dir or data_cfg.get("val_shard_dir")
-    if val_dir:
+    if val_dir and lead:
         val_ds = NpzShardDataset(
             val_dir, length=data_cfg.get("length", 262144),
             batch_size=data_cfg.get("batch_size", 32), seed=seed + 1,
@@ -298,7 +306,7 @@ def train_pretext(cfg: dict, args) -> dict:
             _sync(dev)
             step_s.append(time.perf_counter() - ts)
             step = state.step
-            if step % log_every == 0:
+            if step % log_every == 0 and lead:
                 metrics = dict(metrics)
                 metrics["examples_per_sec"] = (
                     log_every * len(batch["inputs"])
@@ -307,46 +315,49 @@ def train_pretext(cfg: dict, args) -> dict:
                 logger.log(step, metrics)
             if val_ds is not None and val_every and step % val_every == 0:
                 run_validation(step)
-            if step % ckpt_every == 0:
+            if step % ckpt_every == 0 and lead:
                 save_checkpoint(ckpt_dir, state, step)
             if step >= max_steps:
                 break
         _took_a_step(step, epoch_start)
-    save_checkpoint(ckpt_dir, state, step)
     export_path = os.path.join(run_dir, "encoder.npz")
-    export_encoder_npz(state.model.encoder.state_dict(), export_path,
-                       config=pcfg.encoder)
-    print(f"done at step {step}; checkpoints in {ckpt_dir}; "
-          f"encoder exported to {export_path}", flush=True)
+    if lead:
+        save_checkpoint(ckpt_dir, state, step)
+        export_encoder_npz(state.model.encoder.state_dict(), export_path,
+                           config=pcfg.encoder)
+        print(f"done at step {step}; checkpoints in {ckpt_dir}; "
+              f"encoder exported to {export_path}", flush=True)
     return {"state": state, "step_s": step_s, "run_dir": run_dir,
             "use_native": ds.use_native}
 
 
-def train_style(cfg: dict, args) -> dict:
+def train_style(cfg: dict, args, mesh=None) -> dict:
     from st_ito_torch.data import StyleShardDataset, prefetch_batches
     from st_ito_torch.train.style import (StyleTransferConfig,
                                           StyleTransferSystem)
     from st_ito_torch.utils import save_audio
 
-    _no_mesh(cfg, args)
-    dev = resolve_device(args.device)
+    dev = _device(args, mesh)
+    lead = mesh is None or mesh.rank == 0
     model_cfg = dict(cfg.get("model", {}))
     enc = _encoder_config(model_cfg.pop("encoder", {}))
     chain = _build_chain(model_cfg.pop("chain", "basic"))
     scfg = StyleTransferConfig(encoder=enc, **model_cfg)
     system = StyleTransferSystem(scfg, chain=chain, device=dev)
 
-    run_dir = _run_dir(cfg, args, "style")
-    logger = MetricsLogger(run_dir)
+    run_dir = _run_dir(cfg, args, "style", lead)
+    logger = MetricsLogger(run_dir) if lead else None
     seed = cfg.get("seed", 0)
     state = system.init(seed)
     ckpt_dir = os.path.join(run_dir, "checkpoints")
-    os.makedirs(ckpt_dir, exist_ok=True)
+    if lead:
+        os.makedirs(ckpt_dir, exist_ok=True)
     if args.resume:
         state, start_step = restore_checkpoint(ckpt_dir, state)
-        print(f"resumed from step {start_step}", flush=True)
+        if lead:
+            print(f"resumed from step {start_step}", flush=True)
 
-    step_fn = system.make_train_step()
+    step_fn = system.make_train_step(mesh)
     eval_fn = system.make_eval_step()
     data_cfg = cfg.get("data", {})
     shard_dir = args.shard_dir or data_cfg["shard_dir"]
@@ -376,15 +387,17 @@ def train_style(cfg: dict, args) -> dict:
             _sync(dev)
             step_s.append(time.perf_counter() - ts)
             step = state.step
-            if step % log_every == 0:
+            if step % log_every == 0 and lead:
                 metrics = dict(metrics)
                 metrics["examples_per_sec"] = (
                     log_every * len(batch["input_audio"])
                     / max(time.perf_counter() - t0, 1e-9))
                 t0 = time.perf_counter()
                 logger.log(step, metrics)
+            # every rank evaluates, so that every rank's generator advances
             if val_every and step % val_every == 0:
                 _, (vmetrics, aux) = eval_fn(state.model, batch, gen)
+            if val_every and step % val_every == 0 and lead:
                 logger.log(step, vmetrics, prefix="val")
                 # audio snapshot (LogAudioCallback equivalent)
                 audio_dir = os.path.join(run_dir, "audio")
@@ -393,13 +406,14 @@ def train_style(cfg: dict, args) -> dict:
                 out = out / max(np.abs(out).max(), 1e-8)
                 save_audio(os.path.join(audio_dir, f"val_step{step}.wav"),
                            out, scfg.sample_rate)
-            if step % ckpt_every == 0:
+            if step % ckpt_every == 0 and lead:
                 save_checkpoint(ckpt_dir, state, step)
             if step >= max_steps:
                 break
         _took_a_step(step, epoch_start)
-    save_checkpoint(ckpt_dir, state, step)
-    print(f"done at step {step}; checkpoints in {ckpt_dir}", flush=True)
+    if lead:
+        save_checkpoint(ckpt_dir, state, step)
+        print(f"done at step {step}; checkpoints in {ckpt_dir}", flush=True)
     return {"state": state, "system": system, "step_s": step_s,
             "run_dir": run_dir}
 
@@ -415,15 +429,41 @@ def main(argv=None):
     parser.add_argument("--resume", action="store_true")
     parser.add_argument("--device", type=str, default="cuda",
                         help="cuda (default) or cpu")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
 
     cfg = load_config(args.config)
     task = cfg.get("task", "pretext")
-    if task == "pretext":
-        return train_pretext(cfg, args)
-    if task == "style":
-        return train_style(cfg, args)
-    raise ValueError(f"unknown task: {task}")
+    if task not in ("pretext", "style"):
+        raise ValueError(f"unknown task: {task}")
+    mesh = None
+    n_dev = args.num_devices or cfg.get("num_devices", 0)
+    if n_dev and n_dev > 1:
+        import torch.distributed as dist
+
+        from st_ito_torch.parallel import launch, make_mesh
+        from st_ito_torch.parallel.mesh import default_backend
+
+        resolve_device(args.device)
+        if not dist.is_initialized() and "WORLD_SIZE" not in os.environ:
+            from st_ito_torch.cli import train
+
+            launch(train._rank_main, (argv,), n_dev,
+                   default_backend(args.device))
+            return None
+        mesh = make_mesh(n_dev, "data", device=args.device)
+    run = train_pretext if task == "pretext" else train_style
+    try:
+        return run(cfg, args, mesh)
+    finally:
+        if mesh is not None:
+            mesh.close()
+
+
+def _rank_main(argv):
+    """One rank of ``--num-devices``, in a process ``parallel.launch``
+    started."""
+    main(argv)
 
 
 if __name__ == "__main__":

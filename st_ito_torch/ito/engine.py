@@ -37,6 +37,9 @@ from st_ito_torch.ito.cmaes import CMAES
 from st_ito_torch.models.cnn14 import no_tf32
 from st_ito_torch.models.registry import embed_in_chunks, get_param_embeds
 from st_ito_torch.ops.iir import next_pow2
+from st_ito_torch.parallel.collectives import (all_gather_rows,
+                                               gather_rows_to_root, sharded,
+                                               shard_rows)
 from st_ito_torch.utils import (batch_peak_normalize, phase_timer,
                                 resolve_device, save_audio)
 
@@ -84,9 +87,16 @@ def _model_dtype_variant(model, compute_dtype: str):
         model, config=dataclasses.replace(cfg, compute_dtype=compute_dtype))
 
 
-def _not_ported(what: str, item: str):
-    raise NotImplementedError(f"{what} is not ported to st_ito_torch yet "
-                              f"(ROADMAP §1 item {item})")
+def _check_mesh(mesh, dev) -> bool:
+    """Whether this process leads (writes files and prints): rank 0 of
+    ``mesh``, or the only process. Raises where the mesh's ranks are not
+    on ``dev``'s kind of device."""
+    if mesh is None:
+        return True
+    if mesh.device.type != dev.type:
+        raise ValueError(f"the mesh's ranks run on {mesh.device}, the "
+                         f"entry point on {dev}")
+    return mesh.rank == 0
 
 
 def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
@@ -119,11 +129,19 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     ``build_render_fn`` instead (plain PyTorch, no kernel). An
     ``embed_func`` marked ``host_side`` (the JAX package's mark for an
     embed its jitted program cannot trace) is scored as any other: the
-    port has no trace barrier."""
+    port has no trace barrier.
+
+    ``mesh`` (``parallel.make_mesh``, axis "pop"): every rank is called
+    with the whole W; it renders and embeds its rows [r pop / w, (r + 1)
+    pop / w), its dropout masks its rows of the whole population's
+    (``parallel.global_draw``, so every rank's ``rng`` advances as one
+    process's does), and the fitness values are all-gathered: every rank
+    returns the whole (pop,). With return_audio the embeddings are
+    all-gathered and the renders gathered to rank 0 (None elsewhere).
+    ``pop_microbatch`` is ignored under a mesh, as in the JAX package."""
     dev = resolve_device(device)
-    if mesh is not None:
-        _not_ported("a device mesh", "13")
-    if return_audio or dropout > 0.0:
+    _check_mesh(mesh, dev)
+    if return_audio or dropout > 0.0 or mesh is not None:
         pop_microbatch = None
     model = _model_dtype_variant(model,
                                  _resolve_fitness_dtype(compute_dtype, dev))
@@ -165,6 +183,15 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
     def fitness(W, x, target_embeds, target_content_embeds=None, rng=None):
         W = torch.as_tensor(W, dtype=torch.float32, device=dev)
         x = torch.as_tensor(x, dtype=torch.float32, device=dev)
+        if mesh is not None:
+            with sharded(mesh):
+                fv, out, Y = score(shard_rows(W, mesh), x, target_embeds,
+                                   target_content_embeds, rng)
+            fv = all_gather_rows(fv, mesh)
+            if not return_audio:
+                return fv
+            return (fv, {k: all_gather_rows(v, mesh) for k, v in out.items()},
+                    gather_rows_to_root(Y, mesh))
         if return_audio:
             return score(W, x, target_embeds, target_content_embeds, rng)
         mb = pop_microbatch
@@ -288,8 +315,19 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
     ``output_audio`` is rendered per candidate (``build_render_fn``), as in
     the JAX package: stage by stage, the delay's tail truncated at the
     buffer end before the reverb, where the population renderer's fused
-    group lets it through. Its time is outside ``time_elapsed``."""
+    group lets it through. Its time is outside ``time_elapsed``.
+
+    ``mesh`` (axis "pop"): every rank runs this function with the same
+    arguments; the CMA-ES state is replicated (every rank asks for the same
+    population from the same seed), each rank scores its rows of it
+    (``make_fitness_fn``) and every rank is told the gathered fitness, so
+    every rank returns the same result. Only rank 0 writes the snapshots
+    and ``savepop``'s renders and prints; every rank reads a snapshot on
+    resume. The chunked mode's automatic sub-batch is skipped under a
+    mesh, as in the JAX package."""
     dev = resolve_device(device)
+    lead = _check_mesh(mesh, dev)
+    verbose = verbose and lead
     if distance != "cosine":
         raise ValueError(f"distance={distance!r}: only 'cosine' exists")
     del parallel  # the population always renders in parallel
@@ -372,7 +410,7 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
         fvals, audio = eval_W(W_init)
         total_evals += popsize
         w0 = W_init[int(np.argmin(fvals))]
-        if savepop:
+        if savepop and lead:
             _savepop_to_disk(-1, fvals, audio, run_dir, sample_rate)
     elif w0 is None:
         w0 = np.full(opt_width, 0.5)
@@ -392,8 +430,8 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
             target_embed, target_content_embed, w0, sigma0, popsize,
             max_iters, dropout, gens_per_dispatch, random_crop, crop_len,
             eval_len, early_stop_patience, early_stop_threshold, verbose,
-            es_state_path, es_resume_state, generator, crop_generator,
-            total_evals, fval_history, wopt_history, dev)
+            es_state_path if lead else None, es_resume_state, generator,
+            crop_generator, total_evals, fval_history, wopt_history, dev)
     else:
         es = CMAES(w0, sigma0, popsize=popsize, bounds=(0.0, 1.0), seed=seed)
         if es_resume_state is not None:
@@ -414,9 +452,9 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
                 es.disp()
             wopt_history.append(lift_np(es.result[0]))
             fval_history.append(es.result[1])
-            if es_state_path is not None:
+            if es_state_path is not None and lead:
                 np.savez(es_state_path, **es.state_dict())
-            if savepop:
+            if savepop and lead:
                 _savepop_to_disk(iteration, fvals, audio, run_dir,
                                  sample_rate)
             # early stopping: this generation's best against the best of
@@ -562,10 +600,15 @@ def run_es_multitrack(input_audio, target_audio, sample_rate: int,
     input_audio/target_audio: (tracks, C, T). Returns output_audio
     (tracks, C, T), rendered by the same batched renderer, and per track
     params, fopt, wopt and fval_history, with time_elapsed, total_evals and
-    evals_per_sec."""
+    evals_per_sec.
+
+    ``mesh`` (axis "pop"): each rank renders and embeds its rows of the
+    flat (tracks · pop) axis, with their input copies and target
+    embeddings, its dropout masks its rows of the whole axis's; the fitness
+    values are all-gathered, so every rank's host CMA-ES per track is told
+    the same values and every rank returns the same result."""
     dev = resolve_device(device)
-    if mesh is not None:
-        _not_ported("a device mesh", "13")
+    verbose = verbose and _check_mesh(mesh, dev)
 
     input_audio, target_audio = (
         batch_peak_normalize(torch.as_tensor(a, dtype=torch.float32,
@@ -578,24 +621,31 @@ def run_es_multitrack(input_audio, target_audio, sample_rate: int,
     render = build_batched_render_fn(chain, sample_rate, channels, fast=True,
                                      device=dev)
 
-    # the one copy of the input per candidate, as the JAX package's _rep
-    x_flat = input_audio.repeat_interleave(popsize, dim=0)
+    # the one copy of the input per candidate, as the JAX package's _rep:
+    # flat row i holds track i // popsize (this rank's rows under a mesh)
+    rows = torch.arange(tracks * popsize, device=dev)
+    if mesh is not None:
+        rows = shard_rows(rows, mesh)
+    track_of = rows // popsize
+    x_flat = input_audio.index_select(0, track_of)
     targets = {"mid": target_embeds["mid"],
                "side": target_embeds.get("side", target_embeds["mid"])}
-    targets = {k: v.repeat_interleave(popsize, dim=0)
-               for k, v in targets.items()}
+    targets = {k: v.index_select(0, track_of) for k, v in targets.items()}
     generator = torch.Generator(device=dev).manual_seed(seed)
 
     @torch.no_grad()
     def fitness(W_flat):
+        if mesh is not None:
+            W_flat = shard_rows(W_flat, mesh)
         Y = render(W_flat, x_flat)
-        with phase_timer.span("embed", dev):
+        with phase_timer.span("embed", dev), sharded(mesh):
             kw = ({"dropout": dropout, "generator": generator}
                   if dropout > 0 else {})
             embeds = embed_func(Y, model, sample_rate, **kw)
             dists = [-torch.sum(out * targets[name], dim=-1)
                      for name, out in embeds.items() if name in targets]
-            return torch.mean(torch.stack(dists), dim=0)
+            fvals = torch.mean(torch.stack(dists), dim=0)
+        return fvals if mesh is None else all_gather_rows(fvals, mesh)
 
     num_params = chain.num_params
     ess = [CMAES(np.full(num_params, 0.5), sigma0, popsize=popsize,
@@ -655,8 +705,10 @@ def run_staged_es(input_audio, target_audio, sample_rate: int,
     ``run_dir/stage_{i}_{name}``, snapshots in
     ``{es_state_path}.stage{i}.npz`` (a resumed run replays the finished
     stages, which stop early at once). ``kwargs`` go to ``run_es``, but for
-    find_w0, w0, opt_slice and w_template, which each stage sets."""
+    find_w0, w0, opt_slice and w_template, which each stage sets. ``mesh``
+    goes to every stage's ``run_es``: rank 0 alone writes and prints."""
     dev = resolve_device(device)
+    verbose = verbose and _check_mesh(mesh, dev)
     w_full = np.asarray(chain.init_params(), np.float64)
     fval_history: list[float] = []
     wopt_history: list[np.ndarray] = []

@@ -50,6 +50,8 @@ import torch.nn.functional as F
 
 from st_ito_torch.ops.stft import (frame_signal, hann_window, mel_filterbank,
                                    power_to_db)
+from st_ito_torch.parallel.batchnorm import global_batch_norm
+from st_ito_torch.parallel.collectives import active, global_draw
 
 _BN_EPS = 1e-5
 KEEP = 0.8  # dropout's keep rate after every block in train mode
@@ -112,22 +114,27 @@ def spec_augment_draws(generator: torch.Generator, n: int, frames: int,
                        bins: int, device) -> list:
     """SpecAugment's stripes as [(starts, widths), ...], each (n,) int64:
     the time stripes, then the frequency stripes, each stripe's starts
-    before its widths (the JAX ``_spec_augment`` order)."""
+    before its widths (the JAX ``_spec_augment`` order). Inside a mesh's
+    ``sharded`` scope, this rank's rows of the global batch's draws."""
+    def randint(high):
+        return global_draw(lambda shape: torch.randint(
+            0, high, shape, generator=generator, device=device), (n,))
+
     out = []
     for size, specs in ((frames, TIME_STRIPES), (bins, FREQ_STRIPES)):
         for width, stripes in specs:
             for _ in range(stripes):
-                starts = torch.randint(0, max(size - width, 1), (n,),
-                                       generator=generator, device=device)
-                widths = torch.randint(0, width + 1, (n,),
-                                       generator=generator, device=device)
+                starts = randint(max(size - width, 1))
+                widths = randint(width + 1)
                 out.append((starts, widths))
     return out
 
 
 def dropout_keep(generator: torch.Generator, shape, device) -> torch.Tensor:
-    """Dropout's keep mask (True with probability KEEP)."""
-    return torch.rand(shape, generator=generator, device=device) < KEEP
+    """Dropout's keep mask (True with probability KEEP); this rank's rows
+    of the global batch's inside a mesh's ``sharded`` scope."""
+    return global_draw(lambda s: torch.rand(s, generator=generator,
+                                            device=device), shape) < KEEP
 
 
 def spec_augment(h: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
@@ -265,7 +272,12 @@ class Cnn14(nn.Module):
                              (x[:, 0] - x[:, 1]) / 2.0], dim=1)
         with no_tf32():
             h = self.logmel(x.reshape(batch * chs, seq_len))
-            if cfg.input_norm == "batchnorm":
+            if cfg.input_norm == "batchnorm" and self.training and active():
+                # the global batch's statistics over the active mesh
+                h = global_batch_norm(h.transpose(1, 3), None, None,
+                                      self.bn0.weight, self.bn0.bias, True,
+                                      0.0, _BN_EPS, active()).transpose(1, 3)
+            elif cfg.input_norm == "batchnorm":
                 # in train mode by batch statistics, its update dropped (as
                 # the JAX apply drops it)
                 h = F.batch_norm(h.transpose(1, 3), self.bn0.running_mean,

@@ -31,6 +31,7 @@ import torch
 import torch.nn as nn
 
 from st_ito_torch.models.cnn14 import no_tf32
+from st_ito_torch.parallel.collectives import batch_max, global_draw
 from st_ito_torch.utils import resolve_device
 
 
@@ -147,8 +148,9 @@ class DsTCN(nn.Module):
                 x = block(x)
             e = x.amax(dim=2) + x.mean(dim=2)
             if self.training and generator is not None:
-                keep = torch.rand(e.shape, generator=generator,
-                                  device=e.device) < DSTCN_KEEP
+                keep = global_draw(lambda s: torch.rand(
+                    s, generator=generator, device=e.device),
+                    e.shape) < DSTCN_KEEP
                 e = torch.where(keep, e / DSTCN_KEEP, torch.zeros_like(e))
             e = self.fc(e)
         return e, e
@@ -264,14 +266,15 @@ def load_fx_encoder_model(ckpt_path: str | None = None,
 def get_fx_encoder_embeds(x: torch.Tensor, model: FXEncoderModel,
                           sample_rate, **kwargs) -> dict[str, torch.Tensor]:
     """{"stereo": (B, 2048)}: x (B, C, T) resampled to 44.1 kHz, divided by
-    the batch's peak, mono made stereo, embedded and L2-normalised."""
+    the batch's peak (the global batch's inside a mesh's ``sharded``
+    scope), mono made stereo, embedded and L2-normalised."""
     from st_ito_torch.models.registry import _l2_normalize
     from st_ito_torch.ops.resample import resample
 
     y = x.to(torch.float32)
     if int(sample_rate) != 44100:
         y = resample(y, int(sample_rate), 44100)
-    y = y / torch.clamp_min(y.abs().max(), 1e-8)
+    y = y / torch.clamp_min(batch_max(y.abs().max()), 1e-8)
     if y.shape[1] == 1:
         y = torch.cat([y, y], dim=1)
     return {"stereo": _l2_normalize(model.net(y))}

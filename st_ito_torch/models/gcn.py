@@ -39,6 +39,7 @@ import torch.nn.functional as F
 from st_ito_torch.models.cnn14 import no_tf32
 from st_ito_torch.models.htsat import standardized_logmel
 from st_ito_torch.ops.stft import mel_filterbank
+from st_ito_torch.parallel.collectives import global_draw
 
 _SIZES = {
     "t": ([2, 2, 6, 2], [48, 96, 240, 384]),
@@ -175,7 +176,8 @@ def head_dropout(h: torch.Tensor, generator: torch.Generator
                  ) -> torch.Tensor:
     """Each element kept with probability KEEP (its mask drawn from
     ``generator``, on h's device) and scaled by 1 / KEEP, the rest 0."""
-    keep = torch.rand(h.shape, generator=generator, device=h.device) < KEEP
+    keep = global_draw(lambda s: torch.rand(s, generator=generator,
+                                            device=h.device), h.shape) < KEEP
     return torch.where(keep, h / KEEP, 0.0)
 
 

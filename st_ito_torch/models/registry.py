@@ -27,6 +27,7 @@ from st_ito_torch.models.vggish import get_vggish_embeds  # noqa: F401
 from st_ito_torch.models.wav2clip import get_wav2clip_embeds  # noqa: F401
 from st_ito_torch.ops.resample import resample
 from st_ito_torch.ops.stft import mfcc as _mfcc
+from st_ito_torch.parallel.collectives import global_draw
 from st_ito_torch.utils import resolve_device
 
 
@@ -131,7 +132,9 @@ def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
     element with probability 1 - dropout, scaled by 1 / (1 - dropout),
     before the normalisation, as the JAX package draws its masks from a key
     (``st_ito_tpu/models/registry.py:139-143``); without a generator no
-    element is dropped, as there without a key."""
+    element is dropped, as there without a key. Inside a mesh's
+    ``sharded`` scope the masks are this rank's rows of the global batch's
+    (``parallel.global_draw``)."""
     x = x.to(torch.float32)
     if int(sample_rate) != int(model.config.sample_rate):
         x = resample(x, int(sample_rate), int(model.config.sample_rate))
@@ -143,8 +146,9 @@ def get_param_embeds(x: torch.Tensor, model: ParamModel, sample_rate: float,
         keep = 1.0 - dropout
 
         def drop(e):
-            mask = torch.rand(e.shape, generator=generator, device=e.device,
-                              dtype=torch.float32) < keep
+            mask = global_draw(lambda shape: torch.rand(
+                shape, generator=generator, device=e.device,
+                dtype=torch.float32), e.shape) < keep
             return torch.where(mask, e / keep, 0.0)
 
         mid, side = drop(mid), drop(side)

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 # Enough (32-lane block, chunk) warps to fill the card (132 SMs x 62),
@@ -77,3 +78,47 @@ def gate_excess(got, want32, want64=None, rule_a_lanes=None) -> dict:
         out["a_miss_unexcused"] = int((near & (e_got > A_EXCUSE * e_plain))
                                       .sum())
     return out
+
+
+# The plain versions' serial chain steps one time step at a time over all
+# lanes. On the card it runs torch's operations on x's views; on the CPU
+# numpy's on the same values: each numpy float32 or float64 operation
+# rounds as torch's CPU one does (a product, then a sum, each rounded on its
+# own), so the result is the same bit for bit, at a few times less overhead
+# a call than torch's at a time step's lane counts. A loop written with +,
+# -, * and the names both modules share (``minimum``, ``zeros_like``)
+# serves both; ``tests/test_torch_serial_loops.py`` holds the two equal.
+
+
+def on_host(t: torch.Tensor) -> bool:
+    """Whether the serial chain runs t's steps in numpy (t on the CPU)."""
+    return t.device.type == "cpu"
+
+
+def host(t: torch.Tensor):
+    """t as the serial chain takes it: a numpy view on the CPU, else t."""
+    return t.detach().numpy() if on_host(t) else t
+
+
+def array_module(t: torch.Tensor):
+    """numpy for a tensor on the CPU, else torch."""
+    return np if on_host(t) else torch
+
+
+def serial_steps(x: torch.Tensor):
+    """x (lanes, T) as its T time steps of (lanes,), in ``host``'s form. On
+    the CPU numpy's overflow warnings are off while the loop runs over them,
+    as torch has none."""
+    if not on_host(x):
+        yield from x.unbind(-1)
+        return
+    with np.errstate(over="ignore", invalid="ignore"):
+        yield from np.ascontiguousarray(x.detach().numpy().T)
+
+
+def serial_stack(cols, like: torch.Tensor) -> torch.Tensor:
+    """The chain's T outputs of (lanes,) as a (lanes, T) tensor on like's
+    device."""
+    if on_host(like):
+        return torch.from_numpy(np.stack(cols, axis=1))
+    return torch.stack(cols, dim=1)

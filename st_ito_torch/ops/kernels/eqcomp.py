@@ -109,25 +109,26 @@ def eqcomp_inputs(x, b, a, threshold_db, ratio, knee_db, alpha_attack,
 def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
                  shared_channels: int, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of the kernel: its step, one time step at a
-    time over all lanes. Returns (lanes, T) in ``dtype``: float32 (the
-    kernel's arithmetic) or float64 (a witness of its rounding)."""
+    time over all lanes (the two serial loops on the CPU in numpy,
+    ``chunked.serial_steps``). Returns (lanes, T) in ``dtype``: float32
+    (the kernel's arithmetic) or float64 (a witness of its rounding)."""
     S = num_sections
     lanes = vec.shape[1]
     x_in, vec = x_in.to(dtype), vec.to(dtype)
     if shared_channels:
         chan = torch.arange(lanes, device=x_in.device) % shared_channels
         x_in = x_in[chan]
-    T = x_in.shape[-1]
-    co = [[vec[5 * s + j] for j in range(5)] for s in range(S)]
-    (eq_act, th, slope, knee, aa, ar, mk, comp_act, drive, outg,
+    xp, hv = chunked.array_module(vec), chunked.host(vec)
+    co = [[hv[5 * s + j] for j in range(5)] for s in range(S)]
+    (_, th, slope, knee, _, _, mk, comp_act, drive, outg,
      dist_act) = vec[5 * S:5 * S + _N_TAIL]
+    eq_act, aa, ar = (hv[5 * S + i] for i in (0, 4, 5))
 
     # EQ: serial biquad cascade, then the bypass blend
-    st = [[torch.zeros(lanes, dtype=dtype, device=x_in.device)
-           for _ in range(2)] for _ in range(S)]
+    zero = xp.zeros_like(hv[0])
+    st = [[zero, zero] for _ in range(S)]
     cols = []
-    for t in range(T):
-        xin = x_in[:, t]
+    for xin in chunked.serial_steps(x_in):
         v = xin
         for s in range(S):
             b0, b1, b2, a1, a2 = co[s]
@@ -136,7 +137,7 @@ def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
             st[s] = [b1 * v - a1 * y + s2, b2 * v - a2 * y]
             v = y
         cols.append(eq_act * v + (1.0 - eq_act) * xin)
-    v = torch.stack(cols, dim=1)
+    v = chunked.serial_stack(cols, x_in)
 
     # gain computer on the EQ output (vectorised over time)
     env_db = torch.log(torch.clamp_min(v.abs(), 1e-8)) * _DB_PER_LOG
@@ -148,15 +149,13 @@ def eqcomp_plain(x_in, vec, num_sections: int, with_dist: bool,
                                 slope[:, None] * over, knee_region))
 
     # decoupled ballistics, serial
-    y1 = torch.zeros(lanes, dtype=dtype, device=x_in.device)
-    g = torch.zeros_like(y1)
+    y1 = g = zero
     gs = []
-    for t in range(T):
-        ct = c[:, t]
-        y1 = torch.minimum(ct, ar * y1 + (1.0 - ar) * ct)
+    for ct in chunked.serial_steps(c):
+        y1 = xp.minimum(ct, ar * y1 + (1.0 - ar) * ct)
         g = aa * g + (1.0 - aa) * y1
         gs.append(g)
-    g = torch.stack(gs, dim=1)
+    g = chunked.serial_stack(gs, c)
 
     y = v * torch.exp(g * _LN10_OVER_20) * mk[:, None]
     y = comp_act[:, None] * y + (1.0 - comp_act[:, None]) * v

@@ -137,20 +137,21 @@ def biquad_cascade_plain(x_in, vec, num_sections: int, with_active: bool,
                          shared_channels: int,
                          dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K6: the same operations in the same order,
-    one time step at a time over all lanes. Returns (lanes, T) in
-    ``dtype``: float32 (the kernel's arithmetic) or float64 (a witness of
-    its rounding)."""
+    one time step at a time over all lanes (on the CPU in numpy,
+    ``chunked.serial_steps``). Returns (lanes, T) in ``dtype``: float32 (the
+    kernel's arithmetic) or float64 (a witness of its rounding)."""
     S = num_sections
     lanes = vec.shape[1]
     x_in, vec = x_in.to(dtype), vec.to(dtype)
     if shared_channels:
         x_in = x_in[torch.arange(lanes, device=x_in.device) % shared_channels]
-    co = [[vec[5 * s + j] for j in range(5)] for s in range(S)]
-    act = vec[5 * S] if with_active else None
-    st = [[torch.zeros(lanes, dtype=dtype, device=x_in.device)
-           for _ in range(2)] for _ in range(S)]
+    h = chunked.host(vec)
+    co = [[h[5 * s + j] for j in range(5)] for s in range(S)]
+    act = h[5 * S] if with_active else None
+    zero = chunked.array_module(vec).zeros_like(h[0])
+    st = [[zero, zero] for _ in range(S)]
     cols = []
-    for xin in x_in.unbind(-1):
+    for xin in chunked.serial_steps(x_in):
         v = xin
         for s in range(S):
             b0, b1, b2, a1, a2 = co[s]
@@ -161,7 +162,7 @@ def biquad_cascade_plain(x_in, vec, num_sections: int, with_active: bool,
         if act is not None:
             v = act * v + (1.0 - act) * xin
         cols.append(v)
-    return torch.stack(cols, dim=1)
+    return chunked.serial_stack(cols, x_in)
 
 
 def biquad_cascade_cuda(x_in, vec, num_sections: int, with_active: bool,
@@ -326,18 +327,19 @@ def ballistics_inputs(c, alpha_attack, alpha_release):
 
 def ballistics_plain(c_in, vec, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K8: the decoupled detector one time step at
-    a time over all lanes. Returns (lanes, T) in ``dtype``: float32 (the
-    kernel's arithmetic) or float64 (a witness of its rounding)."""
+    a time over all lanes (on the CPU in numpy, ``chunked.serial_steps``).
+    Returns (lanes, T) in ``dtype``: float32 (the kernel's arithmetic) or
+    float64 (a witness of its rounding)."""
     c_in, vec = c_in.to(dtype), vec.to(dtype)
-    aa, ar = vec[0], vec[1]
-    y1 = torch.zeros(c_in.shape[0], dtype=dtype, device=c_in.device)
-    g = torch.zeros_like(y1)
+    xp, h = chunked.array_module(vec), chunked.host(vec)
+    aa, ar = h[0], h[1]
+    y1 = g = xp.zeros_like(aa)
     out = []
-    for ct in c_in.unbind(-1):
-        y1 = torch.minimum(ct, ar * y1 + (1.0 - ar) * ct)
+    for ct in chunked.serial_steps(c_in):
+        y1 = xp.minimum(ct, ar * y1 + (1.0 - ar) * ct)
         g = aa * g + (1.0 - aa) * y1
         out.append(g)
-    return torch.stack(out, dim=1)
+    return chunked.serial_stack(out, c_in)
 
 
 def ballistics_cuda(c_in, vec) -> torch.Tensor:
@@ -383,16 +385,17 @@ def ballistics(c, alpha_attack, alpha_release):
 
 def linear_recurrence_plain(a_in, b_in, dtype=torch.float32) -> torch.Tensor:
     """Plain PyTorch version of K11: y = a*y + b from y = 0, one time step
-    at a time over all lanes. a_in, b_in (lanes, T); returns (lanes, T) in
+    at a time over all lanes (on the CPU in numpy,
+    ``chunked.serial_steps``). a_in, b_in (lanes, T); returns (lanes, T) in
     ``dtype``: float32 (the kernel's arithmetic) or float64 (a witness of
     its rounding)."""
     a_in, b_in = a_in.to(dtype), b_in.to(dtype)
-    y = torch.zeros(a_in.shape[0], dtype=dtype, device=a_in.device)
+    y = chunked.array_module(a_in).zeros_like(chunked.host(a_in[:, 0]))
     out = []
-    for at, bt in zip(a_in.unbind(-1), b_in.unbind(-1)):
+    for at, bt in zip(chunked.serial_steps(a_in), chunked.serial_steps(b_in)):
         y = at * y + bt
         out.append(y)
-    return torch.stack(out, dim=1)
+    return chunked.serial_stack(out, a_in)
 
 
 def linrec_table(lanes: int, T: int, dev):

@@ -1,7 +1,10 @@
 """Audio losses — port of ``st_ito_tpu/ops/losses.py``: the
 multi-resolution STFT loss with auraloss's defaults (FFT sizes 1024, 2048,
 512; hops 120, 240, 50; windows 600, 1200, 240), each resolution's loss
-the spectral convergence plus the log-magnitude L1, averaged."""
+the spectral convergence plus the log-magnitude L1, averaged. Inside a
+mesh's ``sharded`` scope both are the global batch's: the spectral
+convergence's Frobenius norms and the L1's mean come from differentiable
+all-reduces of the ranks' sums."""
 
 from __future__ import annotations
 
@@ -9,6 +12,7 @@ import torch
 import torch.nn.functional as F
 
 from st_ito_torch.ops.stft import frame_signal, hann_window
+from st_ito_torch.parallel.collectives import active, all_reduce_sum
 
 
 def _stft_mag(x: torch.Tensor, fft_size: int, hop: int,
@@ -28,8 +32,17 @@ def stft_loss(pred: torch.Tensor, target: torch.Tensor, fft_size: int,
     """One resolution: spectral convergence + log-magnitude L1."""
     P = _stft_mag(pred, fft_size, hop, win_length)
     T = _stft_mag(target, fft_size, hop, win_length)
-    sc = torch.linalg.norm(T - P) / torch.clamp_min(torch.linalg.norm(T), eps)
-    log_mag = torch.mean(torch.abs(torch.log(T + eps) - torch.log(P + eps)))
+    l1 = torch.abs(torch.log(T + eps) - torch.log(P + eps))
+    mesh = active()
+    if mesh is None:
+        sc = torch.linalg.norm(T - P) / torch.clamp_min(torch.linalg.norm(T),
+                                                         eps)
+        log_mag = torch.mean(l1)
+    else:
+        sums = all_reduce_sum(torch.stack(
+            [((T - P) ** 2).sum(), (T ** 2).sum(), l1.sum()]), mesh)
+        sc = torch.sqrt(sums[0]) / torch.clamp_min(torch.sqrt(sums[1]), eps)
+        log_mag = sums[2] / (l1.numel() * mesh.world_size)
     return w_sc * sc + w_log_mag * log_mag
 
 

@@ -13,6 +13,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from st_ito_torch.parallel.collectives import batch_max
+
 
 def hann_window(n: int, device=None) -> torch.Tensor:
     """Periodic (fftbins=True) Hann window."""
@@ -101,11 +103,12 @@ def power_to_db(S: torch.Tensor, ref: float = 1.0, amin: float = 1e-10,
                 top_db: float | None = None) -> torch.Tensor:
     """10 log10(max(S, amin) / ref); with ``top_db`` floored at the
     maximum over the whole tensor less top_db, as the JAX package takes
-    it."""
+    it (over the global batch inside a mesh's ``sharded`` scope)."""
     log_spec = (10.0 * torch.log10(torch.clamp_min(S, amin))
                 - 10.0 * math.log10(max(amin, ref)))
     if top_db is not None:
-        log_spec = torch.maximum(log_spec, log_spec.max() - top_db)
+        top = batch_max(log_spec.max())
+        log_spec = torch.maximum(log_spec, top - top_db)
     return log_spec
 
 

@@ -22,7 +22,13 @@ the outputs' forward only: the inputs' forward runs under
 The random draws (SpecAugment, dropout) come from the ``torch.Generator``
 passed to a step, the outputs' forward's before the inputs'.
 
-One process, one card: a ``mesh`` (data parallelism) is ROADMAP §1 item 13.
+Data parallelism: ``make_param_train_step(cfg, mesh)`` (axis "data") gives
+each rank its rows of the global batch; every random draw is the global
+batch's, sliced (``parallel.global_draw``), BatchNorm runs on the global
+batch's statistics (``parallel/batchnorm.py``), the gradients are
+all-reduced (mean) before either optimiser steps and the metrics are
+all-reduced means: N ranks compute what one process computes on the whole
+batch, and their states stay equal.
 """
 
 from __future__ import annotations
@@ -37,6 +43,9 @@ import torch.nn.functional as F
 
 from st_ito_torch.models.cnn14 import (Cnn14, Cnn14Config, bn_stats_frozen,
                                        init_cnn14_, no_tf32)
+from st_ito_torch.parallel.collectives import (all_reduce_mean,
+                                               average_gradients, global_draw,
+                                               sharded, shard_rows)
 from st_ito_torch.utils import resolve_device
 
 
@@ -60,11 +69,21 @@ class ParamEstimatorConfig:
         return 4 * d if self.embed_mode == "concat" else 2 * d
 
 
-def no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "data parallelism over a device mesh is ROADMAP §1 item 13, not "
-            "ported: the port trains on one card")
+def shard_batch(batch: dict, mesh) -> dict:
+    """This rank's rows of every array of a global batch (the batch
+    itself without a mesh); raises unless the batch divides over the
+    ranks."""
+    if mesh is None:
+        return batch
+    return {k: shard_rows(v, mesh) for k, v in batch.items()}
+
+
+def reduce_metrics(metrics: dict, mesh) -> dict:
+    """Each metric's mean over the ranks (each rank's a mean over its
+    equal share of the batch)."""
+    if mesh is None:
+        return metrics
+    return {k: all_reduce_mean(v, mesh) for k, v in metrics.items()}
 
 
 def build_encoder(cfg, encoder_type: str, generator: torch.Generator
@@ -273,17 +292,21 @@ def fill_grads(params) -> None:
 
 def train_step(state: ParamTrainState, batch: dict,
                generator: torch.Generator | None,
-               cfg: ParamEstimatorConfig):
-    """One step in place; returns (state, metrics)."""
+               cfg: ParamEstimatorConfig, mesh=None):
+    """One step in place on a global batch (this rank's rows of it under
+    ``mesh``); returns (state, metrics)."""
     model = state.model
+    batch = shard_batch(batch, mesh)
     gen_params = model.generator_parameters()
     for p in model.parameters():
         p.grad = None
-    loss, (metrics, feats) = param_estimator_loss(model, cfg, batch, True,
-                                                  generator)
+    with sharded(mesh, model):
+        loss, (metrics, feats) = param_estimator_loss(model, cfg, batch,
+                                                      True, generator)
     with no_tf32():
         loss.backward()
     fill_grads(gen_params)
+    average_gradients(gen_params, mesh)
     state.opt.step()
 
     if cfg.num_adv_classes > 0:
@@ -293,20 +316,22 @@ def train_step(state: ParamTrainState, batch: dict,
                                   batch) * cfg.adv_weight
             d_loss.backward()
         fill_grads(model.discriminator.parameters())
+        average_gradients(model.discriminator.parameters(), mesh)
         state.d_opt.step()
         metrics["d_loss"] = d_loss.detach()
     state.step += 1
-    return state, metrics
+    return state, reduce_metrics(metrics, mesh)
 
 
 def make_param_train_step(cfg: ParamEstimatorConfig, mesh=None):
     """step(state, batch, generator) -> (state, metrics): one AdamW step
     (and the adversary's Adam step) on batch tensors on the model's
-    device."""
-    no_mesh(mesh)
-
+    device. With ``mesh`` (``parallel.make_mesh``, axis "data") every rank
+    is given the same global batch, of a size that divides over the ranks,
+    and the same generator state, and steps on its rows of it (see the
+    module's docstring)."""
     def step(state, batch, generator=None):
-        return train_step(state, batch, generator, cfg)
+        return train_step(state, batch, generator, cfg, mesh)
 
     return step
 
@@ -317,12 +342,14 @@ def augment_batch(batch: dict, generator: torch.Generator) -> dict:
     (reference: dataset_param.py:218-232), drawn in that order."""
     x = batch["inputs"]
     bs, dev = x.shape[0], x.device
-    gi = 10.0 ** (-torch.rand(bs, generator=generator, device=dev)
-                  * 32.0 / 20.0)
-    go = 10.0 ** (-torch.rand(bs, generator=generator, device=dev)
-                  * 32.0 / 20.0)
-    flip = (torch.rand(bs, generator=generator, device=dev) < 0.5
-            )[:, None, None]
+
+    def rand():
+        return global_draw(lambda s: torch.rand(s, generator=generator,
+                                                device=dev), (bs,))
+
+    gi = 10.0 ** (-rand() * 32.0 / 20.0)
+    go = 10.0 ** (-rand() * 32.0 / 20.0)
+    flip = (rand() < 0.5)[:, None, None]
     out = dict(batch)
     for key, g in (("inputs", gi), ("outputs", go)):
         y = batch[key] * g[:, None, None]

@@ -24,6 +24,13 @@ the input forward's update (the target's runs under ``bn_stats_frozen``).
 ``total_steps > 0`` scales the learning rate by 0.1 from step
 int(0.8 total) and again from int(0.95 total), the boundaries as
 ``optax.piecewise_constant_schedule``'s dict holds them.
+
+Data parallelism: ``make_train_step(mesh)`` (axis "data") steps each rank
+on its rows of the global batch, as ``train/param.py`` does: the input
+peak is the global batch's (an all-reduced max), every draw (the gains,
+the on-the-fly targets' parameters) is the global batch's sliced,
+BatchNorm and the audio loss run on global sums, and the gradients and
+metrics are all-reduced means.
 """
 
 from __future__ import annotations
@@ -41,7 +48,10 @@ from st_ito_torch.chain.executor import build_batched_render_fn
 from st_ito_torch.models.cnn14 import (Cnn14, Cnn14Config, bn_stats_frozen,
                                        init_cnn14_, no_tf32)
 from st_ito_torch.ops.losses import multi_resolution_stft_loss
-from st_ito_torch.train.param import fill_grads, no_mesh, xavier_uniform_
+from st_ito_torch.parallel.collectives import (average_gradients, batch_max,
+                                               global_draw, sharded)
+from st_ito_torch.train.param import (fill_grads, reduce_metrics, shard_batch,
+                                      xavier_uniform_)
 from st_ito_torch.utils import resolve_device
 
 
@@ -257,12 +267,13 @@ class StyleTransferSystem:
         bs, dev = input_audio.shape[0], input_audio.device
 
         def rand(*shape):
-            return torch.rand(shape, generator=generator, device=dev)
+            return global_draw(lambda s: torch.rand(
+                s, generator=generator, device=dev), shape)
 
         def db_gain(db):
             return (10 ** (db / 20.0))[:, None, None]
 
-        peak = input_audio.abs().max()
+        peak = batch_max(input_audio.abs().max())
         input_audio = input_audio / torch.clamp_min(peak, 1e-8)
         input_audio = input_audio * db_gain(-rand(bs) * 12.0)
 
@@ -320,23 +331,34 @@ class StyleTransferSystem:
         return loss, (metrics, aux)
 
     def train_step(self, state: StyleTrainState, batch: dict,
-                   generator: torch.Generator | None):
+                   generator: torch.Generator | None, mesh=None):
         model = state.model
+        batch = shard_batch(batch, mesh)
         for p in model.parameters():
             p.grad = None
-        loss, (metrics, _) = self.loss_fn(model, batch, generator, True)
+        with sharded(mesh, model):
+            loss, (metrics, _) = self.loss_fn(model, batch, generator, True)
         with no_tf32():
             loss.backward()
         fill_grads(model.parameters())
+        average_gradients(model.parameters(), mesh)
         state.opt.step()
         state.sched.step()
         state.step += 1
-        return state, metrics
+        return state, reduce_metrics(metrics, mesh)
 
     def make_train_step(self, mesh=None) -> Callable:
-        """step(state, batch, generator) -> (state, metrics), in place."""
-        no_mesh(mesh)
-        return self.train_step
+        """step(state, batch, generator) -> (state, metrics), in place.
+        With ``mesh`` (axis "data") every rank is given the same global
+        batch and generator state and steps on its rows (see the module's
+        docstring)."""
+        if mesh is None:
+            return self.train_step
+
+        def step(state, batch, generator=None):
+            return self.train_step(state, batch, generator, mesh)
+
+        return step
 
     def make_eval_step(self) -> Callable:
         """eval(model, batch, generator) -> (loss, (metrics, aux)), the

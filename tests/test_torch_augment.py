@@ -18,6 +18,7 @@ from torch_train_draws import record_draws, replay_draws  # noqa: E402
 from st_ito_tpu import augment as jaug
 
 from st_ito_torch import augment as taug
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 T = 4096

@@ -25,6 +25,7 @@ from st_ito_tpu.ops import reverb as jreverb
 
 from st_ito_torch import proc
 from st_ito_torch.ops import reverb
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

@@ -57,6 +57,7 @@ from st_ito_torch.utils import load_audio, save_audio
 from tests.test_torch_autodiff import assert_grads, program
 from tests.test_torch_cli import SMALL_CLI
 from tests.test_torch_cnn14 import SMALL, jax_params, port_model
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

@@ -21,6 +21,8 @@ from st_ito_tpu.models import clap as jclap
 from st_ito_tpu.models import htsat as jhtsat
 
 from st_ito_torch.models import clap, convert, htsat
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
+from tests.torch_train_draws import reference_jit
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -70,7 +72,7 @@ def htsat_case(name):
     BatchNorm, so the JAX apply's ``training`` changes nothing and one
     JAX run serves both of the port's modes."""
     jcfg = jhtsat.HTSATConfig(**HTSAT[name])
-    params = jax.jit(lambda k: jhtsat.init_htsat_params(k, jcfg))(
+    params = reference_jit(lambda k: jhtsat.init_htsat_params(k, jcfg))(
         jax.random.PRNGKey(1))
     x = audio((2, 2, 65536), 2)
     want, _ = jax.jit(lambda p, a: jhtsat.htsat_apply(p, a, jcfg))(
@@ -115,7 +117,7 @@ def clap_audio_case(channels):
     dropout, no BatchNorm)."""
     jcfg = jclap.CLAPAudioConfig(embed_dim=16,
                                  tower=jhtsat.HTSATConfig(**TOWER))
-    params = jax.jit(lambda k: jclap.init_clap_audio_params(k, jcfg))(
+    params = reference_jit(lambda k: jclap.init_clap_audio_params(k, jcfg))(
         jax.random.PRNGKey(5))
     x = audio((2, channels, 65536), 6)
     want = jax.jit(lambda p, a: jclap.clap_audio_apply(p, a, jcfg))(

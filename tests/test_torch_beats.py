@@ -23,6 +23,8 @@ import jax.numpy as jnp
 from st_ito_tpu.models import beats as jbeats
 
 from st_ito_torch.models import beats, convert
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
+from tests.torch_train_draws import reference_jit
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -38,8 +40,8 @@ SR = 48000
 def params():
     """Small JAX BEATs weights with their gates and LayerNorms moved off
     init, so that every term of the gated bias is exercised."""
-    p = jbeats.init_beats_params(jax.random.PRNGKey(0),
-                                 jbeats.BEATsConfig(**SMALL))
+    p = reference_jit(jbeats.init_beats_params, static_argnums=1)(
+        jax.random.PRNGKey(0), jbeats.BEATsConfig(**SMALL))
     rng = np.random.default_rng(1)
     for layer in p["encoder"]["layers"]:
         layer["self_attn"]["grep_a"] = jnp.asarray(

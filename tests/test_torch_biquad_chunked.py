@@ -33,6 +33,7 @@ from st_ito_torch.chain.responses import _eq_section_stack
 from st_ito_torch.ops.kernels import chunked, scan
 
 from tests.test_torch_scan import k6_numpy
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

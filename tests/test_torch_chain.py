@@ -21,6 +21,7 @@ from st_ito_torch.chain.executor import stage_params
 from st_ito_torch.chain.responses import _eq_section_stack
 from st_ito_torch.ops import dynamics as tdyn
 from st_ito_torch.ops.iir import biquad_coeffs, next_pow2
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

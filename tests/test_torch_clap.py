@@ -22,6 +22,8 @@ import jax.numpy as jnp
 from st_ito_tpu.models import clap_laion as jcl
 
 from st_ito_torch.models import clap_laion, convert
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
+from tests.torch_train_draws import reference_jit
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -57,7 +59,7 @@ def assert_cosine(got, want, limit=1e-5):
 def small_clap():
     """(JAX params, the port's tower with them) at the small config, the
     BatchNorm's statistics and affine moved off their init."""
-    params = jax.jit(lambda k: jcl.init_clap_laion_params(k, JCFG))(
+    params = reference_jit(lambda k: jcl.init_clap_laion_params(k, JCFG))(
         jax.random.PRNGKey(0))
     rng = np.random.default_rng(1)
     bn = params["batch_norm"]

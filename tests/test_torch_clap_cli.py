@@ -26,6 +26,7 @@ from st_ito_torch.utils import load_audio, save_audio
 
 from tests.test_torch_clap_metric import small  # noqa: F401
 from tests.test_torch_cnn14 import SMALL
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

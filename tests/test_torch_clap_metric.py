@@ -37,6 +37,7 @@ from st_ito_torch.models import clap_laion, registry
 from st_ito_torch.models.clap_laion import ClapAudioTower
 
 from tests.test_torch_clap import CFG, JCFG, small_clap
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

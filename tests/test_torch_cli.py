@@ -3,7 +3,7 @@ st_ito_tpu's: the same chains and synthetic target, a whole run on the CPU
 that writes its WAVs and parameter JSON, ``--staged``, ``--savepop``,
 ``--chunked`` and ``--dropout`` passed through as the JAX CLI passes them,
 ``--metric mfcc`` against the JAX CLI, ``--metric clap`` reaching its
-loader, and the flag that is not ported raising with its ROADMAP item. ``--algorithm autodiff`` is held in
+loader, and ``--num-devices`` starting its ranks. ``--algorithm autodiff`` is held in
 ``test_torch_autodiff.py``."""
 
 import json
@@ -21,6 +21,7 @@ from st_ito_torch.cli import run_optim
 from st_ito_torch.utils import load_audio, save_audio
 
 from tests.test_torch_cnn14 import jax_params
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -185,12 +186,35 @@ def test_cli_metric_mfcc_matches_jax(tmp_path, monkeypatch):
         assert list(json.load(f)) == ["ParametricEQ", "Delay", "Reverb"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--num-devices", "4"], "13"),
-], ids=["flags6-13"])  # as it was
-def test_unported_flags_raise(flags, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP §1 item {item}"):
-        run_optim.main(["in.wav", "None", "--device", "cpu"] + flags)
+@pytest.mark.parametrize("device,n,backend", [("cpu", 4, "gloo"),
+                                               ("cuda", 2, "nccl")])
+def test_num_devices_launches_that_many_ranks(device, n, backend,
+                                              monkeypatch):
+    """``--num-devices N`` outside a group starts N ranks of the CLI
+    itself (``parallel.launch``: gloo for ``--device cpu``, NCCL for the
+    card, here a card the test pretends to have), each given the same
+    arguments. The ranks' runs are in ``test_torch_mesh_cli``; without a
+    card the default device refuses (``test_torch_hygiene``)."""
+    import st_ito_torch.parallel as parallel
+
+    if device == "cuda":
+        monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    seen = []
+    monkeypatch.setattr(parallel, "launch",
+                        lambda fn, args, nprocs, backend: seen.append(
+                            (fn, args, nprocs, backend)))
+    argv = ["in.wav", "None", "--device", device, "--num-devices", str(n)]
+    assert run_optim.main(argv) is None
+    assert seen == [(run_optim._rank_main, (argv,), n, backend)]
+
+
+def test_num_devices_under_torchrun_must_be_its_world_size(monkeypatch):
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("RANK", "0")
+    with pytest.raises(ValueError, match="num_devices=4, but the process "
+                                         "group has 2 ranks"):
+        run_optim.main(["in.wav", "None", "--device", "cpu",
+                        "--num-devices", "4"])
 
 
 def test_cli_metric_clap_reaches_its_loader(cli_inputs, monkeypatch):

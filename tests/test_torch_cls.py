@@ -40,6 +40,7 @@ from st_ito_torch.models import (get_mfcc_feature_embeds,
 
 from tests.test_torch_eval import sources
 from tests.test_torch_fx import jit_jax_scans
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

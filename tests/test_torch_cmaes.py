@@ -16,6 +16,7 @@ from st_ito_tpu.ito.engine import _lift_slice as jax_lift_slice
 
 from st_ito_torch.ito import CMAES
 from st_ito_torch.ito import device_es as tes
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

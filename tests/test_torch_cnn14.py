@@ -19,6 +19,8 @@ from st_ito_tpu.models.registry import get_param_embeds as jax_embeds
 from st_ito_torch.models import (Cnn14, Cnn14Config, ParamModel,
                                  cnn14_state_dict_from_jax, get_param_embeds,
                                  load_param_model)
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
+from tests.torch_train_draws import reference_jit
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -28,8 +30,9 @@ SMALL = dict(embed_dim=32, window_size=512, hop_size=256, mel_bins=32,
              base_channels=4)
 T = 8192
 jax_apply = jax.jit(cnn14_apply, static_argnames=("config",))
-# jitted, the same weights as the eager init in a quarter of the time
-jax_init = jax.jit(init_cnn14_params, static_argnums=1)
+# jitted with LLVM's optimisation off (``reference_jit``): weights both
+# packages take as they are, in a fraction of the eager init's time
+jax_init = reference_jit(init_cnn14_params, static_argnums=1)
 
 
 def jax_params(seed=0, random_bn=True):

@@ -22,6 +22,7 @@ from st_ito_torch.cli import embed
 from st_ito_torch.models import (Cnn14, Cnn14Config, convert,
                                  export_encoder_npz, load_param_model)
 from st_ito_torch.models.cnn14 import init_cnn14_
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

@@ -23,6 +23,7 @@ from st_ito_torch.data import datasets as tds
 from st_ito_torch.data import presets as tpresets
 from st_ito_torch.data import tar_flac as ttar
 from st_ito_torch.native import io as tio
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 SR = 48000

@@ -28,6 +28,7 @@ from st_ito_torch.ops.dynamics import _time_constant_alpha
 from st_ito_torch.ops.kernels import chunked, scan
 
 from tests.test_torch_scan import k7_numpy, k8_numpy
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

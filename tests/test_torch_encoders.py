@@ -23,6 +23,8 @@ from st_ito_tpu.models import vggish as jvgg
 from st_ito_tpu.models import wav2clip as jw2c
 
 from st_ito_torch.models import convert, encoders, vggish, wav2clip
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
+from tests.torch_train_draws import reference_jit
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -83,7 +85,8 @@ def test_dstcn_matches_jax(ninputs):
     """Stereo input conformed to the encoder's channels (mono mix, and
     duplicated for two), odd paddings cropped, PReLU, max + mean pool."""
     jcfg = jenc.DsTCNConfig(ninputs=ninputs, **DSTCN)
-    params = jenc.init_dstcn_params(jax.random.PRNGKey(1), jcfg)
+    params = reference_jit(jenc.init_dstcn_params, static_argnums=1)(
+        jax.random.PRNGKey(1), jcfg)
     params["blocks"][1]["prelu"] = jnp.linspace(-0.5, 0.5, 8)
     x = audio((2, 2, 4099), 2)
     want, want_side = jenc.dstcn_apply(params, jnp.asarray(x), jcfg)
@@ -106,7 +109,8 @@ def test_fx_encoder_matches_jax(tmp_path):
     carried in, and the port's state_dict, saved as the DDP-trained
     release is (``model``, ``module.`` prefixed), read by the JAX loader."""
     jcfg = jenc.FXEncoderConfig(embed_dim=8, **FXE)
-    params = jenc.init_fx_encoder_params(jax.random.PRNGKey(3), jcfg)
+    params = reference_jit(jenc.init_fx_encoder_params, static_argnums=1)(
+        jax.random.PRNGKey(3), jcfg)
     random_bn(params, np.random.default_rng(4))
     x = audio((2, 2, 301), 5)
     want = jenc.fx_encoder_apply(params, jnp.asarray(x), jcfg)
@@ -142,7 +146,8 @@ def test_fx_encoder_embeds_match_jax(monkeypatch):
     apply = jenc.fx_encoder_apply
     monkeypatch.setattr(jenc, "fx_encoder_apply",
                         lambda p, x, cfg=None: apply(p, x, jcfg))
-    params = jenc.init_fx_encoder_params(jax.random.PRNGKey(7), jcfg)
+    params = reference_jit(jenc.init_fx_encoder_params, static_argnums=1)(
+        jax.random.PRNGKey(7), jcfg)
     random_bn(params, np.random.default_rng(7))
     x = audio((2, 2, 8192), 8)
     jmodel = jenc.FXEncoderModel(params=params)
@@ -162,7 +167,7 @@ def test_fx_encoder_embeds_match_jax(monkeypatch):
 
 @pytest.fixture(scope="module")
 def vggish_params():
-    return jvgg.init_vggish_params(jax.random.PRNGKey(9))
+    return reference_jit(jvgg.init_vggish_params)(jax.random.PRNGKey(9))
 
 
 def test_vggish_frontend_matches_jax():
@@ -240,7 +245,7 @@ def test_wav2clip_matches_jax():
     """The front end, the ResNet-18 with moved BatchNorm statistics and the
     projection, with the JAX weights carried across; the JAX converter on
     the port's release-named state_dict; get_wav2clip_embeds."""
-    params = jw2c.init_wav2clip_params(jax.random.PRNGKey(14))
+    params = reference_jit(jw2c.init_wav2clip_params)(jax.random.PRNGKey(14))
     random_bn(params, np.random.default_rng(15))
     jcfg = jw2c.Wav2ClipConfig()
     np.testing.assert_array_equal(wav2clip.wav2clip_mel_matrix(),

@@ -1,5 +1,5 @@
 """Every name of st_ito_tpu's subpackages' ``__all__`` (``chain``, ``ops``,
-``models``, ``ito``, ``eval``, ``train``, ``data``) resolves in
+``models``, ``ito``, ``eval``, ``train``, ``data``, ``parallel``) resolves in
 st_ito_torch's, but for the few written out in ``NOT_EXPORTED`` with the
 reason each has."""
 
@@ -21,7 +21,7 @@ NOT_EXPORTED = {
 
 
 @pytest.mark.parametrize("package", ["chain", "ops", "models", "ito",
-                                     "eval", "train", "data"])
+                                     "eval", "train", "data", "parallel"])
 def test_jax_exports_resolve_in_the_port(package):
     jax_pkg = importlib.import_module(f"st_ito_tpu.{package}")
     pkg = importlib.import_module(f"st_ito_torch.{package}")

@@ -25,6 +25,7 @@ from st_ito_torch import features as tfeat
 from st_ito_torch.eval import metrics as tmetrics
 from st_ito_torch.models import registry as treg
 from st_ito_torch.ops import losses as tloss
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the modules (each package's ``ops`` exports a function of their name)
 jstft = importlib.import_module("st_ito_tpu.ops.stft")

@@ -17,6 +17,7 @@ import jax.numpy as jnp
 from st_ito_tpu.ops.pallas import fused_fft as jax_fused_fft
 
 from st_ito_torch.ops.kernels import fused_fft, mega_fft
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

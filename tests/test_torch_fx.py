@@ -68,6 +68,7 @@ from st_ito_torch.ops import dynamics as tdyn
 from st_ito_torch.ops.kernels import mega_fft, scan
 
 from tests.test_torch_render import force_jax_tpu_plan
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

@@ -30,6 +30,8 @@ from st_ito_tpu.models import gcn as jgcn
 from st_ito_torch.models import convert, encoders, gcn
 
 from tests.test_torch_encoders import FXE, random_bn
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
+from tests.torch_train_draws import reference_jit
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores
@@ -106,7 +108,7 @@ def gcn_case():
     """JAX DeepGCN-t params at the small width with every BatchNorm's
     statistics and affine moved off their init, and an input."""
     jcfg = jgcn.DeepGCNConfig(**GCN)
-    params = jax.jit(lambda k: jgcn.init_deepgcn_params(k, jcfg))(
+    params = reference_jit(lambda k: jgcn.init_deepgcn_params(k, jcfg))(
         jax.random.PRNGKey(7))
     params["pos_embed"] = jnp.asarray(
         audio(params["pos_embed"].shape, 8) * 0.1)
@@ -218,7 +220,7 @@ def test_fx_encoder_batchnorm_buffers_match_jax():
     and every BatchNorm1d's buffers, against the JAX apply with
     ``training=True`` under ``collect_bn_stats``."""
     jcfg = jenc.FXEncoderConfig(embed_dim=8, **FXE)
-    params = jax.jit(lambda k: jenc.init_fx_encoder_params(k, jcfg))(
+    params = reference_jit(lambda k: jenc.init_fx_encoder_params(k, jcfg))(
         jax.random.PRNGKey(11))
     random_bn(params, np.random.default_rng(12))
     x = audio((3, 2, 301), 13)

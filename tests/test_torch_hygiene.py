@@ -19,6 +19,7 @@ from st_ito_torch.ops import dynamics
 from st_ito_torch.ops import lti
 from st_ito_torch.ops.kernels import _build, eqcomp, fused_fft, mega_fft, scan
 from st_ito_torch.ops.kernels import packed_response as k9
+from st_ito_torch.parallel import make_mesh
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted(Path(st_ito_torch.__file__).parent.rglob("*.py")) + [
@@ -39,6 +40,79 @@ def test_no_jax_or_reference_package_import(path):
            if m.split(".")[0] in ("jax", "jaxlib", "st_ito_tpu", "flax",
                                   "optax")]
     assert not bad, f"{path} imports {bad}"
+
+
+# The modules that run inside ``parallel.sharded`` scopes (the encoders
+# and their features, the losses, the trainers): on a mesh a rank holds
+# only its rows there, so a random draw of a per-row tensor must go through
+# ``global_draw`` and a reduction over the whole batch through
+# ``batch_max``, or each rank computes its own result without an error.
+SHARDED_FILES = sorted(
+    [ROOT / "st_ito_torch" / "features.py"]
+    + [p for d in ("models", "ops", "train")
+       for p in (ROOT / "st_ito_torch" / d).rglob("*.py")])
+PER_RANK_DRAWS = {"rand", "randn", "randint", "rand_like", "randn_like",
+                  "randint_like", "bernoulli", "randperm", "normal",
+                  "multinomial"}
+WHOLE_REDUCTIONS = {"max", "min", "amax", "amin"}
+# (file, top-level function): why its draws or reductions are right on
+# every rank as they are
+REPLICATED = {
+    **{(f, fn): "a weight initialiser: every rank draws the same whole "
+                "tensors before the first step"
+       for f, fn in [("models/beats.py", "init_beats_"),
+                     ("models/clap.py", "init_clap_audio_"),
+                     ("models/clap_laion.py", "init_clap_laion_"),
+                     ("models/cnn14.py", "init_cnn14_"),
+                     ("models/encoders.py", "_uniform_"),
+                     ("models/gcn.py", "init_deepgcn_"),
+                     ("models/htsat.py", "init_htsat_"),
+                     ("models/wav2clip.py", "init_wav2clip_"),
+                     ("train/param.py", "build_encoder"),
+                     ("train/param.py", "xavier_uniform_")]},
+    ("ops/kernels/chunked.py", "gate_excess"):
+        "a kernel's accuracy check against its plain run, not on the path",
+}
+
+
+def _per_rank_calls(path):
+    """(top-level function, line, call) of each per-rank draw or no-axis
+    reduction outside ``global_draw(...)`` and ``batch_max(...)``."""
+    found = []
+
+    def visit(node, top, safe):
+        if isinstance(node, ast.Call):
+            f = node.func
+            name = f.attr if isinstance(f, ast.Attribute) else getattr(
+                f, "id", None)
+            if name in ("global_draw", "batch_max"):
+                safe = True
+            elif not safe and isinstance(f, ast.Attribute):
+                on_torch = isinstance(f.value, ast.Name) and \
+                    f.value.id in ("torch", "np", "math")
+                if name in PER_RANK_DRAWS and on_torch:
+                    found.append((top, node.lineno, f"torch.{name}"))
+                elif (name in WHOLE_REDUCTIONS and not on_torch
+                      and not node.args and not node.keywords):
+                    found.append((top, node.lineno, f".{name}()"))
+        for child in ast.iter_child_nodes(node):
+            visit(child, top, safe)
+
+    for top in ast.parse(path.read_text(), str(path)).body:
+        visit(top, getattr(top, "name", None), False)
+    return found
+
+
+def test_sharded_code_draws_and_reduces_over_the_global_batch():
+    bad = []
+    for path in SHARDED_FILES:
+        rel = path.relative_to(ROOT / "st_ito_torch").as_posix()
+        bad += [f"{rel}:{line} {call} in {top}"
+                for top, line, call in _per_rank_calls(path)
+                if (rel, top) not in REPLICATED]
+    assert not bad, ("per-rank draws or batch reductions where a mesh "
+                     "runs; use parallel.global_draw or batch_max: "
+                     f"{bad}")
 
 
 @pytest.fixture
@@ -69,6 +143,10 @@ def test_entry_points_default_to_the_card(no_card):
         make_fitness_fn(style, model, 48000, 2, normalize_stages=True)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         run_optim.main(["in.wav", "None", "--allow-random-model"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_optim.main(["in.wav", "None", "--num-devices", "2"])
 
 
 def test_wrappers_raise_when_the_kernel_cannot_load(monkeypatch):

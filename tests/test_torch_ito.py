@@ -32,6 +32,7 @@ from st_ito_torch.models import get_param_embeds
 from tests.test_torch_cnn14 import SMALL, jax_params, port_model
 from tests.test_torch_es import SEED, SR, T, _audio
 from tests.test_torch_render import force_jax_tpu_plan
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

@@ -19,6 +19,7 @@ from st_ito_torch.chain import chain_preset
 from st_ito_torch.eval import pst
 from st_ito_torch.ito import run_learned_inference
 from st_ito_torch.models import get_mfcc_feature_embeds
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -27,6 +27,7 @@ from st_ito_torch.eval import listen, visualize
 from st_ito_torch.models import (get_mfcc_feature_embeds,
                                  load_mfcc_feature_extractor)
 from st_ito_torch.utils import save_audio
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

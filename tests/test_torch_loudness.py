@@ -13,6 +13,7 @@ from st_ito_tpu.ops import loudness as jax_loudness
 
 from st_ito_torch import utils
 from st_ito_torch.ops import loudness
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

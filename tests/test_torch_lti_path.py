@@ -37,6 +37,7 @@ from st_ito_torch.ops import waveshape as tws
 
 from tests.test_torch_fx import (SR, _audio, _population, _render_pair,
                                  _stage_params, fx_chain)
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

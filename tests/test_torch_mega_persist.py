@@ -24,6 +24,7 @@ from st_ito_torch.chain.rp_responses import (FREEVERB_ROWS,
                                              freeverb_tables)
 from st_ito_torch.ops.kernels import mega_fft as mf
 from st_ito_torch.ops.kernels import packed_response as k9
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

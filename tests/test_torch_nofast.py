@@ -30,6 +30,7 @@ from st_ito_torch.ops.kernels import (eqcomp, fused_fft, mega_fft,
 
 from tests.test_torch_fx import (FX, _audio, _population, fx_chain,
                                  jit_jax_scans, one_detector, one_sine)
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

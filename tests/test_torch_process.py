@@ -31,6 +31,7 @@ from st_ito_torch.ops import eq as teq
 from st_ito_torch.ops import iir as tiir
 from st_ito_torch.ops import reverb as trev
 from st_ito_torch.ops import waveshape as tws
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

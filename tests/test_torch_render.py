@@ -21,6 +21,7 @@ from st_ito_tpu.ops.pallas import packed_response as jax_packed_response
 from st_ito_tpu.ops.pallas import scan as jax_scan
 
 from st_ito_torch.chain import basic_chain, build_batched_render_fn
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 # the suite runs in several worker processes side by side: one intra-op
 # thread each, so that their pools do not oversubscribe the cores

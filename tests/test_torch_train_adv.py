@@ -16,6 +16,7 @@ from test_torch_train_param import (assert_trajectories_match,  # noqa
                                     configs, make_batch)
 
 from st_ito_torch.train import param as tparam
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

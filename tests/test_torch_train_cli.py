@@ -3,7 +3,7 @@
 steps, checkpoint, ``--resume``, the run directory's config copy, metrics
 with ``examples_per_sec``, validation's confusion matrix, the style
 task's audio snapshots, the ``encoder.npz`` export read back by
-``load_param_model``, ``--num-devices 2`` raising with ROADMAP §1 item 13;
+``load_param_model``, ``--num-devices 2`` starting 2 ranks;
 and the YAML-subset reader against ``yaml.safe_load`` on every
 ``cfg/*.yaml``."""
 
@@ -19,6 +19,7 @@ import yaml
 
 from st_ito_torch.cli import train as cli
 from st_ito_torch.cli import yaml_subset
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
@@ -175,10 +176,20 @@ def test_a_dataset_without_a_full_batch_raises(tmp_path):
 
 
 @pytest.mark.parametrize("task", ["pretext-panns.yaml", "style-audio-otf.yaml"])
-def test_num_devices_above_one_raises_item_13(task):
-    with pytest.raises(NotImplementedError, match="item 13"):
-        cli.main(["--config", str(ROOT / "cfg" / task), "--num-devices",
-                  "2", "--device", "cpu"])
+def test_num_devices_above_one_launches_a_gloo_group(task, monkeypatch):
+    """``--num-devices 2 --device cpu`` starts 2 gloo ranks of the CLI
+    (``parallel.launch``), each given the same arguments; the ranks' run
+    is in ``test_torch_mesh_cli``."""
+    import st_ito_torch.parallel as parallel
+
+    seen = []
+    monkeypatch.setattr(parallel, "launch",
+                        lambda fn, args, nprocs, backend: seen.append(
+                            (fn, args, nprocs, backend)))
+    argv = ["--config", str(ROOT / "cfg" / task), "--num-devices", "2",
+            "--device", "cpu"]
+    assert cli.main(argv) is None
+    assert seen == [(cli._rank_main, (argv,), 2, "gloo")]
 
 
 @pytest.mark.parametrize("path", sorted(glob.glob(str(ROOT / "cfg" /

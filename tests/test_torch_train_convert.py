@@ -13,8 +13,10 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from test_torch_train_adv import _encoder_configs  # noqa: E402
 from test_torch_train_param import configs  # noqa: E402
+from torch_train_draws import reference_jit  # noqa: E402
 
 from st_ito_torch.train import param as tparam
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -60,10 +62,10 @@ def test_trained_state_round_trip_every_encoder(encoder_type):
     jcfg = jparam.ParamEstimatorConfig(
         encoder=jenc, encoder_type=("htsat" if encoder_type == "clap-laion"
                                     else encoder_type), **kw)
-    params = jax.jit(jparam.init_param_estimator, static_argnums=1)(
+    params = reference_jit(jparam.init_param_estimator, static_argnums=1)(
         jax.random.PRNGKey(0), jcfg).params
     if encoder_type == "clap-laion":
-        params = dict(params, encoder=jax.jit(
+        params = dict(params, encoder=reference_jit(
             jlaion.init_clap_laion_params, static_argnums=1)(
                 jax.random.PRNGKey(1), jlaion.ClapLaionConfig(**laion)))
     tcfg = tparam.ParamEstimatorConfig(encoder=tenc,

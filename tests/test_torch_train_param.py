@@ -16,7 +16,8 @@ import pytest
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_train_draws import record_draws, replay_draws  # noqa: E402
+from torch_train_draws import (reference_jit, record_draws,  # noqa: E402
+                               replay_draws)
 
 from st_ito_tpu.models.bn_stats import merge_bn_stats
 from st_ito_tpu.models.cnn14 import Cnn14Config as JaxCnn14Config
@@ -29,6 +30,7 @@ from st_ito_torch.models.convert import (cnn14_state_dict_from_jax,
                                          param_estimator_params_to_jax,
                                          param_estimator_state_dict_from_jax)
 from st_ito_torch.train import param as tparam
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -61,7 +63,7 @@ def test_cnn14_train_forward_buffers_and_gradients_match_jax():
     can lie 1e-2 apart: the time max's argmax flips with float32
     rounding, and a 1e-6 relative change of the input moves block 1's
     gradient by 1e-2 in JAX itself.)"""
-    params = jax.jit(init_cnn14_params, static_argnums=1)(
+    params = reference_jit(init_cnn14_params, static_argnums=1)(
         jax.random.PRNGKey(0), JaxCnn14Config(**SMALL))
     x = audio((B, 2, T), 0)
     net = Cnn14(Cnn14Config(**SMALL))
@@ -80,7 +82,7 @@ def test_cnn14_train_forward_buffers_and_gradients_match_jax():
         return jnp.sum(m) + jnp.sum(s ** 2), (m, s, st)
 
     with replay_draws(draws):
-        (_, (m, s, stats)), grads = jax.jit(
+        (_, (m, s, stats)), grads = reference_jit(
             jax.value_and_grad(loss, has_aux=True))(params)
     for got, want in ((mid, m), (side, s)):
         want = np.asarray(want)
@@ -163,7 +165,7 @@ def jax_stepper(jcfg):
 
 
 def port_state(jcfg, tcfg, seed=0):
-    jstate = jax.jit(jparam.init_param_estimator, static_argnums=1)(
+    jstate = reference_jit(jparam.init_param_estimator, static_argnums=1)(
         jax.random.PRNGKey(seed), jcfg)
     model = tparam.ParamEstimator(tcfg, torch.Generator().manual_seed(0))
     model.load_state_dict(param_estimator_state_dict_from_jax(

@@ -18,7 +18,8 @@ import numpy as np
 import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
-from torch_train_draws import record_draws, replay_draws  # noqa: E402
+from torch_train_draws import (reference_jit, record_draws,  # noqa: E402
+                               replay_draws)
 
 from st_ito_tpu.chain import EFFECT_REGISTRY as JREG
 from st_ito_tpu.chain import ChainSpec as JChain
@@ -31,6 +32,7 @@ from st_ito_torch.models.convert import (flatten_params,
                                          style_system_params_to_jax,
                                          style_system_state_dict_from_jax)
 from st_ito_torch.train import style as tstyle
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -58,7 +60,7 @@ def systems(**kw):
                       with_bypass=False)
     js = jstyle.StyleTransferSystem(jcfg, chain=jchain)
     ts = tstyle.StyleTransferSystem(tcfg, chain=chain, device="cpu")
-    jstate = jax.jit(js.init)(jax.random.PRNGKey(0))
+    jstate = reference_jit(js.init)(jax.random.PRNGKey(0))
     model = tstyle.StyleModel(tcfg, ts.num_params,
                               torch.Generator().manual_seed(0))
     model.load_state_dict(style_system_state_dict_from_jax(jstate.params))
@@ -67,7 +69,7 @@ def systems(**kw):
 
 def traced(fn):
     """fn(*args) under the port's draws passed as traced arguments."""
-    @partial(jax.jit, static_argnums=0)
+    @partial(reference_jit, static_argnums=0)
     def run(kinds, values, *args):
         with replay_draws(list(zip(kinds, values))):
             return fn(*args)

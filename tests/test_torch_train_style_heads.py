@@ -20,6 +20,7 @@ from test_torch_train_style import LR, close, make_batch, run_steps, traced  # n
 from torch_train_draws import record_draws  # noqa: E402
 
 from st_ito_torch.train import style as tstyle
+from tests.torch_jax_cache import shared_compile_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

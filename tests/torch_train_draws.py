@@ -13,11 +13,64 @@ not touched.
 """
 
 import contextlib
+import json
+import os
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import torch
+
+
+# XLA options for the tests' jitted JAX steps: LLVM's optimisation off.
+# A training step's program compiles in about two thirds of the CPU time;
+# it runs a few times, a little slower. How far its results lie from the
+# default-compiled program's is read by ``reference_jit``'s readings mode.
+FAST_COMPILE = {"xla_backend_optimization_level": "0",
+                "xla_llvm_disable_expensive_passes": True}
+READINGS_ENV = "ST_ITO_COMPILE_READINGS"
+
+
+def reference_jit(fn, static_argnums=()):
+    """``jax.jit(fn)`` compiled with FAST_COMPILE, for a test's JAX
+    reference. With the environment variable ST_ITO_COMPILE_READINGS set to
+    a file, each call traces fn once and compiles it twice, with
+    FAST_COMPILE and with XLA's defaults, returns the FAST_COMPILE result,
+    and appends one JSON line to the file: the test, fn, each
+    floating-point output's largest absolute difference between the two
+    programs and its peak, and the count of integer outputs that differ."""
+    jitted = jax.jit(fn, static_argnums=static_argnums,
+                     compiler_options=FAST_COMPILE)
+    path = os.environ.get(READINGS_ENV)
+    if not path:
+        return jitted
+    static = ({static_argnums} if isinstance(static_argnums, int)
+              else set(static_argnums))
+    plain = jax.jit(fn, static_argnums=static_argnums)
+
+    def both(*args):
+        lowered = plain.lower(*args)
+        dynamic = [a for i, a in enumerate(args) if i not in static]
+        got = lowered.compile(FAST_COMPILE)(*dynamic)
+        want = lowered.compile()(*dynamic)
+        reading = {"test": os.environ.get("PYTEST_CURRENT_TEST"),
+                   "fn": getattr(fn, "__qualname__", repr(fn)),
+                   "int_mismatch": 0, "leaves": {}}
+        for (key, g), w in zip(
+                jax.tree_util.tree_leaves_with_path(got),
+                jax.tree_util.tree_leaves(want)):
+            g, w = np.asarray(g), np.asarray(w)
+            if not np.issubdtype(w.dtype, np.floating):
+                reading["int_mismatch"] += int(not np.array_equal(g, w))
+                continue
+            d = float(np.abs(g.astype(np.float64) - w).max(initial=0.0))
+            peak = float(np.abs(w.astype(np.float64)).max(initial=0.0))
+            reading["leaves"][jax.tree_util.keystr(key)] = (d, peak)
+        with open(path, "a") as f:
+            f.write(json.dumps(reading) + "\n")
+        return got
+
+    return both
 
 
 @contextlib.contextmanager
