@@ -1,0 +1,16 @@
+"""The port's ``h2d`` span (``phase_timer``, CUDA events around the
+batch's copies to the card in ``cli/train.py to_device``), summed over the
+window and divided by its steps. Recorded while the profiler runs: in the
+traced window alone; read on the card only, as the ITO driver reads its
+spans."""
+
+
+def read(ctx, rec):
+    from st_ito_torch.utils import phase_timer
+
+    if ctx["device"].type != "cuda":
+        return None
+    spans = phase_timer.read_ms().get("h2d")
+    if not spans or not rec.get("steps"):
+        return None
+    return sum(spans) / rec["steps"]

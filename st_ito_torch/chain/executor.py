@@ -66,7 +66,7 @@ from st_ito_torch.ops.iir import next_pow2
 from st_ito_torch.ops.kernels import mega_fft
 from st_ito_torch.ops.kernels.packed_response import rp_tables
 from st_ito_torch.ops.lti import packed_lti_apply_rp
-from st_ito_torch.utils import phase_timer, resolve_device
+from st_ito_torch.utils import resolve_device
 
 
 def stage_params(stage: StageSpec, W: torch.Tensor, start: int,
@@ -268,11 +268,10 @@ def build_batched_render_fn(
                     a_c = active_mask(W, c_start)
                     if p_d is not None:
                         a_d = active_mask(W, d_start)
-                with phase_timer.span("k1", dev):
-                    x = eq_comp_fast_batched(
-                        x, p_eq, p_c, sample_rate, active_eq=a_eq,
-                        active_comp=a_c, p_dist=p_d, active_dist=a_d,
-                        shared_B=B if shared else None)
+                x = eq_comp_fast_batched(
+                    x, p_eq, p_c, sample_rate, active_eq=a_eq,
+                    active_comp=a_c, p_dist=p_d, active_dist=a_d,
+                    shared_B=B if shared else None)
                 shared = False
                 continue
 
@@ -281,10 +280,9 @@ def build_batched_render_fn(
                 params = stage_params(stage, W, start, bypass_off)
                 active = active_mask(W, start) if chain.with_bypass else None
                 if kind == "fast":
-                    with phase_timer.span("k6", dev):
-                        x = eq_fast_batched(x, params, sample_rate,
-                                            active=active,
-                                            shared_B=B if shared else None)
+                    x = eq_fast_batched(x, params, sample_rate,
+                                        active=active,
+                                        shared_B=B if shared else None)
                     shared = False
                     continue
                 fn = NL_BATCHED[stage.effect]
@@ -308,8 +306,7 @@ def build_batched_render_fn(
                     or any(s.effect not in RP_BUNDLES for s, _, _ in stages)):
                 # the per-stage response path: the differentiable one, and
                 # the rp kernels are stereo-only, as in the JAX package
-                with phase_timer.span("lti_xla", dev):
-                    x = response_group(x, stages, W, n)
+                x = response_group(x, stages, W, n)
                 continue
             rp_stages = [
                 (stage.effect, stage_params(stage, W, start, bypass_off),

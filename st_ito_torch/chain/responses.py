@@ -41,7 +41,6 @@ from st_ito_torch.ops.iir import biquad_coeffs
 from st_ito_torch.ops.multiband import multiband_compressor
 from st_ito_torch.ops.reverb import (_ALLPASS_TUNINGS, _COMB_TUNINGS,
                                      _STEREO_SPREAD)
-from st_ito_torch.utils import phase_timer
 
 
 def _eq_section_stack(p, sr):
@@ -168,10 +167,9 @@ def noise_gate_batched(x, p, sr, fast: bool):
 
 def chorus_batched(x, p, sr, fast: bool):
     del fast
-    with phase_timer.span("chorus", x.device):
-        return _delay.chorus(x, sr, _col(p["rate_hz"]),
-                             _col(p["centre_delay_ms"]), _col(p["depth"]),
-                             _col(p["feedback"]), _col(p["mix"]))
+    return _delay.chorus(x, sr, _col(p["rate_hz"]),
+                         _col(p["centre_delay_ms"]), _col(p["depth"]),
+                         _col(p["feedback"]), _col(p["mix"]))
 
 
 def phaser_batched(x, p, sr, fast: bool):

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from st_ito_torch.cli import yaml_subset
-from st_ito_torch.utils import resolve_device
+from st_ito_torch.utils import phase_timer, resolve_device
 
 
 def load_config(path: str) -> dict:
@@ -170,9 +170,10 @@ def to_device(batch: dict, dev: torch.device) -> dict:
     """Copies of a loader batch on ``dev`` (the loader's arrays are views
     into scratch it reuses)."""
     out = {}
-    for k, v in batch.items():
-        t = torch.from_numpy(np.ascontiguousarray(v))
-        out[k] = t.to(dev) if dev.type != "cpu" else t.clone()
+    with phase_timer.span("h2d", dev):
+        for k, v in batch.items():
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            out[k] = t.to(dev) if dev.type != "cpu" else t.clone()
     return out
 
 

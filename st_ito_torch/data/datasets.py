@@ -30,6 +30,8 @@ from typing import Iterator
 
 import numpy as np
 
+from st_ito_torch.utils import phase_timer
+
 
 class NpzShardDataset:
     """Pretext dataset over .npz shards written by generate_pretext_dataset."""
@@ -336,7 +338,8 @@ def prefetch_batches(iterable, buffer_size: int = 2) -> Iterator:
     t = threading.Thread(target=worker, daemon=True)
     t.start()
     while True:
-        item = q.get()
+        with phase_timer.host_span("loader_wait"):
+            item = q.get()
         if item is _END:
             break
         yield item

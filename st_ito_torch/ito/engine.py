@@ -167,7 +167,8 @@ def make_fitness_fn(chain: ChainSpec, model, sample_rate: int,
             device=dev)
 
     def score(W, x, target_embeds, target_content_embeds, rng):
-        Y = render(W, x)
+        with phase_timer.span("render", dev):
+            Y = render(W, x)
         with phase_timer.span("embed", dev):
             kw = {"dropout": dropout, "generator": rng} if dropout > 0 else {}
             out = embed_func(Y, model, sample_rate, **kw)
@@ -441,30 +442,36 @@ def run_es(input_audio, target_audio, sample_rate: int, chain: ChainSpec,
                       f"(gen {es.generation})")
         iters_without_improvement = 0
         for iteration in range(max_iters):
-            W = es.ask()
-            # the best BEFORE this generation
-            prev_best = min(fval_history) if fval_history else None
-            fvals, audio = eval_W(
-                W, dropout_active=(iteration + 1 < max_iters))
-            total_evals += popsize
-            es.tell(W, fvals)
-            if verbose:
-                es.disp()
-            wopt_history.append(lift_np(es.result[0]))
-            fval_history.append(es.result[1])
+            # ask and tell are numpy alone (host spans); the fetch in
+            # eval_W synchronises, so the generation's events read its
+            # wall time
+            with phase_timer.span("generation", dev):
+                with phase_timer.host_span("ask"):
+                    W = es.ask()
+                fvals, audio = eval_W(
+                    W, dropout_active=(iteration + 1 < max_iters))
+                total_evals += popsize
+                with phase_timer.host_span("tell"):
+                    # the best BEFORE this generation
+                    prev_best = min(fval_history) if fval_history else None
+                    es.tell(W, fvals)
+                    if verbose:
+                        es.disp()
+                    wopt_history.append(lift_np(es.result[0]))
+                    fval_history.append(es.result[1])
+                    # early stopping: this generation's best against the
+                    # best of all the generations before it
+                    fval_delta = (float(np.min(fvals)) - prev_best
+                                  if prev_best is not None else -0.02)
+                    if fval_delta > early_stop_threshold:
+                        iters_without_improvement += 1
+                    else:
+                        iters_without_improvement = 0
             if es_state_path is not None and lead:
                 np.savez(es_state_path, **es.state_dict())
             if savepop and lead:
                 _savepop_to_disk(iteration, fvals, audio, run_dir,
                                  sample_rate)
-            # early stopping: this generation's best against the best of
-            # all the generations before it
-            fval_delta = (float(np.min(fvals)) - prev_best
-                          if prev_best is not None else -0.02)
-            if fval_delta > early_stop_threshold:
-                iters_without_improvement += 1
-            else:
-                iters_without_improvement = 0
             if iters_without_improvement > early_stop_patience:
                 if verbose:
                     print("Stopping early due to no improvement.")

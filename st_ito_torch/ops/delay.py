@@ -24,7 +24,6 @@ import torch
 
 from st_ito_torch.ops.iir import linear_recurrence, next_pow2
 from st_ito_torch.ops.kernels import scan as _scan
-from st_ito_torch.utils import phase_timer
 
 
 def _f32(v, dev) -> torch.Tensor:
@@ -129,8 +128,7 @@ def phaser(x: torch.Tensor, sample_rate: float, rate_hz, depth,
                               sig[..., :-1]], dim=-1)
         drive = a * sig + sig_prev
         if fast:
-            with phase_timer.span("k11", dev):
-                return _scan.linear_recurrence(coeff, drive)
+            return _scan.linear_recurrence(coeff, drive)
         return linear_recurrence(coeff, drive)
 
     wet = x

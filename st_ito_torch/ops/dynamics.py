@@ -20,7 +20,6 @@ import torch
 
 from st_ito_torch.ops.iir import doubling_scan, linear_recurrence
 from st_ito_torch.ops.kernels import scan as _scan
-from st_ito_torch.utils import phase_timer
 
 
 def _time_constant_alpha(time_ms, sample_rate: float) -> torch.Tensor:
@@ -98,8 +97,7 @@ def ballistics(c: torch.Tensor, alpha_attack, alpha_release,
     """The decoupled detector over the last axis of c (..., T): K8 when
     ``fast`` (its plain version on a CPU tensor), else the parallel form."""
     if fast:
-        with phase_timer.span("k8", c.device):
-            return _scan.ballistics(c, alpha_attack, alpha_release)
+        return _scan.ballistics(c, alpha_attack, alpha_release)
     return ballistics_parallel(c, alpha_attack, alpha_release)
 
 
@@ -146,11 +144,10 @@ def compressor(x: torch.Tensor, sample_rate: float, threshold_db=-20.0,
                 v = v[..., 0]
             return v.expand(lead)
 
-        with phase_timer.span("k7", dev):
-            return _scan.compressor_fused(
-                x, to_lead(threshold_db), to_lead(ratio), to_lead(knee_db),
-                to_lead(alpha_a), to_lead(alpha_r), to_lead(makeup_gain_db),
-                active=None if active is None else to_lead(active))
+        return _scan.compressor_fused(
+            x, to_lead(threshold_db), to_lead(ratio), to_lead(knee_db),
+            to_lead(alpha_a), to_lead(alpha_r), to_lead(makeup_gain_db),
+            active=None if active is None else to_lead(active))
     if link_channels:
         env = x.abs().amax(dim=-2, keepdim=True)  # (..., 1, T)
     else:

@@ -17,7 +17,8 @@ import torch
 
 from st_ito_torch.ops.kernels import _build, chunked
 
-# Kernel launches since the last reset (chip_smoke.py reads it).
+# Kernel launches since the last reset (chip_smoke.py and
+# portbench/core/counters.py read it).
 launches = 0
 
 _DB_PER_LOG = 20.0 / math.log(10.0)

@@ -30,7 +30,8 @@ from st_ito_torch.ops.kernels import _build
 from st_ito_torch.ops.kernels.mega_fft import _MAX_N, _radix, _roots, \
     _scratch, _twiddles
 
-# Kernel launches since the last reset (chip_smoke.py reads it).
+# Kernel launches since the last reset (chip_smoke.py and
+# portbench/core/counters.py read it).
 launches = 0
 
 

@@ -41,9 +41,9 @@ import torch
 
 from st_ito_torch.ops.kernels import _build
 from st_ito_torch.ops.kernels import packed_response as _pr
-from st_ito_torch.utils import phase_timer
 
-# Kernel launches since the last reset, by wrapper (chip_smoke.py reads them)
+# Kernel launches since the last reset, by wrapper (chip_smoke.py and
+# portbench/core/counters.py read them)
 launches = {"fwd_pack_fft": 0, "fwd_pack_fft_response": 0,
             "inv_unpack_fft": 0}
 
@@ -387,23 +387,16 @@ def packed_lti_apply_mega(x: torch.Tensor, stages, n: int,
                           sample_rate: float) -> torch.Tensor:
     """The fused-LTI group as K5 -> K2 -> K4. x (B, 2, T) float32; the
     caller guarantees ``supported(n, T)``."""
-    dev = x.device
-    tables = _tables(stages, n, sample_rate, dev)
-    with phase_timer.span("k5", dev):
-        Z = fwd_pack_fft(x, n)
-    with phase_timer.span("k2", dev):
-        Y = _pr.packed_response_apply_rp_padded(*Z, stages, tables, n)
+    tables = _tables(stages, n, sample_rate, x.device)
+    Z = fwd_pack_fft(x, n)
+    Y = _pr.packed_response_apply_rp_padded(*Z, stages, tables, n)
     del Z
-    with phase_timer.span("k4", dev):
-        return inv_unpack_fft(*Y, n, x.shape[-1])
+    return inv_unpack_fft(*Y, n, x.shape[-1])
 
 
 def packed_lti_apply_mega2(x: torch.Tensor, stages, n: int,
                            sample_rate: float) -> torch.Tensor:
     """The fused-LTI group as K3 -> K4: packed_lti_apply_mega without the
     eight (B, Fp) float32 round trips of the middle kernel."""
-    dev = x.device
-    with phase_timer.span("k3", dev):
-        Y = fwd_pack_fft_response(x, stages, n, sample_rate)
-    with phase_timer.span("k4", dev):
-        return inv_unpack_fft(*Y, n, x.shape[-1])
+    Y = fwd_pack_fft_response(x, stages, n, sample_rate)
+    return inv_unpack_fft(*Y, n, x.shape[-1])

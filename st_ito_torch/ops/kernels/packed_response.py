@@ -28,8 +28,9 @@ import torch
 
 from st_ito_torch.ops.kernels import _build
 
-# Kernel launches since the last reset (chip_smoke.py reads them): K9's flat
-# form and K2's pitched form.
+# Kernel launches since the last reset (chip_smoke.py and
+# portbench/core/counters.py read them): K9's flat form and K2's pitched
+# form.
 launches = 0
 launches_padded = 0
 

@@ -27,7 +27,8 @@ import torch
 
 from st_ito_torch.ops.kernels import _build, chunked
 
-# Kernel launches since the last reset, by kernel (chip_smoke.py reads them).
+# Kernel launches since the last reset, by kernel (chip_smoke.py and
+# portbench/core/counters.py read them).
 launches = {"biquad_cascade": 0, "compressor_fused": 0, "ballistics": 0,
             "linear_recurrence": 0}
 

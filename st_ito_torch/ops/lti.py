@@ -12,7 +12,6 @@ import torch
 
 from st_ito_torch.ops.kernels import fused_fft
 from st_ito_torch.ops.kernels.packed_response import packed_response_apply
-from st_ito_torch.utils import phase_timer
 
 
 def packed_lti_apply_rp(x: torch.Tensor, stages, n: int, tables: dict,
@@ -28,33 +27,29 @@ def packed_lti_apply_rp(x: torch.Tensor, stages, n: int, tables: dict,
         raise ValueError(f"fft_impl={fft_impl!r}: 'mx', 'fused' or 'mx3'")
     fused = fft_impl != "mx" and fused_fft.supported(n, T)
     F = n // 2 + 1
-    dev = x.device
-    with phase_timer.span("k10_fwd" if fused else "fft_fwd", dev):
-        if fused:
-            # the channels read in place; a broadcast population input
-            # (the group first in the chain) is written out once, as the
-            # mega paths do
-            x = x.contiguous()
-            Zr, Zi = fused_fft.fft_fused(x[:, 0], x[:, 1], sign=-1, n=n)
-        else:
-            Z = torch.fft.fft(torch.complex(x[:, 0], x[:, 1]), n=n, dim=-1)
-            Zr, Zi = Z.real, Z.imag
-            del Z
-        ZrL, ZiL = Zr[:, :F].contiguous(), Zi[:, :F].contiguous()
-        # Zrev[k] = Z[(n-k) mod n] for k in [0, n/2]: [Z0, Z_{n-1}, .., Z_{n/2}]
-        ZrR, ZiR = (torch.cat([v[:, :1], torch.flip(v[:, n // 2:], (-1,))], -1)
-                    for v in (Zr, Zi))
-        del Zr, Zi
-    with phase_timer.span("k9", dev):
-        YloR, YloI, YhiR, YhiI = packed_response_apply(ZrL, ZiL, ZrR, ZiR,
-                                                       stages, tables)
+    if fused:
+        # the channels read in place; a broadcast population input (the
+        # group first in the chain) is written out once, as the mega paths
+        # do
+        x = x.contiguous()
+        Zr, Zi = fused_fft.fft_fused(x[:, 0], x[:, 1], sign=-1, n=n)
+    else:
+        Z = torch.fft.fft(torch.complex(x[:, 0], x[:, 1]), n=n, dim=-1)
+        Zr, Zi = Z.real, Z.imag
+        del Z
+    ZrL, ZiL = Zr[:, :F].contiguous(), Zi[:, :F].contiguous()
+    # Zrev[k] = Z[(n-k) mod n] for k in [0, n/2]: [Z0, Z_{n-1}, .., Z_{n/2}]
+    ZrR, ZiR = (torch.cat([v[:, :1], torch.flip(v[:, n // 2:], (-1,))], -1)
+                for v in (Zr, Zi))
+    del Zr, Zi
+    YloR, YloI, YhiR, YhiI = packed_response_apply(ZrL, ZiL, ZrR, ZiR,
+                                                   stages, tables)
     del ZrL, ZiL, ZrR, ZiR
-    with phase_timer.span("k10_inv" if fused else "fft_inv", dev):
-        Yr = torch.cat([YloR, torch.flip(YhiR[:, 1:n // 2], (-1,))], -1)
-        Yi = torch.cat([YloI, torch.flip(YhiI[:, 1:n // 2], (-1,))], -1)
-        del YloR, YloI, YhiR, YhiI
-        if fused:
-            yr, yi = fused_fft.fft_fused(Yr, Yi, sign=1, n=n, out_len=T)
-            return torch.stack([yr, yi], dim=1) * (1.0 / n)
-        y = torch.fft.ifft(torch.complex(Yr, Yi), n=n, dim=-1)[:, :T]
-        return torch.stack([y.real, y.imag], dim=1)
+    Yr = torch.cat([YloR, torch.flip(YhiR[:, 1:n // 2], (-1,))], -1)
+    Yi = torch.cat([YloI, torch.flip(YhiI[:, 1:n // 2], (-1,))], -1)
+    del YloR, YloI, YhiR, YhiI
+    if fused:
+        yr, yi = fused_fft.fft_fused(Yr, Yi, sign=1, n=n, out_len=T)
+        return torch.stack([yr, yi], dim=1) * (1.0 / n)
+    y = torch.fft.ifft(torch.complex(Yr, Yi), n=n, dim=-1)[:, :T]
+    return torch.stack([y.real, y.imag], dim=1)

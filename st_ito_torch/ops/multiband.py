@@ -13,7 +13,6 @@ import torch
 
 from st_ito_torch.ops.dynamics import compressor
 from st_ito_torch.ops.iir import apply_iir_fsm, biquad_coeffs
-from st_ito_torch.utils import phase_timer
 
 
 def _lr4(x: torch.Tensor, freq, sample_rate, kind: str) -> torch.Tensor:
@@ -41,8 +40,7 @@ def multiband_compressor(x: torch.Tensor, sample_rate: float,
                          attack_ms=10.0, release_ms=150.0,
                          fast: bool = False) -> torch.Tensor:
     """x (..., C, T). thresholds/ratios/makeup per band (low, mid, high)."""
-    with phase_timer.span("multiband_fft", x.device):
-        bands = split_bands(x, sample_rate, xover_low, xover_high)
+    bands = split_bands(x, sample_rate, xover_low, xover_high)
     out = None
     for band, th, ratio, mk in zip(bands, thresholds_db, ratios, makeup_db):
         y = compressor(band, sample_rate, threshold_db=th, ratio=ratio,

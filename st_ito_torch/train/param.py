@@ -46,7 +46,7 @@ from st_ito_torch.models.cnn14 import (Cnn14, Cnn14Config, bn_stats_frozen,
 from st_ito_torch.parallel.collectives import (all_reduce_mean,
                                                average_gradients, global_draw,
                                                sharded, shard_rows)
-from st_ito_torch.utils import resolve_device
+from st_ito_torch.utils import phase_timer, resolve_device
 
 
 @dataclasses.dataclass(frozen=True)
@@ -297,28 +297,30 @@ def train_step(state: ParamTrainState, batch: dict,
     ``mesh``); returns (state, metrics)."""
     model = state.model
     batch = shard_batch(batch, mesh)
+    dev = batch["inputs"].device
     gen_params = model.generator_parameters()
     for p in model.parameters():
         p.grad = None
-    with sharded(mesh, model):
+    with phase_timer.span("forward", dev), sharded(mesh, model):
         loss, (metrics, feats) = param_estimator_loss(model, cfg, batch,
                                                       True, generator)
-    with no_tf32():
-        loss.backward()
-    fill_grads(gen_params)
-    average_gradients(gen_params, mesh)
-    state.opt.step()
-
-    if cfg.num_adv_classes > 0:
-        feats_d = feats.detach()
+    with phase_timer.span("backward", dev):
         with no_tf32():
-            d_loss = adversary_ce(cfg, model.discriminator(feats_d),
-                                  batch) * cfg.adv_weight
-            d_loss.backward()
-        fill_grads(model.discriminator.parameters())
-        average_gradients(model.discriminator.parameters(), mesh)
-        state.d_opt.step()
-        metrics["d_loss"] = d_loss.detach()
+            loss.backward()
+        fill_grads(gen_params)
+        average_gradients(gen_params, mesh)
+    with phase_timer.span("optimizer", dev):
+        state.opt.step()
+        if cfg.num_adv_classes > 0:
+            feats_d = feats.detach()
+            with no_tf32():
+                d_loss = adversary_ce(cfg, model.discriminator(feats_d),
+                                      batch) * cfg.adv_weight
+                d_loss.backward()
+            fill_grads(model.discriminator.parameters())
+            average_gradients(model.discriminator.parameters(), mesh)
+            state.d_opt.step()
+            metrics["d_loss"] = d_loss.detach()
     state.step += 1
     return state, reduce_metrics(metrics, mesh)
 

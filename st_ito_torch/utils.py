@@ -1,11 +1,13 @@
 """Device selection, WAV I/O and the batch helpers (the port's own copies of
 ``st_ito_tpu/utils.py``'s ``load_audio`` / ``save_audio``, on
 ``scipy.io.wavfile``, and of its ``apply_fade_in``, ``batch_peak_normalize``
-and ``batch_loudness_normalize``) and opt-in per-phase CUDA-event timing."""
+and ``batch_loudness_normalize``) and the port's named spans
+(``phase_timer``)."""
 
 from __future__ import annotations
 
 import contextlib
+import time
 from collections import defaultdict
 
 import numpy as np
@@ -80,45 +82,103 @@ def batch_loudness_normalize(x: torch.Tensor, sample_rate: int,
     return loudness_normalize(x, sample_rate, target_lufs)
 
 
-class PhaseTimer:
-    """Named spans timed with CUDA events.
+class _DeviceSpan:
+    """A CUDA event pair on the current stream, recorded without
+    synchronising."""
 
-    Off by default: ``span`` then returns at once and records nothing. When
-    enabled (``chip_smoke.py`` does so around the timed ES block), each span
-    on a CUDA device records an event pair on the current stream without
-    synchronising; ``read_ms`` synchronises once and returns each name's
-    span times in the order they ran. Spans on the CPU are not recorded:
-    there is no device time to read."""
+    __slots__ = ("pairs", "start")
+
+    def __init__(self, pairs: list):
+        self.pairs = pairs
+
+    def __enter__(self):
+        self.start = torch.cuda.Event(enable_timing=True)
+        self.start.record()
+
+    def __exit__(self, *exc):
+        end = torch.cuda.Event(enable_timing=True)
+        end.record()
+        self.pairs.append((self.start, end))
+
+
+class _HostSpan:
+    """``perf_counter_ns`` around host-only work, inside a profiler range
+    named ``st_ito.<name>``."""
+
+    __slots__ = ("times", "range", "t0")
+
+    def __init__(self, name: str, times: list):
+        self.times = times
+        self.range = torch.profiler.record_function(f"st_ito.{name}")
+
+    def __enter__(self):
+        self.range.__enter__()
+        self.t0 = time.perf_counter_ns()
+
+    def __exit__(self, *exc):
+        self.times.append(time.perf_counter_ns() - self.t0)
+        self.range.__exit__(*exc)
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+class PhaseTimer:
+    """Named spans of the port's work, of two kinds.
+
+    - ``span(name, device)``: device work, timed by a CUDA event pair on
+      the current stream. It opens no profiler range: the profiler mirrors
+      a range that encloses kernels as a device event of the same name,
+      which a trace would count as busy time. Not recorded on the CPU:
+      there is no device time to read.
+    - ``host_span(name)``: host-only work, timed by ``perf_counter_ns``
+      and opened as the profiler range ``st_ito.<name>``, which labels the
+      device's idle time in a trace. It must enclose no device work (no
+      kernel launch, no copy), for the mirror above. Recorded on the CPU
+      too.
+
+    A span records while it is active: when ``enabled`` is set
+    (``reset(True)``) or while a ``torch.profiler`` session runs.
+    Otherwise both return one shared no-op context manager. ``read_ms``
+    returns each name's times in ms in the order they ran, both kinds in
+    one dict, synchronising once where there are device spans."""
 
     def __init__(self):
         self.enabled = False
         self._events: dict[str, list] = defaultdict(list)
+        self._host_ns: dict[str, list] = defaultdict(list)
 
     def reset(self, enabled: bool) -> None:
         self.enabled = enabled
         self._events.clear()
+        self._host_ns.clear()
 
-    @contextlib.contextmanager
+    def _active(self) -> bool:
+        return self.enabled or torch._C._autograd._profiler_enabled()
+
     def span(self, name: str, device: torch.device):
-        if not self.enabled or device.type != "cuda":
-            yield
-            return
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        try:
-            yield
-        finally:
-            end.record()
-            self._events[name].append((start, end))
+        if device.type != "cuda" or not self._active():
+            return _NO_SPAN
+        return _DeviceSpan(self._events[name])
+
+    def host_span(self, name: str):
+        if not self._active():
+            return _NO_SPAN
+        return _HostSpan(name, self._host_ns[name])
 
     def read_ms(self) -> dict[str, list[float]]:
-        torch.cuda.synchronize()
-        return {name: [s.elapsed_time(e) for s, e in pairs]
-                for name, pairs in self._events.items()}
+        out = {name: [t * 1e-6 for t in ns]
+               for name, ns in self._host_ns.items()}
+        if self._events:
+            torch.cuda.synchronize()
+            for name, pairs in self._events.items():
+                out.setdefault(name, []).extend(
+                    s.elapsed_time(e) for s, e in pairs)
+        return out
 
 
-# the main path's spans: ask, k1 or k6, the LTI group's (k3, k4 in mega2; k5,
-# k2, k4 in mega; fft_fwd, k9, fft_inv in mx; k10_fwd, k9, k10_inv in fused),
-# the nonlinear stages' (k7, k8, multiband_fft), embed, tell
+# the port's spans (PERF.md's span table): ask, tell and generation in
+# run_es's host loop (ask and tell on the device in device_es.py's loop);
+# render and embed in the fitness; h2d, forward, backward and optimizer in
+# the pretext train step; loader_wait in prefetch_batches
 phase_timer = PhaseTimer()
